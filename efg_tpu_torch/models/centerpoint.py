@@ -1,0 +1,112 @@
+"""CenterPoint-VoxelNet (port of `efg_tpu/models/centerpoint.py`, serving
+half): points → on-device voxelization and mean VFE → SpMiddleResNetFHD
+sparse trunk → BEV → RPN → CenterHead; `predict` decodes the head maps and
+runs rotated NMS per task.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from efg_tpu_torch.modeling.backbones.rpn import RPN
+from efg_tpu_torch.modeling.backbones.sparse_net import SpMiddleResNetFHD
+from efg_tpu_torch.modeling.heads.center_head import CenterHead, decode_boxes, post_process_sample
+from efg_tpu_torch.modeling.readers.voxel_reader import dynamic_mean_vfe
+from efg_tpu_torch.ops.voxelize import grid_size
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on: `cuda` unless the caller asks
+    for another. Asking for a card that is not there raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
+    return device
+
+
+class VoxelNet(nn.Module):
+    """CenterPoint with the SpMiddleResNetFHD sparse trunk (Waymo flagship).
+    Parameters are created on `device` (default: the card)."""
+
+    def __init__(
+        self,
+        pc_range: Tuple[float, ...] = (-75.2, -75.2, -2.0, 75.2, 75.2, 4.0),
+        voxel_size: Tuple[float, ...] = (0.1, 0.1, 0.15),
+        max_voxels: int = 120000,
+        num_input_features: int = 5,
+        stage_caps: Sequence[int] = (70000, 45000, 25000, 20000),
+        tasks: Sequence[Dict[str, Any]] = (
+            {"num_classes": 3, "class_names": ["VEHICLE", "PEDESTRIAN", "CYCLIST"]},
+        ),
+        common_heads: Any = (("reg", (2, 2)), ("height", (1, 2)), ("dim", (3, 2)), ("rot", (2, 2))),
+        neck_cfg: Any = (),
+        act_dtype: str = "",
+        device="cuda",
+    ):
+        super().__init__()
+        device = resolve_device(device)
+        self.pc_range = tuple(pc_range)
+        self.voxel_size = tuple(voxel_size)
+        self.max_voxels = max_voxels
+        self.num_input_features = num_input_features
+        self.backbone = SpMiddleResNetFHD(
+            num_input_features=num_input_features,
+            grid_size=grid_size(pc_range, voxel_size),
+            stage_caps=tuple(stage_caps),
+            act_dtype=act_dtype,
+        )
+        self.neck = RPN(self.backbone.num_bev_channels, **dict(neck_cfg))
+        self.head = CenterHead(self.neck.num_channels, tasks, dict(common_heads))
+        self.to(device)
+
+    def forward(self, points: torch.Tensor, points_mask: torch.Tensor) -> List[Dict[str, torch.Tensor]]:
+        feats, coords, valid = dynamic_mean_vfe(
+            points, points_mask,
+            pc_range=self.pc_range, voxel_size=self.voxel_size,
+            max_voxels=self.max_voxels, num_input_features=self.num_input_features,
+        )
+        bev = self.backbone(feats.detach(), coords, valid)
+        return self.head(self.neck(bev))
+
+
+def predict(
+    preds: List[Dict[str, torch.Tensor]],
+    *,
+    post_cfg: Dict[str, Any],
+    model_cfg: Dict[str, Any],
+) -> Dict[str, torch.Tensor]:
+    """Decode + NMS every task, merge results: fixed-size [B, T·post_max]
+    detections; labels are 1-based global class ids (0 = no detection)."""
+    with_vel = "vel" in dict(model_cfg["common_heads"])
+    all_boxes, all_scores, all_labels, all_valid = [], [], [], []
+    offset = 0
+    for task_id, pred in enumerate(preds):
+        boxes, scores = decode_boxes(
+            pred,
+            pc_range=model_cfg["pc_range"],
+            voxel_size=model_cfg["voxel_size"],
+            out_size_factor=post_cfg["out_size_factor"],
+            with_vel=with_vel,
+        )
+        res = post_process_sample(
+            boxes, scores,
+            score_threshold=post_cfg["score_threshold"],
+            post_center_range=post_cfg["post_center_limit_range"],
+            nms_iou_threshold=post_cfg["nms"]["nms_iou_threshold"],
+            nms_pre_max_size=post_cfg["nms"]["nms_pre_max_size"],
+            nms_post_max_size=post_cfg["nms"]["nms_post_max_size"],
+        )
+        all_boxes.append(res["box3d"])
+        all_scores.append(res["scores"])
+        all_labels.append(torch.where(res["valid"], res["labels"] + 1 + offset, 0))
+        all_valid.append(res["valid"])
+        offset += int(model_cfg["tasks"][task_id]["num_classes"])
+    return dict(
+        box3d=torch.cat(all_boxes, dim=1),
+        scores=torch.cat(all_scores, dim=1),
+        labels=torch.cat(all_labels, dim=1),
+        valid=torch.cat(all_valid, dim=1),
+    )

@@ -1,0 +1,64 @@
+"""The port stands alone: efg_tpu_torch and chip_smoke.py import neither
+jax, flax nor any module of efg_tpu, in their source and at run time."""
+
+import ast
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "efg_tpu")
+
+
+def _forbidden(module: str) -> bool:
+    return any(module == f or module.startswith(f + ".") for f in FORBIDDEN)
+
+
+def _imported_modules(tree: ast.AST):
+    """Every module an import statement, `__import__` or
+    `importlib.import_module` with a literal name brings in."""
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+            yield from (f"{node.module}.{a.name}" for a in node.names)
+        elif isinstance(node, ast.Call) and node.args and isinstance(node.args[0], ast.Constant):
+            fn = node.func
+            name = fn.attr if isinstance(fn, ast.Attribute) else getattr(fn, "id", "")
+            if name in ("__import__", "import_module") and isinstance(node.args[0].value, str):
+                yield node.args[0].value
+
+
+def test_sources_import_no_jax_nor_efg_tpu():
+    files = sorted((ROOT / "efg_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    bad = [
+        f"{f.relative_to(ROOT)}: {m}"
+        for f in files
+        for m in _imported_modules(ast.parse(f.read_text(), str(f)))
+        if _forbidden(m)
+    ]
+    assert not bad, bad
+    assert not _forbidden("efg_tpu_torch.ops") and _forbidden("efg_tpu.ops")
+
+
+def test_importing_every_port_module_loads_no_jax():
+    code = """
+import json, pkgutil, importlib, sys
+import efg_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(efg_tpu_torch.__path__, "efg_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+print(json.dumps({"modules": names, "loaded": sorted(sys.modules)}))
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=300, check=True)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "efg_tpu_torch.models.centerpoint" in res["modules"]
+    assert "efg_tpu_torch.ops.cuda.sparse_kernels" in res["modules"]
+    assert [m for m in res["loaded"] if _forbidden(m)] == []
