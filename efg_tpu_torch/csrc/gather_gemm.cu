@@ -1,7 +1,9 @@
 // gather_gemm: the packed-rulebook sparse-conv contraction, for Hopper (sm_90a).
 //
 // Replaces: efg_tpu/ops/pallas/sparse_kernels.py `_fwd_kernel` (via
-// `fused_gather_gemm`), forward use: every SubM and strided sparse conv.
+// `fused_gather_gemm`): the forward of every SubM and strided sparse conv
+// (`efg_gather_gemm`), and its `emit_stacked` use in every backward, which
+// also writes out the gathered taps (`efg_gather_gemm_stacked`).
 //
 // Contract: features [V_in, C] bf16, packed [P, V_out] int32 with
 // packed[p, v] = pos·8 + fm·4 + f0·2 + fp, weights [P·3·C, O] bf16 with
@@ -12,6 +14,13 @@
 // may equal V_in); a set flag whose row falls outside [0, V_in) is treated
 // as 0 as well, so no load leaves the feature array.
 // C and O are each one of 16, 32, 64, 128.
+//
+// Stacked variant: besides `out` it writes the flag-masked tap rows it
+// gathers, stacked [V_out, P·3·C] bf16 with
+//   stacked[v, (p·3 + t)·C + c] = flag_t · f[row_t(v), c]
+// (the transpose of the TPU kernel's [P·3·C, vt] buffer, so that each
+// output row's taps are one contiguous row). It is the A tile the kernel
+// already stages in shared memory, stored to global memory as it is loaded.
 //
 // What bounds it on the H100: bytes. At the flagship widths a conv does
 // ~27·C·O·2 operations per output row against ≥ 2·C + 4·O + 4·P bytes of
@@ -55,12 +64,13 @@ struct Tiles {
       A_BYTES + W_BYTES > O_BYTES ? A_BYTES + W_BYTES : O_BYTES;
 };
 
-template <int C, int O>
+template <int C, int O, bool EMIT>
 __global__ void __launch_bounds__(kThreads)
 gather_gemm_kernel(const __nv_bfloat16* __restrict__ feat,
                    const int* __restrict__ packed,
                    const __nv_bfloat16* __restrict__ w,
-                   float* __restrict__ out, int v_in, int v_out, int n_pairs) {
+                   float* __restrict__ out, __nv_bfloat16* __restrict__ stacked,
+                   int v_in, int v_out, int n_pairs) {
   using T = Tiles<C, O>;
   constexpr int KC = T::KC, LDA = T::LDA, LDW = T::LDW, LDO = T::LDO;
   constexpr int NF = O / 16;  // accumulator fragments per warp
@@ -76,6 +86,7 @@ gather_gemm_kernel(const __nv_bfloat16* __restrict__ feat,
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int row0 = blockIdx.x * kTM;
+  const size_t lds = (size_t)n_pairs * 3 * C;  // stacked row length
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NF];
 #pragma unroll
@@ -103,6 +114,10 @@ gather_gemm_kernel(const __nv_bfloat16* __restrict__ feat,
             val = __ldg(reinterpret_cast<const uint4*>(feat + (size_t)src * C + kc + vc * 8));
           }
           *reinterpret_cast<uint4*>(sA + r * LDA + vc * 8) = val;
+          if (EMIT && row0 + r < v_out) {
+            *reinterpret_cast<uint4*>(stacked + (size_t)(row0 + r) * lds +
+                                      (p * 3 + t) * C + kc + vc * 8) = val;
+          }
         }
         // W: rows (p, t, kc .. kc+KC) of the [P·3·C, O] weight matrix
         constexpr int WV = O / 8;
@@ -144,24 +159,46 @@ gather_gemm_kernel(const __nv_bfloat16* __restrict__ feat,
   }
 }
 
-template <int C, int O>
-cudaError_t launch(const void* feat, const void* packed, const void* w, void* out,
-                   int v_in, int v_out, int n_pairs, cudaStream_t stream) {
-  const unsigned blocks = (unsigned)((v_out + kTM - 1) / kTM);
-  gather_gemm_kernel<C, O><<<blocks, kThreads, 0, stream>>>(
-      (const __nv_bfloat16*)feat, (const int*)packed, (const __nv_bfloat16*)w,
-      (float*)out, v_in, v_out, n_pairs);
+struct Args {
+  const void* feat;
+  const void* packed;
+  const void* w;
+  void* out;
+  void* stacked;
+  int v_in, v_out, n_pairs;
+};
+
+template <int C, int O, bool EMIT>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  const unsigned blocks = (unsigned)((a.v_out + kTM - 1) / kTM);
+  gather_gemm_kernel<C, O, EMIT><<<blocks, kThreads, 0, stream>>>(
+      (const __nv_bfloat16*)a.feat, (const int*)a.packed, (const __nv_bfloat16*)a.w,
+      (float*)a.out, (__nv_bfloat16*)a.stacked, a.v_in, a.v_out, a.n_pairs);
   return cudaGetLastError();
 }
 
-template <int C>
-cudaError_t launch_o(int o, const void* feat, const void* packed, const void* w,
-                     void* out, int v_in, int v_out, int n_pairs, cudaStream_t s) {
+template <int C, bool EMIT>
+cudaError_t launch_o(int o, const Args& a, cudaStream_t s) {
   switch (o) {
-    case 16: return launch<C, 16>(feat, packed, w, out, v_in, v_out, n_pairs, s);
-    case 32: return launch<C, 32>(feat, packed, w, out, v_in, v_out, n_pairs, s);
-    case 64: return launch<C, 64>(feat, packed, w, out, v_in, v_out, n_pairs, s);
-    case 128: return launch<C, 128>(feat, packed, w, out, v_in, v_out, n_pairs, s);
+    case 16: return launch<C, 16, EMIT>(a, s);
+    case 32: return launch<C, 32, EMIT>(a, s);
+    case 64: return launch<C, 64, EMIT>(a, s);
+    case 128: return launch<C, 128, EMIT>(a, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <bool EMIT>
+int dispatch(int device, int c, int o, const Args& a, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (a.v_out == 0) return cudaSuccess;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (c) {
+    case 16: return launch_o<16, EMIT>(o, a, s);
+    case 32: return launch_o<32, EMIT>(o, a, s);
+    case 64: return launch_o<64, EMIT>(o, a, s);
+    case 128: return launch_o<128, EMIT>(o, a, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -171,17 +208,15 @@ cudaError_t launch_o(int o, const void* feat, const void* packed, const void* w,
 extern "C" int efg_gather_gemm(int device, const void* feat, const void* packed,
                                const void* w, void* out, int v_in, int v_out,
                                int n_pairs, int c, int o, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  if (v_out == 0) return cudaSuccess;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (c) {
-    case 16: return launch_o<16>(o, feat, packed, w, out, v_in, v_out, n_pairs, s);
-    case 32: return launch_o<32>(o, feat, packed, w, out, v_in, v_out, n_pairs, s);
-    case 64: return launch_o<64>(o, feat, packed, w, out, v_in, v_out, n_pairs, s);
-    case 128: return launch_o<128>(o, feat, packed, w, out, v_in, v_out, n_pairs, s);
-    default: return cudaErrorInvalidValue;
-  }
+  return dispatch<false>(device, c, o, Args{feat, packed, w, out, nullptr, v_in, v_out, n_pairs},
+                         stream);
+}
+
+extern "C" int efg_gather_gemm_stacked(int device, const void* feat, const void* packed,
+                                       const void* w, void* out, void* stacked, int v_in,
+                                       int v_out, int n_pairs, int c, int o, void* stream) {
+  return dispatch<true>(device, c, o, Args{feat, packed, w, out, stacked, v_in, v_out, n_pairs},
+                        stream);
 }
 
 extern "C" const char* efg_error_string(int err) {

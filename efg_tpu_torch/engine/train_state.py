@@ -1,15 +1,26 @@
-"""Model definition protocol (port of `efg_tpu/engine/train_state.py`).
+"""Training state and model definition protocol (port of
+`efg_tpu/engine/train_state.py`).
 
-`ModelDef` is what an experiment's `build_model(config)` returns. The
-training-only fields of the JAX container (custom_loss, EMA hooks,
-init_params) and `TrainState` come with the training slice.
+efg_tpu threads an immutable pytree (step, params, batch_stats,
+opt_state) through its jitted step. Here the module holds the parameters
+and the BN running statistics, and the step updates both in place.
+`custom_loss` and the EMA hooks of the JAX container come with the models
+that use them (ConQueR).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Dict, Optional
 
 from torch import nn
+
+
+@dataclasses.dataclass
+class TrainState:
+    step: int  # updates applied so far
+    module: nn.Module  # parameters and BN buffers
+    opt_state: Any
 
 
 class ModelDef:

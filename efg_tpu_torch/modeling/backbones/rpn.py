@@ -39,18 +39,19 @@ class Conv2d(nn.Module):
 
 
 class ConvTranspose2d(nn.Module):
-    """Stride-s, kernel-s, VALID transposed conv in bf16; weight in torch's
-    [I, O, kh, kw] layout (the weight mapper flips flax's kernel)."""
+    """Stride-s, kernel-s, VALID transposed conv computing in `dtype` (None:
+    f32); weight in torch's [I, O, kh, kw] layout (the weight mapper flips
+    flax's kernel)."""
 
-    def __init__(self, cin: int, cout: int, stride: int):
+    def __init__(self, cin: int, cout: int, stride: int, dtype=torch.bfloat16):
         super().__init__()
         bound = 1.0 / math.sqrt(cin * stride * stride)
         self.weight = nn.Parameter(torch.empty(cin, cout, stride, stride).uniform_(-bound, bound))
-        self.stride = stride
+        self.stride, self.dtype = stride, dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv_transpose2d(x.to(torch.bfloat16), self.weight.to(torch.bfloat16),
-                                  stride=self.stride)
+        dt = self.dtype or torch.float32
+        return F.conv_transpose2d(x.to(dt), self.weight.to(dt), stride=self.stride)
 
 
 class _ConvBNReLU(nn.Module):

@@ -1,12 +1,14 @@
-"""CenterPoint head: separated regression heads, decode and rotated NMS
-(port of the serving half of `efg_tpu/modeling/heads/center_head.py`;
-target building and the losses come with the training slice).
+"""CenterPoint head: separated regression heads, on-device label
+assignment, fast focal + gathered L1 losses, decode and rotated NMS (port
+of `efg_tpu/modeling/heads/center_head.py`).
 
-Maps are NHWC at the module boundary like efg_tpu.
+Maps are NHWC at the module boundary like efg_tpu. Targets are computed
+for the whole batch at once (efg_tpu vmaps a per-sample function).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, List, Sequence, Tuple
 
 import torch
@@ -14,6 +16,7 @@ from torch import nn
 
 from efg_tpu_torch.modeling.backbones.rpn import Conv2d
 from efg_tpu_torch.modeling.common.norms import BatchNorm
+from efg_tpu_torch.ops.gaussian import gaussian_radius, splat_gaussians
 from efg_tpu_torch.ops.nms import NEG_INF, circle_nms, rotated_nms
 
 
@@ -69,6 +72,141 @@ class CenterHead(nn.Module):
         """x [B, H, W, C] → per-task {name: [B, H, W, c]}."""
         x = torch.relu(self.shared_bn(self.shared_conv(x.permute(0, 3, 1, 2))))
         return [getattr(self, f"task{t}")(x) for t in range(self.num_tasks)]
+
+
+# ---------------------------------------------------------------------------
+# Label assignment
+# ---------------------------------------------------------------------------
+
+
+def centerpoint_targets(
+    gt_boxes: torch.Tensor,
+    gt_classes: torch.Tensor,
+    gt_mask: torch.Tensor,
+    *,
+    tasks: Sequence[Dict[str, Any]],
+    feature_map_size: Tuple[int, int],
+    pc_range: Sequence[float],
+    voxel_size: Sequence[float],
+    out_size_factor: int,
+    gaussian_overlap: float,
+    min_radius: int,
+    with_vel: bool,
+    r_cap: int = 12,
+) -> List[Dict[str, torch.Tensor]]:
+    """CenterPoint training targets per task. gt_boxes [B, G, 9] (x, y, z,
+    dx, dy, dz, vx, vy, yaw), gt_classes [B, G] 1-based global class ids
+    (0 = padding), gt_mask [B, G]; feature_map_size = (W, H). Returns
+    per-task dicts of hm [B, H, W, C], anno_box [B, G, 8|10], ind, mask
+    and cat [B, G]."""
+    w_fm, h_fm = feature_map_size
+    vx, vy = voxel_size[0], voxel_size[1]
+    x0, y0 = pc_range[0], pc_range[1]
+
+    yaw = gt_boxes[..., -1]
+    yaw = yaw - torch.floor(yaw / (2 * math.pi) + 0.5) * (2 * math.pi)  # to [-π, π)
+
+    l_px = gt_boxes[..., 3] / vx / out_size_factor
+    w_px = gt_boxes[..., 4] / vy / out_size_factor
+    radius = gaussian_radius(l_px, w_px, gaussian_overlap).to(torch.int32)
+    radius = torch.clamp(radius, min=min_radius)
+    size_ok = (l_px > 0) & (w_px > 0)
+
+    ct_x = (gt_boxes[..., 0] - x0) / vx / out_size_factor
+    ct_y = (gt_boxes[..., 1] - y0) / vy / out_size_factor
+    cti_x, cti_y = ct_x.to(torch.int32), ct_y.to(torch.int32)  # truncation, as astype
+    in_fm = (cti_x >= 0) & (cti_x < w_fm) & (cti_y >= 0) & (cti_y < h_fm)
+
+    anno = [ct_x - cti_x.to(ct_x.dtype), ct_y - cti_y.to(ct_y.dtype), gt_boxes[..., 2]]
+    anno += [torch.log(torch.clamp(gt_boxes[..., i], min=1e-4)) for i in (3, 4, 5)]
+    if with_vel:
+        anno += [gt_boxes[..., 6], gt_boxes[..., 7]]
+    anno = torch.stack(anno + [torch.sin(yaw), torch.cos(yaw)], dim=-1)
+    ind_all = cti_y * w_fm + cti_x
+    centers = torch.stack([cti_x, cti_y], dim=-1)
+
+    out, offset = [], 0
+    for task in tasks:
+        n_cls = int(task["num_classes"])
+        in_task = (gt_classes > offset) & (gt_classes <= offset + n_cls)
+        cat = torch.clamp(gt_classes - offset - 1, 0, n_cls - 1)
+        m = gt_mask & in_task & size_ok & in_fm
+        hm = splat_gaussians(centers, radius, cat, m, shape=(h_fm, w_fm, n_cls), r_cap=r_cap)
+        out.append(dict(
+            hm=hm,
+            anno_box=anno * m[..., None].to(anno.dtype),
+            ind=torch.where(m, ind_all, 0),
+            mask=m,
+            cat=torch.where(m, cat, 0),
+        ))
+        offset += n_cls
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+
+def _gather_feat(fmap: torch.Tensor, ind: torch.Tensor) -> torch.Tensor:
+    """fmap [B, H, W, C], ind [B, M] flat (y·W + x) → [B, M, C]."""
+    b, h, w, c = fmap.shape
+    return torch.gather(fmap.reshape(b, h * w, c), 1, ind.long()[..., None].expand(-1, -1, c))
+
+
+def fast_focal_loss(out, target, ind, mask, cat, eps: float = 1e-12) -> torch.Tensor:
+    """CornerNet-style focal loss on sigmoided heatmaps out/target [B, H, W, C]."""
+    m = mask.to(torch.float32)
+    gt_weight = torch.pow(1 - target, 4)
+    neg_loss = (torch.log(torch.clamp(1 - out, min=eps)) * torch.square(out) * gt_weight).sum()
+    pos_pred = torch.gather(_gather_feat(out, ind), 2, cat.long()[..., None])[..., 0]
+    num_pos = m.sum()
+    pos_loss = (torch.log(torch.clamp(pos_pred, min=eps)) * torch.square(1 - pos_pred) * m).sum()
+    return torch.where(num_pos == 0, -neg_loss,
+                       -(pos_loss + neg_loss) / torch.clamp(num_pos, min=1.0))
+
+
+def reg_loss(output, mask, ind, target) -> torch.Tensor:
+    """Gathered L1 regression loss → per-dim vector [D]. output [B, H, W, D],
+    target [B, M, D]."""
+    pred = _gather_feat(output, ind)
+    m = mask.to(torch.float32)[..., None]
+    loss = torch.abs(pred * m - target * m)
+    loss = loss / (m.sum() + 1e-4)
+    return loss.sum(dim=(0, 1))
+
+
+def center_head_loss(
+    preds: List[Dict[str, torch.Tensor]],
+    targets: List[Dict[str, torch.Tensor]],
+    *,
+    code_weights: Sequence[float],
+    weight: float,
+    with_vel: bool,
+) -> Dict[str, torch.Tensor]:
+    """CenterHead losses per task: `{t}_loss` (trained), the logged
+    `{t}_hm_loss` / `{t}_loc_loss` (detached) and `{t}_num_positive`."""
+    out: Dict[str, torch.Tensor] = {}
+    for task_id, (pred, tgt) in enumerate(zip(preds, targets)):
+        hm = torch.clamp(torch.sigmoid(pred["hm"]), 1e-4, 1 - 1e-4)
+        hm_loss = fast_focal_loss(hm, tgt["hm"], tgt["ind"], tgt["mask"], tgt["cat"])
+        parts = [pred["reg"], pred["height"], pred["dim"]]
+        if with_vel:
+            parts.append(pred["vel"])
+        parts.append(pred["rot"])
+        box_loss = reg_loss(torch.cat(parts, dim=-1), tgt["mask"], tgt["ind"], tgt["anno_box"])
+        cw = torch.tensor(code_weights, dtype=box_loss.dtype, device=box_loss.device)
+        loc_loss = (box_loss * cw).sum()
+        out[f"{task_id}_loss"] = hm_loss + weight * loc_loss
+        out[f"{task_id}_hm_loss"] = hm_loss.detach()
+        out[f"{task_id}_loc_loss"] = loc_loss.detach()
+        out[f"{task_id}_num_positive"] = tgt["mask"].to(torch.float32).sum()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Decode + post-processing
+# ---------------------------------------------------------------------------
 
 
 def decode_boxes(

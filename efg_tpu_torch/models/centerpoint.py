@@ -1,7 +1,12 @@
-"""CenterPoint-VoxelNet (port of `efg_tpu/models/centerpoint.py`, serving
-half): points → on-device voxelization and mean VFE → SpMiddleResNetFHD
-sparse trunk → BEV → RPN → CenterHead; `predict` decodes the head maps and
-runs rotated NMS per task.
+"""CenterPoint-VoxelNet (port of `efg_tpu/models/centerpoint.py`): points
+→ on-device voxelization and mean VFE → SpMiddleResNetFHD sparse trunk →
+BEV → RPN → CenterHead. `compute_loss` assigns targets and computes the
+losses for training; `predict` decodes the head maps and runs rotated NMS
+per task.
+
+The module trains in `train()` mode (batch statistics, running-stat
+updates: efg_tpu's `train=True, mutable=["batch_stats"]`) and serves in
+`eval()` mode.
 """
 
 from __future__ import annotations
@@ -13,7 +18,13 @@ from torch import nn
 
 from efg_tpu_torch.modeling.backbones.rpn import RPN
 from efg_tpu_torch.modeling.backbones.sparse_net import SpMiddleResNetFHD
-from efg_tpu_torch.modeling.heads.center_head import CenterHead, decode_boxes, post_process_sample
+from efg_tpu_torch.modeling.heads.center_head import (
+    CenterHead,
+    center_head_loss,
+    centerpoint_targets,
+    decode_boxes,
+    post_process_sample,
+)
 from efg_tpu_torch.modeling.readers.voxel_reader import dynamic_mean_vfe
 from efg_tpu_torch.ops.voxelize import grid_size
 
@@ -68,8 +79,37 @@ class VoxelNet(nn.Module):
             pc_range=self.pc_range, voxel_size=self.voxel_size,
             max_voxels=self.max_voxels, num_input_features=self.num_input_features,
         )
-        bev = self.backbone(feats.detach(), coords, valid)
+        bev = self.backbone(feats.detach(), coords, valid)  # efg_tpu's stop_gradient
         return self.head(self.neck(bev))
+
+
+def compute_loss(
+    preds: List[Dict[str, torch.Tensor]],
+    batch: Dict[str, torch.Tensor],
+    *,
+    model_cfg: Dict[str, Any],
+) -> Dict[str, torch.Tensor]:
+    """batch needs gt_boxes [B, G, 9], gt_classes [B, G], gt_mask [B, G].
+    `loss` sums the `*_loss` keys that are neither hm nor loc parts."""
+    lc = model_cfg["loss"]
+    with_vel = "vel" in dict(model_cfg["common_heads"])
+    h, w = preds[0]["hm"].shape[1:3]
+    targets = centerpoint_targets(
+        batch["gt_boxes"], batch["gt_classes"], batch["gt_mask"],
+        tasks=model_cfg["tasks"],
+        feature_map_size=(w, h),
+        pc_range=model_cfg["pc_range"],
+        voxel_size=model_cfg["voxel_size"],
+        out_size_factor=lc["out_size_factor"],
+        gaussian_overlap=lc["gaussian_overlap"],
+        min_radius=lc["min_radius"],
+        with_vel=with_vel,
+    )
+    losses = center_head_loss(preds, targets, code_weights=lc["code_weights"],
+                              weight=lc["weight"], with_vel=with_vel)
+    losses["loss"] = sum(v for k, v in losses.items()
+                         if k.endswith("_loss") and "hm" not in k and "loc" not in k)
+    return losses
 
 
 def predict(

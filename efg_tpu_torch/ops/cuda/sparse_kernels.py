@@ -1,13 +1,19 @@
-"""Hopper kernels for the sparse conv (port of the forward subset of
+"""Hopper kernels for the sparse conv (port of
 `efg_tpu/ops/pallas/sparse_kernels.py`).
 
-Two hand-written CUDA C++ kernels carry the sparse trunk's forward:
+Three hand-written CUDA C++ kernels carry the sparse trunk, forward and
+backward:
 
 - `merge_rank_flags` → `csrc/rank_flags.cu` (replaces `_rank_kernel_seq`):
   ranks P monotone query rows against one sorted key array; every SubM and
-  strided rulebook is built from it.
+  strided rulebook, and the strided convs' inverse rulebooks, are built
+  from it.
 - `fused_gather_gemm` → `csrc/gather_gemm.cu` (replaces `_fwd_kernel`): the
-  packed-rulebook gather + GEMM that runs every sparse conv.
+  packed-rulebook gather + GEMM that runs every sparse conv's forward;
+  `gather_gemm_stacked` is its `emit_stacked` variant, which also returns
+  the gathered taps, and runs every backward's d_features pass.
+- `fused_gather_dw` → `csrc/gather_dw.cu` (replaces `_dw_kernel`): dW by
+  re-gathering the inputs, where the stacked taps do not apply.
 
 Each wrapper dispatches on the tensor's device: a CUDA tensor launches the
 kernel (or raises), a CPU tensor runs the plain PyTorch version beside it.
@@ -40,14 +46,25 @@ CLAMP_Q = 1 << 30  # canonical +inf value keys/queries are clamped to
 
 GEMM_CHANNELS = (16, 32, 64, 128)  # C and O the gather-GEMM kernel takes
 
-launches: Dict[str, int] = {"rank_flags": 0, "gather_gemm": 0}
+# Input rounding of the plain versions: bf16, as the kernels take. f32 only
+# for oracle comparisons against efg_tpu's f32 XLA path
+# (`efg_tpu.ops.sparse.set_compute_dtype`); the kernels refuse it.
+COMPUTE_DTYPE = torch.bfloat16
+
+launches: Dict[str, int] = {
+    "rank_flags": 0, "gather_gemm": 0, "gather_gemm_stacked": 0, "gather_dw": 0,
+}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_SIGNATURES = {
+_SIGNATURES = {  # csrc/<stem>.cu → its C entries
     "rank_flags": {"efg_rank_flags": [_I, _P, _I, _P, _L, _P, _P]},
-    "gather_gemm": {"efg_gather_gemm": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]},
+    "gather_gemm": {
+        "efg_gather_gemm": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "efg_gather_gemm_stacked": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    },
+    "gather_dw": {"efg_gather_dw": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]},
 }
-KERNEL_SOURCES = tuple(_SIGNATURES)  # csrc/<stem>.cu for each kernel
+KERNEL_SOURCES = tuple(_SIGNATURES)
 
 
 def reset_launches() -> None:
@@ -56,13 +73,15 @@ def reset_launches() -> None:
 
 
 def build_kernels() -> Dict[str, dict]:
-    """Compile both kernels in parallel (nvcc per source); returns the
+    """Compile every kernel source in parallel (nvcc per source); returns the
     per-source build seconds and compiler logs of what was compiled."""
     return _build.build(KERNEL_SOURCES)
 
 
 def _on_card(t: torch.Tensor) -> bool:
     if t.device.type == "cuda":
+        if COMPUTE_DTYPE != torch.bfloat16:
+            raise ValueError(f"the sparse kernels compute in bf16, not {COMPUTE_DTYPE}")
         return True
     if t.device.type == "cpu":
         return False
@@ -134,7 +153,7 @@ def merge_rank_flags(keys: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# kernel B: fused gather-GEMM over the packed rulebook
+# kernel B: fused gather-GEMM over the packed rulebook (and its stacked variant)
 # ---------------------------------------------------------------------------
 
 
@@ -145,44 +164,89 @@ def _taps(packed: torch.Tensor):
     return ((pos - 1, fm), (pos, f0), (pos + f0, fp))
 
 
+def _tap_rows(f: torch.Tensor, row: torch.Tensor, flag: torch.Tensor) -> torch.Tensor:
+    """f[row] where the flag is set and the row lies in [0, V_in), else 0."""
+    v_in = f.shape[0]
+    on = (flag > 0) & (row >= 0) & (row < v_in)
+    return torch.where(on[:, None], f[torch.clamp(row, 0, v_in - 1).long()], 0)
+
+
 def gather_gemm_plain(features: torch.Tensor, packed: torch.Tensor,
                       weights: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of the gather-GEMM: the same bf16-rounded
-    inputs, products and sums in f32."""
-    v_in, c = features.shape
+    """Plain PyTorch version of the gather-GEMM: the same inputs rounded to
+    COMPUTE_DTYPE (bf16, as the kernel), products and sums in f32."""
+    c = features.shape[1]
     n_pairs, v_out = packed.shape
-    f = features.to(torch.bfloat16).float()
-    w = weights.to(torch.bfloat16).float().reshape(n_pairs, 3, c, -1)
+    f = features.to(COMPUTE_DTYPE).float()
+    w = weights.to(COMPUTE_DTYPE).float().reshape(n_pairs, 3, c, -1)
     out = torch.zeros(v_out, w.shape[-1], dtype=torch.float32, device=features.device)
     for p in range(n_pairs):
         for t, (row, flag) in enumerate(_taps(packed[p])):
-            on = (flag > 0) & (row >= 0) & (row < v_in)
-            g = torch.where(on[:, None], f[torch.clamp(row, 0, v_in - 1).long()], 0.0)
-            out += g @ w[p, t]
+            out += _tap_rows(f, row, flag) @ w[p, t]
     return out
 
 
-def _gather_gemm_cuda(features, packed, weights) -> torch.Tensor:
+def gather_gemm_stacked_plain(features: torch.Tensor, packed: torch.Tensor,
+                              weights: torch.Tensor):
+    """Plain PyTorch version of the stacked variant: (out [V_out, O] f32,
+    stacked [V_out, P·3·C] bf16), the taps of every (pair, tap) side by
+    side and `out` = stacked @ weights in f32."""
+    f = features.to(COMPUTE_DTYPE)
+    stacked = torch.cat(
+        [_tap_rows(f, row, flag) for p in range(packed.shape[0]) for row, flag in _taps(packed[p])],
+        dim=1,
+    )
+    return stacked.float() @ weights.to(COMPUTE_DTYPE).float(), stacked
+
+
+def _width(n: int) -> int:
+    """The kernel channel width (one of GEMM_CHANNELS) that holds n."""
+    for w in GEMM_CHANNELS:
+        if n <= w:
+            return w
+    raise ValueError(f"the sparse kernels take at most {GEMM_CHANNELS[-1]} channels, got {n}")
+
+
+def _pad_cols(t: torch.Tensor, width: int) -> torch.Tensor:
+    return torch.nn.functional.pad(t, (0, width - t.shape[-1])) if t.shape[-1] != width else t
+
+
+def _gather_gemm_cuda(features, packed, weights, emit: bool):
     dev = features.device
     v_in, c = features.shape
     n_pairs, v_out = packed.shape
     o = weights.shape[1]
-    _require(features, "features", torch.bfloat16, 2, dev)
-    _require(packed, "packed", torch.int32, 2, dev)
-    _require(weights, "weights", torch.bfloat16, 2, dev)
-    if c not in GEMM_CHANNELS or o not in GEMM_CHANNELS:
-        raise ValueError(f"gather_gemm takes C, O in {GEMM_CHANNELS}; got C={c}, O={o}")
     if weights.shape[0] != n_pairs * 3 * c:
         raise ValueError(f"weights rows {weights.shape[0]} != P·3·C = {n_pairs * 3 * c}")
-    out = torch.empty(v_out, o, dtype=torch.float32, device=dev)
+    # other widths run zero-padded to the kernel's: zero channels add nothing
+    cw, ow = _width(c), _width(o)
+    f = _pad_cols(features.to(torch.bfloat16), cw).contiguous()
+    w = weights.to(torch.bfloat16).reshape(n_pairs * 3, c, o)
+    w = _pad_cols(torch.nn.functional.pad(w, (0, 0, 0, cw - c)), ow).reshape(-1, ow).contiguous()
+    packed = packed.to(torch.int32).contiguous()
+    _require(f, "features", torch.bfloat16, 2, dev)
+    _require(packed, "packed", torch.int32, 2, dev)
+    _require(w, "weights", torch.bfloat16, 2, dev)
+    out = torch.empty(v_out, ow, dtype=torch.float32, device=dev)
     lib = _build.load("gather_gemm", _SIGNATURES["gather_gemm"])
+    if emit:
+        stacked = torch.empty(v_out, n_pairs * 3 * cw, dtype=torch.bfloat16, device=dev)
+        err = lib.efg_gather_gemm_stacked(
+            dev.index or 0, f.data_ptr(), packed.data_ptr(), w.data_ptr(), out.data_ptr(),
+            stacked.data_ptr(), v_in, v_out, n_pairs, cw, ow, _stream(dev),
+        )
+        _build.check(lib, err, "gather_gemm_stacked launch")
+        launches["gather_gemm_stacked"] += 1
+        if cw != c:
+            stacked = stacked.view(v_out, n_pairs * 3, cw)[..., :c].reshape(v_out, -1)
+        return out[:, :o], stacked
     err = lib.efg_gather_gemm(
-        dev.index or 0, features.data_ptr(), packed.data_ptr(), weights.data_ptr(),
-        out.data_ptr(), v_in, v_out, n_pairs, c, o, _stream(dev),
+        dev.index or 0, f.data_ptr(), packed.data_ptr(), w.data_ptr(),
+        out.data_ptr(), v_in, v_out, n_pairs, cw, ow, _stream(dev),
     )
     _build.check(lib, err, "gather_gemm launch")
     launches["gather_gemm"] += 1
-    return out
+    return out[:, :o]
 
 
 def fused_gather_gemm(features: torch.Tensor, packed: torch.Tensor,
@@ -191,17 +255,90 @@ def fused_gather_gemm(features: torch.Tensor, packed: torch.Tensor,
     packed rulebook [P, V_out]; features [V_in, C] and weights
     [P·3·C, O] (rows (pair, tap, channel)) are rounded to bf16.
     V_in == V_out for SubM convs; strided convs index input rows from the
-    output sites."""
+    output sites. C, O ≤ 128."""
     if _on_card(features):
-        return _gather_gemm_cuda(
-            features.to(torch.bfloat16).contiguous(), packed.contiguous(),
-            weights.to(torch.bfloat16).contiguous(),
-        )
+        return _gather_gemm_cuda(features, packed, weights, emit=False)
     return gather_gemm_plain(features, packed, weights)
 
 
+def gather_gemm_stacked(features: torch.Tensor, packed: torch.Tensor,
+                        weights: torch.Tensor):
+    """`fused_gather_gemm` that also returns the gathered taps (the JAX
+    `emit_stacked=True`): (out [V_out, O] f32, stacked [V_out, P·3·C]
+    bf16) with stacked[v, (p·3 + t)·C + c] = flag_t · f[row_t(v), c].
+    The layout is the transpose of efg_tpu's [P·3·C, vt] buffer, without
+    its tile padding."""
+    if _on_card(features):
+        return _gather_gemm_cuda(features, packed, weights, emit=True)
+    return gather_gemm_stacked_plain(features, packed, weights)
+
+
+def stacked_weight_grad(stacked: torch.Tensor, features: torch.Tensor) -> torch.Tensor:
+    """stackedᵀ @ features [P·3·C_s, C_f] f32: the one dense product that
+    turns a stacked tap buffer into dW (efg_tpu's `dot_general` after
+    `emit_stacked`). bf16 operands are taken to f32 first, so the products
+    are exact and the sums f32 (TF32 off), as `preferred_element_type=f32`."""
+    return torch.matmul(stacked.t().float(), features.to(COMPUTE_DTYPE).float())
+
+
 # ---------------------------------------------------------------------------
-# conv ops over the packed rulebook (forward)
+# kernel C: dW by re-gathering the inputs
+# ---------------------------------------------------------------------------
+
+
+def gather_dw_plain(features: torch.Tensor, packed: torch.Tensor,
+                    g: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the dW kernel: dW [P·3·C, O] f32, the bf16
+    taps of every (pair, tap) contracted with the bf16 gradient, sums f32."""
+    f = features.to(COMPUTE_DTYPE).float()
+    gb = g.to(COMPUTE_DTYPE).float()
+    return torch.cat(
+        [_tap_rows(f, row, flag).t() @ gb
+         for p in range(packed.shape[0]) for row, flag in _taps(packed[p])],
+        dim=0,
+    )
+
+
+def _gather_dw_cuda(features, packed, g) -> torch.Tensor:
+    dev = features.device
+    v_in, c = features.shape
+    n_pairs, v_out = packed.shape
+    o = g.shape[1]
+    if g.shape[0] != v_out:
+        raise ValueError(f"g rows {g.shape[0]} != rulebook width {v_out}")
+    cw, ow = _width(c), _width(o)
+    f = _pad_cols(features.to(torch.bfloat16), cw).contiguous()
+    gb = _pad_cols(g.to(torch.bfloat16), ow).contiguous()
+    packed = packed.to(torch.int32).contiguous()
+    _require(f, "features", torch.bfloat16, 2, dev)
+    _require(packed, "packed", torch.int32, 2, dev)
+    _require(gb, "g", torch.bfloat16, 2, dev)
+    dw = torch.zeros(n_pairs * 3 * cw, ow, dtype=torch.float32, device=dev)
+    lib = _build.load("gather_dw", _SIGNATURES["gather_dw"])
+    err = lib.efg_gather_dw(
+        dev.index or 0, f.data_ptr(), packed.data_ptr(), gb.data_ptr(), dw.data_ptr(),
+        v_in, v_out, n_pairs, cw, ow, _stream(dev),
+    )
+    _build.check(lib, err, "gather_dw launch")
+    launches["gather_dw"] += 1
+    return dw.view(n_pairs * 3, cw, ow)[:, :c, :o].reshape(-1, o)
+
+
+def fused_gather_dw(features: torch.Tensor, packed: torch.Tensor,
+                    g: torch.Tensor) -> torch.Tensor:
+    """dW [P·3·C, O] f32 of the packed contraction (rows (pair, tap, c)):
+    Σ_v flag_t · f[row_t(v)]ᵀ g[v], with features [V_in, C] and the
+    upstream gradient g [V_out, O] (pre-masked by out_valid) rounded to
+    bf16. On the card the sum over V is reduced with f32 atomics, in no
+    fixed order: compare at f32-accumulation tolerance (~1e-5 of max|dW|),
+    never bit for bit."""
+    if _on_card(features):
+        return _gather_dw_cuda(features, packed, g)
+    return gather_dw_plain(features, packed, g)
+
+
+# ---------------------------------------------------------------------------
+# conv ops over the packed rulebook, with their backward
 # ---------------------------------------------------------------------------
 
 
@@ -217,23 +354,134 @@ def _pad_channels(features, weights, cin):
     return features, weights
 
 
+def subm_conv9_backward(features, weights, packed, out_valid, g):
+    """(d_features, dW) of `subm_conv9` (efg_tpu `subm_conv9`'s bwd).
+
+    d_features is another gather-GEMM over the same rulebook with the
+    27-raster reversal of the weights (pairs and taps flipped jointly,
+    C and O swapped). With cout % 16 == 0 that gather also emits its taps
+    stacked_g[u, κ·O + o] = flag_κ(u)·ĝ[r_κ(u), o], and dW is one dense
+    product: dW[κ] = (stacked_gᵀ f)[flip(κ)]ᵀ. Otherwise dW comes from the
+    dW kernel. Padding rows of f are zero, so flags there cancel."""
+    k3, cin, cout = weights.shape
+    g = g * out_valid[:, None].to(g.dtype)
+    w_flip = weights.flip(0).transpose(1, 2).reshape(k3 * cout, cin)
+    if cout % 16 == 0:
+        d_feats, stacked = gather_gemm_stacked(g, packed, w_flip)
+        dw = stacked_weight_grad(stacked, features).reshape(k3, cout, cin)
+        dw = dw.flip(0).transpose(1, 2)
+    else:
+        d_feats = fused_gather_gemm(g, packed, w_flip)
+        dw = fused_gather_dw(features, packed, g).reshape(k3, cin, cout)
+    return d_feats.to(features.dtype), dw.to(weights.dtype)
+
+
+class _SubMConv9(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, features, weights, packed, out_valid):
+        k3, cin, cout = weights.shape
+        ctx.save_for_backward(features, weights, packed, out_valid)
+        out = fused_gather_gemm(features, packed, weights.reshape(k3 * cin, cout))
+        return out * out_valid[:, None].to(torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        d_feats, dw = subm_conv9_backward(*ctx.saved_tensors, g)
+        return d_feats, dw, None, None
+
+
 def subm_conv9(features: torch.Tensor, packed: torch.Tensor, weights: torch.Tensor,
                out_valid: torch.Tensor) -> torch.Tensor:
-    """SubM rule9 conv, out [V, O] f32. `weights` [K = 27, C, O] in (pair,
-    δx) raster order; channels pad to a multiple of 16."""
-    k3, cin0, cout = weights.shape
+    """SubM rule9 conv, out [V, O] f32, differentiable in features and
+    weights. `weights` [K = 27, C, O] in (pair, δx) raster order; channels
+    pad to a multiple of 16 (the padded rows get no gradient)."""
+    cin0 = weights.shape[1]
     features, weights = _pad_channels(features, weights, _rup(cin0, 16))
-    out = fused_gather_gemm(features, packed, weights.reshape(-1, cout))
-    return out * out_valid[:, None].to(torch.float32)
+    return _SubMConv9.apply(features, weights, packed, out_valid)
+
+
+def _strided_d_feats(w2d, g, inv, n_pairs: int, kw3: int, features=None):
+    """d_features of a strided conv as a gather-GEMM over its inverse
+    rulebook: the gather source is the output-row gradient, the weights are
+    the transposed κ blocks that `wmap` routes to each (pseudo-pair, tap).
+    With `features`, the gather also emits its taps and dW comes back as one
+    dense product routed by `wmap` (no raster flip: the inverse rulebook
+    already encodes v = out_κ(u)); returns (d_features, dW [P·3·C, O])."""
+    packed_inv, wmap = inv
+    cin, cout = w2d.shape[0] // (n_pairs * 3), w2d.shape[1]
+    # w2d rows are ((κz·kh + κy), κx-tap, c); flat κ = pair·kw3 + κx
+    wk = w2d.reshape(n_pairs, 3, cin, cout)
+    if kw3 == 1:
+        wk = wk[:, 1:2]  # the single real tap
+    wk = wk.reshape(n_pairs * kw3, cin, cout)
+    zero = w2d.new_zeros(cout, cin)
+    w_inv = torch.stack(
+        [wk[ki].t() if ki >= 0 else zero for taps in wmap for ki in taps]
+    ).reshape(len(wmap) * 3 * cout, cin)
+    if features is None:
+        return fused_gather_gemm(g, packed_inv, w_inv)
+    d_feats, stacked = gather_gemm_stacked(g, packed_inv, w_inv)
+    g2 = stacked_weight_grad(stacked, features).reshape(len(wmap), 3, cout, cin)
+    dwk = g2.new_zeros(n_pairs * kw3, cin, cout)
+    for pp, taps in enumerate(wmap):
+        for t, ki in enumerate(taps):
+            if ki >= 0:
+                dwk[ki] += g2[pp, t].t()
+    if kw3 == 1:  # zero m/p tap blocks around the real one
+        dw = torch.nn.functional.pad(dwk.reshape(n_pairs, 1, cin, cout), (0, 0, 0, 0, 1, 1))
+    else:
+        dw = dwk.reshape(n_pairs, 3, cin, cout)
+    return d_feats, dw.reshape(n_pairs * 3 * cin, cout)
+
+
+def strided_conv_backward(features, w2d, packed, out_valid, inv, kw3: int, g):
+    """(d_features, dW [P·3·C, O]) of `strided_conv_packed` (efg_tpu
+    `strided_conv_packed`'s bwd): d_features over the inverse rulebook; dW
+    from its stacked taps when cout % 16 == 0, else from the dW kernel over
+    the forward rulebook. efg_tpu's `_d_feats_xla`, taken only without an
+    inverse rulebook, has no counterpart: the port always builds one for a
+    conv that needs a gradient."""
+    cin, cout = features.shape[1], w2d.shape[1]
+    n_pairs = w2d.shape[0] // (3 * cin)
+    g = g * out_valid[:, None].to(g.dtype)
+    if cout % 16 == 0:
+        d_feats, dw = _strided_d_feats(w2d, g, inv, n_pairs, kw3, features)
+    else:
+        d_feats = _strided_d_feats(w2d, g, inv, n_pairs, kw3)
+        dw = fused_gather_dw(features, packed, g)
+    return d_feats.to(features.dtype), dw.to(w2d.dtype)
+
+
+class _StridedConv(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, features, w2d, packed, out_valid, packed_inv, wmap, kw3):
+        ctx.save_for_backward(features, w2d, packed, out_valid, packed_inv)
+        ctx.wmap, ctx.kw3 = wmap, kw3
+        out = fused_gather_gemm(features, packed, w2d)
+        return out * out_valid[:, None].to(torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        features, w2d, packed, out_valid, packed_inv = ctx.saved_tensors
+        if packed_inv is None:
+            raise RuntimeError(
+                "strided conv backward needs the inverse rulebook: pass "
+                "inv=build_monotone_rule_strided_inverse(...)"
+            )
+        d_feats, dw = strided_conv_backward(
+            features, w2d, packed, out_valid, (packed_inv, ctx.wmap), ctx.kw3, g
+        )
+        return d_feats, dw, None, None, None, None, None
 
 
 def strided_conv_packed(features: torch.Tensor, packed: torch.Tensor,
                         weights: torch.Tensor, out_valid: torch.Tensor, *,
-                        kw3: int) -> torch.Tensor:
+                        kw3: int, inv=None) -> torch.Tensor:
     """Strided-conv forward over the packed rulebook from
-    `build_monotone_rule_strided`. weights [K, C, O] in (κz, κy, κx)
-    raster; kw=1 kernels place their single tap in the middle (δx=0) block
-    and zero the m/p blocks."""
+    `build_monotone_rule_strided`, differentiable in features and weights
+    when `inv` = (packed_inv, wmap) from `build_monotone_rule_strided_inverse`
+    is given. weights [K, C, O] in (κz, κy, κx) raster; kw=1 kernels place
+    their single tap in the middle (δx=0) block and zero the m/p blocks."""
     k, cin0, cout = weights.shape
     n_pairs = k // kw3
     cin = _rup(cin0, 16)
@@ -243,8 +491,9 @@ def strided_conv_packed(features: torch.Tensor, packed: torch.Tensor,
         wtap[:, 1] = weights.reshape(n_pairs, cin, cout)
     else:
         wtap = weights.reshape(n_pairs, 3, cin, cout)
-    out = fused_gather_gemm(features, packed, wtap.reshape(-1, cout))
-    return out * out_valid[:, None].to(torch.float32)
+    packed_inv, wmap = inv if inv is not None else (None, None)
+    return _StridedConv.apply(features, wtap.reshape(-1, cout), packed, out_valid,
+                              packed_inv, wmap, kw3)
 
 
 # ---------------------------------------------------------------------------
@@ -372,3 +621,102 @@ def build_monotone_rule_strided(st_in, ob, oz, oy, ox, out_valid, kernel_size,
             expanded += [r, dummy, dummy]
         rows = expanded
     return torch.stack(rows)  # [P, V_out]
+
+
+def build_monotone_rule_strided_inverse(st_in, out_keys, out_spatial, kernel_size,
+                                        stride, padding):
+    """Inverse packed rulebook of a strided conv, for its d_features: for
+    each INPUT row, which OUTPUT rows consume it and through which kernel
+    offset. Returns (packed_inv [P₂, V_in], wmap), wmap[pp] giving the flat
+    κ = (κz·kh + κy)·kw + κx that feeds each of the pseudo-pair's 3 tap
+    slots (−1 = zero weight).
+
+    Under x-stride 2 an input row feeds ≤ 2 outputs whose κx depends on the
+    x parity, so each (κz, κy) splits into parity pseudo-pairs:
+      · sw=2, kw=3: A (x+pw even): taps (·, κx=2, κx=0) at output keys
+        (q, q+1); B (x+pw odd): tap (·, κx=1, ·). One ranked query row
+        serves both (the merged query is monotone); flags split after.
+      · sw=1, kw=3: one pair, taps (κx=2, κx=1, κx=0) at (q−1, q, q+1).
+      · kw=1: one pair, middle tap only.
+    A query row is monotone only over the rows whose (z, y) parities match
+    the pair, so the other rows are backfilled with a running max; all
+    pairs are ranked by one rank-kernel call. (k, 1, 1) kernels give each
+    κz its own group of 3 (real pair + two zero-flag dummies, the weights'
+    κz at slot 3·κz), and pairs pad with empty rows to a multiple of 3."""
+    kd, kh, kw3 = kernel_size
+    sd, sh, sw = stride
+    pd, ph, pw = padding
+    if kw3 not in (1, 3) or sw not in (1, 2):
+        raise ValueError(f"inverse rulebook needs kw in (1, 3) and x-stride in (1, 2), "
+                         f"got kw={kw3}, stride={stride}")
+    od, oh, ow = out_spatial
+    v_out = out_keys.shape[0]
+    if st_in.batch_size * od * oh * ow >= 2**31:
+        raise ValueError("output linear key overflows int32")
+    b, z, y, x = st_in.coords.unbind(1)
+    int_min = torch.iinfo(torch.int32).min
+
+    queries, mm, m0, mp = [], [], [], []
+
+    def lookup3(q, okm, ok0, okp):
+        ok_any = okm | ok0 | okp
+        qv = torch.clamp(torch.cummax(torch.where(ok_any, q, int_min), 0).values, min=0)
+        queries.append(torch.where(st_in.valid, qv, CLAMP_Q))
+        mm.append(okm)
+        m0.append(ok0)
+        mp.append(okp)
+
+    splits, wmap = [], []  # per query row: its pseudo-pairs' (tap-0 mask, mask of f0)
+    none = torch.zeros_like(st_in.valid)
+    for kz in range(kd):
+        for ky in range(kh):
+            ozn = z + pd - kz
+            oyn = y + ph - ky
+            oz = ozn // sd
+            oy = oyn // sh
+            okzy = (st_in.valid & (ozn % sd == 0) & (oz >= 0) & (oz < od)
+                    & (oyn % sh == 0) & (oy >= 0) & (oy < oh))
+            kflat = (kz * kh + ky) * kw3
+            base = ((b * od + oz) * oh + oy) * ow
+            if kw3 == 3 and sw == 2:
+                par_even = (x + pw) % 2 == 0
+                oxa = (x + pw) // 2 - 1  # A: κx=2 output; κx=0 at oxa+1
+                oxb = (x + pw - 1) // 2  # B: κx=1 output
+                oxm = torch.where(par_even, oxa, oxb)
+                ok_a, ok_b = okzy & par_even, okzy & ~par_even
+                lookup3(base + oxm, none, okzy & (oxm >= 0) & (oxm < ow),
+                        ok_a & (oxm + 1 >= 0) & (oxm + 1 < ow))
+                splits.append((ok_a, ok_b))
+                wmap += [(-1, kflat + 2, kflat + 0), (-1, kflat + 1, -1)]
+            elif kw3 == 3:
+                oxm = x + pw - 1  # κx=1 output; κx=2 at oxm−1, κx=0 at oxm+1
+                lookup3(base + oxm, okzy & (oxm - 1 >= 0) & (oxm - 1 < ow),
+                        okzy & (oxm >= 0) & (oxm < ow), okzy & (oxm + 1 >= 0) & (oxm + 1 < ow))
+                splits.append(None)
+                wmap.append((kflat + 2, kflat + 1, kflat + 0))
+            else:
+                oxn = x + pw
+                ox = oxn // sw
+                ok = okzy & (oxn % sw == 0) & (ox >= 0) & (ox < ow)
+                lookup3(base + ox, none, ok, none)
+                splits.append(None)
+                wmap.append((-1, kflat, -1))
+
+    ranked = _mask_flags(merge_rank_flags(out_keys, torch.stack(queries)),
+                         torch.stack(mm), torch.stack(m0), torch.stack(mp))
+    rows = []
+    for pk, split in zip(ranked, splits):
+        if split is None:
+            rows.append(pk)
+            continue
+        ok_a, ok_b = (s.to(torch.int32) for s in split)
+        pos8, f0, fp = (pk >> 3) * 8, (pk >> 1) & 1, pk & 1
+        rows += [pos8 + (f0 & ok_a) * 2 + fp, pos8 + (f0 & ok_b) * 2]
+    if kh == 1 and kd > 1:
+        rows = [r2 for r in rows for r2 in (r, (r >> 3) * 8, (r >> 3) * 8)]
+        wmap = [m2 for m in wmap
+                for m2 in (tuple(3 * k if k >= 0 else -1 for k in m), (-1, -1, -1), (-1, -1, -1))]
+    while len(rows) % 3:  # efg_tpu's layout (its kernel's group of 3); empty rows add 0
+        rows.append(torch.full_like(rows[0], v_out * 8))
+        wmap.append((-1, -1, -1))
+    return torch.stack(rows), tuple(wmap)

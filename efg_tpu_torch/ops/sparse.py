@@ -1,11 +1,11 @@
-"""Sparse 3D convolution on sorted-key rulebooks (port of the forward of
+"""Sparse 3D convolution on sorted-key rulebooks (port of
 `efg_tpu/ops/sparse.py`).
 
 A `SparseTensor` is a fixed-capacity array of voxel rows sorted by their
 linearized (b, z, y, x) keys, with a validity mask. Every conv here runs on
 the packed anchor rulebook of `ops/cuda/sparse_kernels.py` (the JAX
 `backend="pallas"` branch): the rank kernel builds the rulebooks and the
-gather-GEMM kernel runs the contraction. The JAX XLA-backend rulebooks
+gather-GEMM kernel runs the contraction, forward and backward. The JAX XLA-backend rulebooks
 (`build_subm_rulebook9`, `gather_gemm9`, the table / search strided paths)
 are a second implementation of the same convs and are not ported.
 """
@@ -212,13 +212,19 @@ def spconv_downsample(
         st, out_coords[:, 0], out_coords[:, 1], out_coords[:, 2], out_coords[:, 3],
         out_valid, ks, s, p,
     )
+    # the inverse rulebook serves only the backward: built when a gradient
+    # is to be taken (efg_tpu builds it always, and XLA drops it unused)
+    inv = None
+    if torch.is_grad_enabled() and (st.features.requires_grad or weights.requires_grad):
+        inv = K.build_monotone_rule_strided_inverse(st, out_keys, out_shape, ks, s, p)
     if kh == 1:
         # the builder expanded each κz pair to its own group of 3: zero-pad
-        # the weight pairs to match [κ0, 0, 0, κ1, 0, 0, …]
+        # the weight pairs to match [κ0, 0, 0, κ1, 0, 0, …]; the slice
+        # assignment carries dW back to the real [kd, C, O] weight
         w_eff = weights.new_zeros(3 * kd, weights.shape[1], weights.shape[2])
         w_eff[::3] = weights
         weights = w_eff
-    out_feats = K.strided_conv_packed(st.features, packed, weights, out_valid, kw3=kw)
+    out_feats = K.strided_conv_packed(st.features, packed, weights, out_valid, kw3=kw, inv=inv)
     if bias is not None:
         out_feats = (out_feats + bias) * out_valid[:, None].to(out_feats.dtype)
     return SparseTensor(out_feats, out_coords, out_keys, out_valid, out_shape, st.batch_size)

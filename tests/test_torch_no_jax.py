@@ -59,6 +59,21 @@ print(json.dumps({"modules": names, "loaded": sorted(sys.modules)}))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
                          text=True, timeout=300, check=True)
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "efg_tpu_torch.models.centerpoint" in res["modules"]
-    assert "efg_tpu_torch.ops.cuda.sparse_kernels" in res["modules"]
+    for name in ("models.centerpoint", "ops.cuda.sparse_kernels", "ops.gaussian",
+                 "solver.optimizers", "solver.schedulers", "engine.trainer"):
+        assert f"efg_tpu_torch.{name}" in res["modules"], name
     assert [m for m in res["loaded"] if _forbidden(m)] == []
+
+
+def test_every_kernel_source_is_bound_and_built():
+    """Each csrc/*.cu has C entries bound in sparse_kernels and is among the
+    sources the build compiles; no source is left out."""
+    from efg_tpu_torch.ops.cuda import sparse_kernels as K
+
+    sources = sorted(p.stem for p in (ROOT / "efg_tpu_torch" / "csrc").glob("*.cu"))
+    assert sources == sorted(K.KERNEL_SOURCES) == ["gather_dw", "gather_gemm", "rank_flags"]
+    for stem in sources:
+        text = (ROOT / "efg_tpu_torch" / "csrc" / f"{stem}.cu").read_text()
+        for entry in K._SIGNATURES[stem]:
+            assert f'extern "C" int {entry}(' in text, entry
+    assert set(K.launches) == {"rank_flags", "gather_gemm", "gather_gemm_stacked", "gather_dw"}

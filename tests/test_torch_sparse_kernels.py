@@ -20,6 +20,7 @@ from efg_tpu_torch.ops.cuda import sparse_kernels as K
 PK.set_interpret(True)
 
 SHAPE = (6, 10, 12)  # (D, H, W)
+NO_LAUNCHES = {"rank_flags": 0, "gather_gemm": 0, "gather_gemm_stacked": 0, "gather_dw": 0}
 
 
 def sites(seed, bsz=2, n=60, cap=80, c=5, shape=SHAPE):
@@ -72,7 +73,7 @@ def test_rank_flags_plain_matches_pallas(impl, chunk):
         np.testing.assert_array_equal(got >> 3, want >> 3)
         ok = q < PK.INVALID_Q
         np.testing.assert_array_equal(got[ok], want[ok])
-    assert K.launches == {"rank_flags": 0, "gather_gemm": 0}  # CPU: plain version
+    assert K.launches == NO_LAUNCHES  # CPU: plain version
 
 
 def test_rule9_builder_matches_pallas():
@@ -134,7 +135,7 @@ def test_subm_gather_gemm_matches_pallas(cin, cout):
     finally:
         S.set_compute_dtype(jnp.bfloat16)
     np.testing.assert_allclose(got, oracle, rtol=2e-2, atol=2e-2)
-    assert K.launches == {"rank_flags": 0, "gather_gemm": 0}
+    assert K.launches == NO_LAUNCHES
 
 
 def valid_rows(st_j):
