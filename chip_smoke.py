@@ -45,11 +45,24 @@ either. Phases (each prints JSON lines; any failure exits 1):
              kernel on all 12 rulebook builds (exact). Medians of 20 runs.
              One stage-0 conv cut to C=5, O=8 runs the wrappers' padding
              branch through the dW kernel and the gather-GEMM.
-8. train_profile — one more flagship training step under torch.profiler,
+8. variants — the kernels behind efg_tpu's switches (EFG_RANK_IMPL=seq4,
+             `seq=False`, EFG_SPARSE_G3). First on the captured inputs of
+             phases kernels and train_kernels: the seq4 and hostwin rank
+             kernels on all 20 rank calls (exact, and equal to
+             rank_flags.cu), the g3 gather-GEMM on the 16 forward and the
+             15 stacked calls its gate admits (out within 1e-3·max|ref|,
+             taps bit-exact). Then the path under seq4 + g3: the flagship
+             from the seeded weights serves two bs=4 requests (launches
+             seq4 8, g3 16, gather-GEMM 5 per forward) and trains a warm-up
+             and the timed steps (seq4 12, g3 16 + 5, stacked g3 15 + 6 per
+             step), its rulebooks equal to the default kernel's, its head
+             maps and step-1 loss and grad_norm within the tolerances of
+             check and train_check against the default path.
+9. train_profile — one more flagship training step under torch.profiler,
              its parts separated by device synchronization: per part the
              wall time, device busy time, idle share and kernel count; the
              kernels that take the most device time.
-9. train_check — a small model trains 3 steps on the card and on the CPU
+10. train_check — a small model trains 3 steps on the card and on the CPU
              (plain versions) from the same weights and batches: step 1's
              gradient of every parameter, and the losses and grad_norm of
              every step, within fixed bf16 tolerances; a third run on the
@@ -61,6 +74,8 @@ The second-to-last line lists every kernel as JSON; the last line is
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import os
 import re
@@ -116,8 +131,22 @@ TRAIN_STEPS = 3  # timed, after one warm-up step
 # launches per serving forward and per training step (21 sparse convs; 4
 # of them strided, each with an inverse rulebook when trained; every conv's
 # cout is a multiple of 16, so dW always comes from the stacked taps)
-SERVE_LAUNCHES = {"rank_flags": 8, "gather_gemm": 21, "gather_gemm_stacked": 0, "gather_dw": 0}
-TRAIN_LAUNCHES = {"rank_flags": 12, "gather_gemm": 21, "gather_gemm_stacked": 21, "gather_dw": 0}
+NO_VARIANTS = {"rank_flags_seq4": 0, "rank_flags_hostwin": 0, "gather_gemm_g3": 0,
+               "gather_gemm_g3_stacked": 0}
+SERVE_LAUNCHES = {"rank_flags": 8, "gather_gemm": 21, "gather_gemm_stacked": 0, "gather_dw": 0,
+                  **NO_VARIANTS}
+TRAIN_LAUNCHES = {"rank_flags": 12, "gather_gemm": 21, "gather_gemm_stacked": 21, "gather_dw": 0,
+                  **NO_VARIANTS}
+# the same under EFG_RANK_IMPL=seq4 and EFG_SPARSE_G3 (phase variants): every
+# rulebook through the seq4 kernel; the gathers whose operand is at most 64
+# channels wide over at least two δz-groups through the g3 kernel (forward:
+# conv_input, res0-2, down1-3; backward: conv_input, res0-2 and the down1
+# and down2 inverses; not res3, down3's inverse nor the (3,1,1) conv)
+VARIANT_SERVE_LAUNCHES = {**SERVE_LAUNCHES, "rank_flags": 0, "rank_flags_seq4": 8,
+                          "gather_gemm": 5, "gather_gemm_g3": 16}
+VARIANT_TRAIN_LAUNCHES = {**TRAIN_LAUNCHES, "rank_flags": 0, "rank_flags_seq4": 12,
+                          "gather_gemm": 5, "gather_gemm_g3": 16, "gather_gemm_stacked": 6,
+                          "gather_gemm_g3_stacked": 15}
 
 
 def emit(obj) -> None:
@@ -398,37 +427,8 @@ RANK_LABELS = ["subm0", "down1", "subm1", "down2", "subm2", "down3", "subm3", "e
 def phase_kernels(capture, card: str, launches: dict):
     """Every kernel call of the captured bs=4 serving forward, on the card,
     against its plain version; returns the kernel rows by name."""
-    import torch
-
-    from efg_tpu_torch.ops.cuda import sparse_kernels as K
-
     rank_rows = [_rank_row(RANK_LABELS[i], k, q) for i, (k, q) in enumerate(capture.rank)]
-    gemm_rows = []
-    for i, (features, packed, weights) in enumerate(capture.gemm):
-        f = features.to(torch.bfloat16).contiguous()
-        w = weights.to(torch.bfloat16).contiguous()
-        p = packed.contiguous()
-        got = K.fused_gather_gemm(f, p, w)
-        ref = K.gather_gemm_plain(f, p, w)
-        torch.cuda.synchronize()
-        scale = float(ref.abs().max())
-        err = float((got - ref).abs().max())
-        bound = 1e-3 * max(scale, 1e-6)
-        if not err <= bound:
-            raise AssertionError(f"gather_gemm {gemm_label(i)}: max|Δ| {err} > {bound}")
-        v_in, c = f.shape
-        n_pairs, v_out = p.shape
-        o = w.shape[1]
-        found = _found(p)
-        bytes_ = 2 * v_in * c + 4 * n_pairs * v_out + 2 * w.numel() + 4 * v_out * o
-        gemm_rows.append(dict(
-            label=gemm_label(i), P=n_pairs, V_in=v_in, V_out=v_out, C=c, O=o, taps_found=found,
-            ms=timed(lambda: K.fused_gather_gemm(f, p, w)),
-            plain_ms=timed(lambda: K.gather_gemm_plain(f, p, w)),
-            bytes_ms=1e3 * bytes_ / H100_BYTES_PER_S,
-            ops_ms=1e3 * 2 * found * c * o / H100_BF16_FLOPS,
-            max_abs_err=err, max_ref=scale))
-        gemm_rows[-1]["bound_ms"] = max(gemm_rows[-1]["bytes_ms"], gemm_rows[-1]["ops_ms"])
+    gemm_rows = [_gemm_row(gemm_label(i), *call)[0] for i, call in enumerate(capture.gemm)]
     per = "sum over the {} calls of one bs=4 serving forward"
     rows = {
         "rank_flags": kernel_row("rank_flags", "rank_flags.cu", 882, launches["rank_flags"],
@@ -558,7 +558,8 @@ class BackwardCapture:
 def phase_train(md, card: str):
     """Train the flagship model: a warm-up step, TRAIN_STEPS timed steps,
     one step whose kernel calls are captured, then one step timed part by
-    part. Returns the capture and the per-step launch counts."""
+    part. Returns the capture, the per-step launch counts and the first
+    step's losses and grad_norm."""
     import torch
 
     from efg_tpu_torch.engine.trainer import apply_grads, init_state, train_forward, train_step
@@ -569,7 +570,7 @@ def phase_train(md, card: str):
     batch = train_batch(*TRAIN_BATCH, "cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    capture = counts = None
+    capture = counts = first = None
     for i in range(TRAIN_STEPS + 2):  # warm-up, timed steps, then one captured step
         captured = i == TRAIN_STEPS + 1
         K.reset_launches()
@@ -594,6 +595,7 @@ def phase_train(md, card: str):
               "peak_mem_gb": round(torch.cuda.max_memory_allocated() / 2**30, 3), "card": card})
         if not all(np.isfinite(v) for v in vals.values()):
             raise AssertionError(f"train step {i}: non-finite losses {vals}")
+        first = first or vals  # step 1, from the seeded weights
         if counts != TRAIN_LAUNCHES:
             raise AssertionError(f"train step {i}: launches {counts}, expected {TRAIN_LAUNCHES}")
     if len(capture.convs) != 21 or len(capture.stacked) != 21:
@@ -618,40 +620,118 @@ def phase_train(md, card: str):
                                   for j, n in enumerate(parts)},
           "step_ms": round(ev[0].elapsed_time(ev[4]), 3), "loss": float(losses["loss"].detach()),
           "peak_mem_gb": round(torch.cuda.max_memory_allocated() / 2**30, 3), "card": card})
-    return capture, counts
+    return capture, counts, first
+
+
+def backward_label(i: int, g, conv) -> str:
+    """Name of the i-th conv backward of a training step (autograd order)."""
+    return f"backward {i}: {conv['kind']} C={conv['features'].shape[1]} O={g.shape[1]}"
 
 
 RANK_TRAIN_LABELS = ["subm0", "down1", "down1.inverse", "subm1", "down2", "down2.inverse",
                      "subm2", "down3", "down3.inverse", "subm3", "extra_conv", "extra_conv.inverse"]
 
 
-def _rank_row(label, keys, queries):
+@contextlib.contextmanager
+def switches(K, rank_impl: str = "seq", g3: bool = False):
+    """Set the port's kernel switches (EFG_RANK_IMPL, EFG_SPARSE_G3) inside
+    the block; the defaults come back whatever happens there."""
+    saved = K._RANK_IMPL, K._G3
+    K._RANK_IMPL, K._G3 = rank_impl, g3
+    try:
+        yield
+    finally:
+        K._RANK_IMPL, K._G3 = saved
+
+
+def _rank_row(label, keys, queries, impl="seq"):
     """Kernel vs plain on one captured rank call (exact), with times and
-    bound."""
+    bound. A variant ("seq4", or "hostwin" through `seq=False`) is held
+    against the default kernel's result as well."""
     import torch
 
     from efg_tpu_torch.ops.cuda import sparse_kernels as K
 
     q = queries.to(torch.int32).contiguous()
-    got = K.merge_rank_flags(keys, q)
-    ref = K.rank_flags_plain(keys, q)
+    run = functools.partial(K.merge_rank_flags, keys, q)
+    if impl != "seq":
+        def run():
+            with switches(K, rank_impl="seq4" if impl == "seq4" else "seq"):
+                return K.merge_rank_flags(keys, q, seq=impl != "hostwin")
+
+    got = run()
+    refs = {"plain": K.rank_flags_plain(keys, q)}
+    if impl != "seq":
+        refs["rank_flags.cu"] = K.merge_rank_flags(keys, q)
+    ref = refs["plain"]
     torch.cuda.synchronize()
     valid = q < K.INVALID_Q
-    if not (torch.equal(got >> 3, ref >> 3) and torch.equal(got[valid], ref[valid])):
-        raise AssertionError(f"rank_flags {label}: kernel disagrees with plain")
+    for name, r in refs.items():
+        if not (torch.equal(got >> 3, r >> 3) and torch.equal(got[valid], r[valid])):
+            raise AssertionError(f"rank_flags ({impl}) {label}: kernel disagrees with {name}")
     kc = torch.clamp(keys, max=K.CLAMP_Q)
     qc = torch.where(q >= K.INVALID_Q, K.CLAMP_Q, q)
     n, vk = q.numel(), keys.numel()
     bytes_ = 4 * vk + 8 * n  # keys once, queries in, result out
     ops = n * (int(np.ceil(np.log2(max(vk, 2)))) + 3)  # binary search + 3 probes
     row = dict(label=label, P=q.shape[0], Vq=q.shape[1], Vk=vk,
-               ms=timed(lambda: K.merge_rank_flags(keys, q)),
+               ms=timed(run),
                plain_ms=timed(lambda: K.rank_flags_plain(keys, q)),
                library_ms=timed(lambda: torch.searchsorted(kc, qc, out_int32=True)),
                bytes_ms=1e3 * bytes_ / H100_BYTES_PER_S, ops_ms=1e3 * ops / H100_F32_OPS,
                max_abs_err=int((got[valid] - ref[valid]).abs().max()) if valid.any() else 0)
     row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
+    if impl != "seq":  # the wrapper's torch ops before the launch (seeds / windows), alone
+        prep = K.seq4_seeds if impl == "seq4" else K.hostwin_windows
+        row["prep_ms"] = timed(lambda: prep(keys, q))
     return row
+
+
+def _gemm_row(label, features, packed, weights, *, emit=False, g3=False):
+    """One captured gather-GEMM call on the card through its kernel (the
+    stacked entry with `emit`, the g3 kernel with `g3`) against its plain
+    version: out within 1e-3·max|ref|, stacked taps bit for bit. Returns
+    (the row with times and bound, the kernel's stacked taps or None)."""
+    import torch
+
+    from efg_tpu_torch.ops.cuda import sparse_kernels as K
+
+    f = features.to(torch.bfloat16).contiguous()
+    w = weights.to(torch.bfloat16).contiguous()
+    p = packed.contiguous()
+    kernel = K.gather_gemm_stacked if emit else K.fused_gather_gemm
+    plain = K.gather_gemm_stacked_plain if emit else K.gather_gemm_plain
+    run = functools.partial(kernel, f, p, w)
+    if g3:
+        def run():
+            with switches(K, g3=True):
+                return kernel(f, p, w)
+
+    got, ref = run(), plain(f, p, w)
+    torch.cuda.synchronize()
+    (out, st), (ref_out, ref_st) = (got, ref) if emit else ((got, None), (ref, None))
+    scale = float(ref_out.abs().max())
+    err = float((out - ref_out).abs().max())
+    taps_equal = st is None or torch.equal(st, ref_st)
+    if not (taps_equal and err <= 1e-3 * max(scale, 1e-6)):
+        raise AssertionError(f"gather_gemm{'_g3' if g3 else ''}{'_stacked' if emit else ''} "
+                             f"{label}: taps equal {taps_equal}, out max|Δ| {err} "
+                             f"(max|ref| {scale})")
+    v_in, c = f.shape
+    n_pairs, v_out = p.shape
+    o = w.shape[1]
+    found = _found(p)
+    bytes_ = (2 * v_in * c + 4 * n_pairs * v_out + 2 * w.numel() + 4 * v_out * o
+              + (2 * v_out * n_pairs * 3 * c if emit else 0))  # the stacked taps written
+    row = dict(label=label, P=n_pairs, V_in=v_in, V_out=v_out, C=c, O=o, taps_found=found,
+               ms=timed(run), plain_ms=timed(lambda: plain(f, p, w)),
+               bytes_ms=1e3 * bytes_ / H100_BYTES_PER_S,
+               ops_ms=1e3 * 2 * found * c * o / H100_BF16_FLOPS,
+               max_abs_err=err, max_ref=scale)
+    if emit:
+        row["taps_bit_exact"] = True
+    row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
+    return row, st
 
 
 def _found(packed):
@@ -672,32 +752,8 @@ def phase_train_kernels(capture, card: str, launches: dict):
     # each conv backward makes one stacked call, in the order autograd runs them
     st_rows, dw_rows = [], []
     for i, ((g, packed, w), conv) in enumerate(zip(capture.stacked, capture.convs)):
-        label = f"backward {i}: {conv['kind']} C={conv['features'].shape[1]} O={g.shape[1]}"
-        gb = g.to(torch.bfloat16).contiguous()
-        wb = w.to(torch.bfloat16).contiguous()
-        p = packed.contiguous()
-        out, st = K.gather_gemm_stacked(gb, p, wb)
-        ref_out, ref_st = K.gather_gemm_stacked_plain(gb, p, wb)
-        torch.cuda.synchronize()
-        scale = float(ref_out.abs().max())
-        err = float((out - ref_out).abs().max())
-        if not (torch.equal(st, ref_st) and err <= 1e-3 * max(scale, 1e-6)):
-            raise AssertionError(f"gather_gemm_stacked {label}: taps equal "
-                                 f"{torch.equal(st, ref_st)}, "
-                                 f"out max|Δ| {err} (max|ref| {scale})")
-        v_in, c = gb.shape
-        n_pairs, v_out = p.shape
-        o = wb.shape[1]
-        found = _found(p)
-        bytes_ = (2 * v_in * c + 4 * n_pairs * v_out + 2 * wb.numel() + 4 * v_out * o
-                  + 2 * v_out * n_pairs * 3 * c)
-        row = dict(label=label, P=n_pairs, V_in=v_in, V_out=v_out, C=c, O=o, taps_found=found,
-                   ms=timed(lambda: K.gather_gemm_stacked(gb, p, wb)),
-                   plain_ms=timed(lambda: K.gather_gemm_stacked_plain(gb, p, wb)),
-                   bytes_ms=1e3 * bytes_ / H100_BYTES_PER_S,
-                   ops_ms=1e3 * 2 * found * c * o / H100_BF16_FLOPS,
-                   max_abs_err=err, max_ref=scale, taps_bit_exact=True)
-        row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
+        label = backward_label(i, g, conv)
+        row, st = _gemm_row(label, g, packed, w, emit=True)
         st_rows.append(row)
 
         # the dense dW of the stacked path: stackedᵀ @ features, f32 (library call)
@@ -729,7 +785,7 @@ def phase_train_kernels(capture, card: str, launches: dict):
                    max_abs_err=err_plain, max_abs_err_vs_stacked=err_stacked, max_ref=scale)
         row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
         dw_rows.append(row)
-        del st, st_f32, f_f32, ref_st
+        del st, st_f32, f_f32
 
     emit({"phase": "train_kernels", "card": card, "rank_calls": rank_rows,
           "stacked_calls": st_rows, "dw_calls": dw_rows, "padding_cases": _padding_cases(capture)})
@@ -779,6 +835,230 @@ def _padding_cases(capture):
         if not (got.shape == ref.shape and err <= 1e-3 * max(scale, 1e-6)):
             raise AssertionError(f"{name}: max|Δ| {err} (max|ref| {scale}), shape {got.shape}")
     return rows
+
+
+def offload(capture, device):
+    """Move a serving capture's tensors to `device` (the CPU between the
+    serving phases and phase variants, so that the training phases' device
+    memory is what it was)."""
+    capture.rank = [tuple(t.to(device) for t in call) for call in capture.rank]
+    capture.gemm = [tuple(t.to(device) for t in call) for call in capture.gemm]
+    return capture
+
+
+def _g3_rows(calls, labels, *, emit, conv_features=None):
+    """The g3 kernel on every captured gather-GEMM call that `use_g3`
+    admits (`_gemm_row`); the stacked rows also time the dense dW after the
+    kernel (`torch.matmul`, f32) as their library call. Returns (rows,
+    "admitted / calls")."""
+    import torch
+
+    from efg_tpu_torch.ops.cuda import sparse_kernels as K
+
+    rows = []
+    for i, (features, packed, weights) in enumerate(calls):
+        with switches(K, g3=True):
+            if not K.use_g3(features.shape[1], packed.shape[0]):
+                continue
+        row, st = _gemm_row(labels[i], features, packed, weights, emit=emit, g3=True)
+        if emit:
+            st_f32, f_f32 = st.float(), conv_features[i].to(torch.bfloat16).float()
+            row["library_ms"] = timed(lambda: torch.matmul(st_f32.t(), f_f32))
+            del st_f32, f_f32
+        rows.append(row)
+        del st
+    return rows, f"{len(rows)} / {len(calls)}"
+
+
+def phase_variant_kernels(serve, train, card: str):
+    """Per-kernel part of phase `variants`: the seq4 and hostwin rank kernels
+    on all 8 serving-forward and 12 training-step rank calls (counts equal
+    everywhere to the plain version and to rank_flags.cu, flags equal at
+    valid queries), the g3 kernel on every captured forward and stacked call
+    its gate admits. Returns the kernel rows by name."""
+    rank = {}
+    for impl in ("seq4", "hostwin"):
+        rank[impl] = {
+            "serve": [_rank_row(RANK_LABELS[i], k, q, impl) for i, (k, q) in enumerate(serve.rank)],
+            "train": [_rank_row(lbl, k, q, impl)
+                      for lbl, (k, q) in zip(RANK_TRAIN_LABELS, train.rank)],
+        }
+    fwd_rows, fwd_admitted = _g3_rows(serve.gemm, [gemm_label(i) for i in range(21)], emit=False)
+    st_rows, st_admitted = _g3_rows(
+        train.stacked, [backward_label(i, call[0], conv)
+                        for i, (call, conv) in enumerate(zip(train.stacked, train.convs))],
+        emit=True, conv_features=[c["features"] for c in train.convs])
+    emit({"phase": "variant_kernels", "card": card,
+          "rank_calls": {impl: rows for impl, rows in rank.items()},
+          "g3_admitted": {"forward": fwd_admitted, "stacked": st_admitted},
+          "g3_calls": fwd_rows, "g3_stacked_calls": st_rows})
+    want = (VARIANT_SERVE_LAUNCHES["gather_gemm_g3"], VARIANT_TRAIN_LAUNCHES["gather_gemm_g3_stacked"])
+    if (len(fwd_rows), len(st_rows)) != want:
+        raise AssertionError(f"the g3 gate admits {fwd_admitted} forward and {st_admitted} "
+                             f"stacked calls, expected {want}")
+    per_step = "sum over the calls of one bs=4 training step"
+    library = "torch.searchsorted (count field only)"
+    rows = [
+        kernel_row("rank_flags_seq4", "rank_flags_seq4.cu", 944, 0, rank["seq4"]["train"],
+                   library_call=library, tolerance="exact, and equal to rank_flags.cu",
+                   per=per_step + " (8 forward + 4 inverse rulebooks)", card=card),
+        kernel_row("rank_flags_hostwin", "rank_flags_hostwin.cu", 842, 0, rank["hostwin"]["train"],
+                   library_call=library, tolerance="exact, and equal to rank_flags.cu",
+                   per=per_step + " (8 forward + 4 inverse rulebooks; efg_tpu runs its "
+                       "counterpart on no model path, nor does the port)", card=card),
+        kernel_row("gather_gemm_g3", "gather_gemm_g3.cu", 290, 0, fwd_rows,
+                   tolerance="1e-3 * max|ref|",
+                   per="sum over the 16 calls of one bs=4 serving forward that the gate admits",
+                   card=card),
+        kernel_row("gather_gemm_g3_stacked", "gather_gemm_g3.cu", 290, 0, st_rows,
+                   tolerance="taps bit-exact, out 1e-3 * max|ref|",
+                   library_call="torch.matmul of the stacked taps (the dense dW after the "
+                                "kernel), f32 operands",
+                   per=per_step + " (the 15 conv backwards the gate admits)", card=card),
+    ]
+    for r, impl in zip(rows[:2], ("seq4", "hostwin")):
+        r["serve_ms"] = round(sum(x["ms"] for x in rank[impl]["serve"]), 6)
+        r["prep_ms"] = round(sum(x["prep_ms"] for x in rank[impl]["train"]), 6)
+    return {r["name"]: r for r in rows}
+
+
+class RuleCapture:
+    """Records every rulebook built inside the block (builder, arguments,
+    result), so that each can be built again under the default kernel."""
+
+    BUILDERS = ("build_monotone_rule9", "build_monotone_rule_strided",
+                "build_monotone_rule_strided_inverse")
+
+    def __init__(self, K):
+        self.K, self.calls = K, []
+
+    def __enter__(self):
+        self._orig = {n: getattr(self.K, n) for n in self.BUILDERS}
+        for name, fn in self._orig.items():
+            def spy(*args, fn=fn, **kw):
+                out = fn(*args, **kw)
+                self.calls.append((fn, args, kw, out))
+                return out
+            setattr(self.K, name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._orig.items():
+            setattr(self.K, name, fn)
+        return False
+
+    def check_against_default(self, what: str) -> int:
+        """Rebuild every recorded rulebook with the default rank kernel and
+        require it bit for bit; returns the number compared."""
+        import torch
+
+        for fn, args, kw, out in self.calls:
+            ref = fn(*args, **kw)
+            got, want = (out, ref) if torch.is_tensor(out) else (out[0], ref[0])
+            if not torch.equal(got, want) or (not torch.is_tensor(out) and out[1] != ref[1]):
+                raise AssertionError(f"{what}: {fn.__name__} under seq4 differs from the default")
+        return len(self.calls)
+
+
+def phase_variants(card: str, default_step1: dict):
+    """The path of phase `variants`: under EFG_RANK_IMPL=seq4 and
+    EFG_SPARSE_G3, the full-width flagship (weights from SEED) serves two
+    bs=4 requests and trains a warm-up step and TRAIN_STEPS timed steps on
+    phase train's batch. Launches are reset before and read after each
+    request and step. Held against the default path: every rulebook of the
+    first request and of the first step bit for bit (rebuilt with
+    rank_flags.cu), the head maps within phase check's tolerance, step 1's
+    loss and grad_norm within train_check's step-1 tolerances."""
+    import torch
+
+    from efg_tpu_torch.engine.train_state import ModelDef
+    from efg_tpu_torch.engine.trainer import eval_step, init_state, train_step
+    from efg_tpu_torch.ops.cuda import sparse_kernels as K
+
+    md, _ = make_model(FLAGSHIP, "cuda")
+    n_rules, serve_counts = 0, None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i, (bsz, seed) in enumerate(BATCHES[2:]):
+        batch = flagship_batch(bsz, seed)
+        torch.cuda.synchronize()
+        K.reset_launches()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        rules = RuleCapture(K)
+        with switches(K, "seq4", True), (rules if i == 0 else contextlib.nullcontext()):
+            start.record()
+            out = eval_step(md, batch)
+            end.record()
+            torch.cuda.synchronize()
+        counts = serve_counts = dict(K.launches)
+        finite = all(bool(torch.isfinite(v.float()).all()) for v in out.values())
+        emit({"phase": "variants", "part": "serve", "request": i, "batch_size": bsz,
+              "latency_ms_cuda_events": round(start.elapsed_time(end), 3),
+              "valid_detections": int(out["valid"].sum()), "finite": finite, "launches": counts,
+              "peak_mem_gb": round(torch.cuda.max_memory_allocated() / 2**30, 3), "card": card})
+        if not finite or out["box3d"].shape != (bsz, POST_CFG["nms"]["nms_post_max_size"], 7):
+            raise AssertionError(f"variants request {i}: non-finite or misshapen outputs")
+        if counts != VARIANT_SERVE_LAUNCHES:
+            raise AssertionError(f"variants request {i}: launches {counts}, "
+                                 f"expected {VARIANT_SERVE_LAUNCHES}")
+        n_rules += rules.check_against_default(f"variants request {i}")
+        del rules
+
+    raw = ModelDef(md.module, md.apply_args)  # the eval step without predict: head maps
+    with switches(K, "seq4", True):
+        got = eval_step(raw, batch)
+    ref = eval_step(raw, batch)
+    worst = 0.0
+    for t_ref, t_got in zip(ref, got):
+        for name in t_ref:
+            a, b = t_ref[name].float(), t_got[name].float()
+            err = float((a - b).abs().max() / max(float(a.abs().max()), 1.0))
+            worst = max(worst, err)
+            if not err <= 3e-2:  # phase check's tolerance
+                raise AssertionError(f"variants head map {name}: rel err {err} vs the default")
+    del got, ref, out, batch
+
+    tx = make_solver()
+    state = init_state(md, tx)
+    batch = train_batch(*TRAIN_BATCH, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step1 = None
+    for i in range(TRAIN_STEPS + 1):  # warm-up, then the timed steps
+        K.reset_launches()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        rules = RuleCapture(K)
+        with switches(K, "seq4", True), (rules if i == 0 else contextlib.nullcontext()):
+            start.record()
+            metrics = train_step(md, tx, state, batch)
+            end.record()
+            torch.cuda.synchronize()
+        counts = dict(K.launches)
+        ms = start.elapsed_time(end)
+        vals = {k: float(v) for k, v in metrics.items()}
+        step1 = step1 or vals
+        emit({"phase": "variants", "part": "train", "step": i,
+              "kind": "warm-up" if i == 0 else "timed", "batch_size": TRAIN_BATCH[0],
+              "step_ms_cuda_events": round(ms, 3),
+              "train_frames_per_s": round(TRAIN_BATCH[0] / ms * 1e3, 3), "losses": vals,
+              "launches": counts,
+              "peak_mem_gb": round(torch.cuda.max_memory_allocated() / 2**30, 3), "card": card})
+        if not all(np.isfinite(v) for v in vals.values()):
+            raise AssertionError(f"variants train step {i}: non-finite losses {vals}")
+        if counts != VARIANT_TRAIN_LAUNCHES:
+            raise AssertionError(f"variants train step {i}: launches {counts}, "
+                                 f"expected {VARIANT_TRAIN_LAUNCHES}")
+        n_rules += rules.check_against_default(f"variants train step {i}")
+        del rules
+    readings = {k: abs(step1[k] - default_step1[k]) / abs(default_step1[k])
+                for k in ("loss", "0_hm_loss", "0_loc_loss", "grad_norm")}
+    emit({"phase": "variants", "part": "check", "rulebooks_equal_to_default": n_rules,
+          "head_map_rel_err": worst, "step1_rel_err_vs_default": readings,
+          "step1_tolerance": dict(zip(("losses", "grad_norm"), CHECK_STEP_TOL[False]))})
+    for k, x in readings.items():
+        if not x <= CHECK_STEP_TOL[False][k == "grad_norm"]:
+            raise AssertionError(f"variants step 1 {k}: rel err {x} vs the default path")
+    return serve_counts, counts
 
 
 def kernel_row(name, source, replaces_line, launches, rows, *, tolerance, per, card,
@@ -993,19 +1273,28 @@ def main() -> int:
         md, model_cfg = make_model(FLAGSHIP, "cuda")
         capture, launches = phase_slice(md)
         serve = phase_kernels(capture, card, launches)
+        serve_capture = offload(capture, "cpu")  # for phase variants
         del capture
         phase_breakdown(md, model_cfg)
         phase_check()
-        capture, launches = phase_train(md, card)
+        capture, launches, step1 = phase_train(md, card)
         train = phase_train_kernels(capture, card, launches)
-        del capture
+        variants = phase_variant_kernels(offload(serve_capture, "cuda"), capture, card)
+        del capture, serve_capture
+        serve_counts, train_counts = phase_variants(card, step1)
         phase_train_profile(md, card)
         phase_train_check()
-        # the rank kernel's row is the training step's (its forward rulebooks
+        # a rank kernel's row is the training step's (its forward rulebooks
         # and the inverse ones); the serving forward's is in the kernels line
         train["rank_flags"]["launches_serve"] = serve["rank_flags"]["launches"]
+        for name, counts in (("rank_flags_seq4", train_counts), ("rank_flags_hostwin", train_counts),
+                             ("gather_gemm_g3", serve_counts),
+                             ("gather_gemm_g3_stacked", train_counts)):
+            variants[name]["launches"] = counts[name]  # phase variants' path
+        for name in ("rank_flags_seq4", "rank_flags_hostwin"):
+            variants[name]["launches_serve"] = serve_counts[name]
         kernels = [train["rank_flags"], serve["gather_gemm"], train["gather_gemm_stacked"],
-                   train["gather_dw"]]
+                   train["gather_dw"], *variants.values()]
     except Exception:  # report every phase failure and exit non-zero
         traceback.print_exc()
         return 1

@@ -1,8 +1,10 @@
 // rank_flags: the rulebook builders' merge-join rank, for Hopper (sm_90a).
 //
 // Replaces: efg_tpu/ops/pallas/sparse_kernels.py `_rank_kernel_seq` (via
-// `merge_rank_flags` / `_merge_rank_flags_impl`), and with it the two
-// variants of the same contract, `_rank_kernel_seq4` and `_rank_kernel`.
+// `merge_rank_flags` / `_merge_rank_flags_impl`, EFG_RANK_IMPL=seq, the
+// default). The other two Pallas kernels of the same contract have their
+// own Hopper kernels: `_rank_kernel_seq4` → rank_flags_seq4.cu and
+// `_rank_kernel` (seq=False) → rank_flags_hostwin.cu.
 //
 // Contract: keys [Vk] int32 ascending (entries >= INVALID_Q are padding),
 // queries [n] int32 (each rule row non-decreasing; >= INVALID_Q is padding).

@@ -1,24 +1,36 @@
 """Hopper kernels for the sparse conv (port of
 `efg_tpu/ops/pallas/sparse_kernels.py`).
 
-Three hand-written CUDA C++ kernels carry the sparse trunk, forward and
-backward:
+Hand-written CUDA C++ kernels carry the sparse trunk, forward and
+backward, one for each Pallas kernel:
 
-- `merge_rank_flags` → `csrc/rank_flags.cu` (replaces `_rank_kernel_seq`):
-  ranks P monotone query rows against one sorted key array; every SubM and
-  strided rulebook, and the strided convs' inverse rulebooks, are built
-  from it.
+- `merge_rank_flags` ranks P monotone query rows against one sorted key
+  array; every SubM and strided rulebook, and the strided convs' inverse
+  rulebooks, are built from it. Three kernels, chosen as efg_tpu chooses
+  its Pallas kernel (`EFG_RANK_IMPL`, `seq=`):
+  · "seq" (default) → `csrc/rank_flags.cu` (replaces `_rank_kernel_seq`);
+  · "seq4" → `csrc/rank_flags_seq4.cu` (replaces `_rank_kernel_seq4`):
+    a merge-join over 512-key chunks from a per-block seed;
+  · `seq=False` ("hostwin") → `csrc/rank_flags_hostwin.cu` (replaces
+    `_rank_kernel`): per-band key windows from one searchsorted.
 - `fused_gather_gemm` → `csrc/gather_gemm.cu` (replaces `_fwd_kernel`): the
   packed-rulebook gather + GEMM that runs every sparse conv's forward;
   `gather_gemm_stacked` is its `emit_stacked` variant, which also returns
-  the gathered taps, and runs every backward's d_features pass.
+  the gathered taps, and runs every backward's d_features pass. With
+  `EFG_SPARSE_G3` set, the calls that efg_tpu's gate gives its
+  group-merged grid (`use_g3`) run `csrc/gather_gemm_g3.cu` instead
+  (replaces `_fwd_kernel_g3`, forward and stacked): one K = 3·C product
+  per pair over its three tap rows, loaded as one span.
 - `fused_gather_dw` → `csrc/gather_dw.cu` (replaces `_dw_kernel`): dW by
   re-gathering the inputs, where the stacked taps do not apply.
 
 Each wrapper dispatches on the tensor's device: a CUDA tensor launches the
-kernel (or raises), a CPU tensor runs the plain PyTorch version beside it.
-There is no fallback from a failed build or launch. `launches` counts the
-kernel launches (CPU calls never count).
+kernel the switches select (or raises), a CPU tensor runs the plain
+PyTorch version beside it, whatever the switches say. There is no
+fallback from a failed build or launch, and none from a variant to the
+default kernel. `launches` counts the kernel launches (CPU calls never
+count). The switches are read from the environment at import, as efg_tpu
+reads them, and are off by default.
 
 Packed rulebook ("anchor" convention, shared by SubM and strided convs):
   packed[p, v] = pos·8 + fm·4 + f0·2 + fp, where pos is the insertion
@@ -34,6 +46,7 @@ kernels take the raw [P, V_out] rulebook and the input row count.
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import Dict
 
 import torch
@@ -46,6 +59,18 @@ CLAMP_Q = 1 << 30  # canonical +inf value keys/queries are clamped to
 
 GEMM_CHANNELS = (16, 32, 64, 128)  # C and O the gather-GEMM kernel takes
 
+# The switches of efg_tpu's sparse kernels (its sparse_kernels.py:62,66):
+# the rank kernel merge_rank_flags runs ("seq", "seq4"; `seq=False` gives
+# "hostwin"), and whether the gather-GEMMs that `use_g3` admits run the
+# group-merged kernel. Read at each call, so tests may monkeypatch them.
+_RANK_IMPL = os.environ.get("EFG_RANK_IMPL", "seq")
+_G3 = os.environ.get("EFG_SPARSE_G3", "0") not in ("0", "", "false")
+RANK_IMPLS = ("seq", "seq4", "hostwin")
+
+SEQ4_CHUNK = 512  # keys per merge-join chunk of the seq4 rank kernel
+SEQ4_QUERIES = 256  # consecutive queries of one row per seq4 block
+HOSTWIN_ROW = 128  # keys per window row, and queries per band, of hostwin
+
 # Input rounding of the plain versions: bf16, as the kernels take. f32 only
 # for oracle comparisons against efg_tpu's f32 XLA path
 # (`efg_tpu.ops.sparse.set_compute_dtype`); the kernels refuse it.
@@ -53,14 +78,21 @@ COMPUTE_DTYPE = torch.bfloat16
 
 launches: Dict[str, int] = {
     "rank_flags": 0, "gather_gemm": 0, "gather_gemm_stacked": 0, "gather_dw": 0,
+    "rank_flags_seq4": 0, "rank_flags_hostwin": 0, "gather_gemm_g3": 0,
+    "gather_gemm_g3_stacked": 0,
 }
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_GEMM_ARGS = [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+_STACKED_ARGS = [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+_RANK_VARIANT_ARGS = [_I, _P, _I, _P, _I, _I, _P, _P, _I, _P, _P]
 _SIGNATURES = {  # csrc/<stem>.cu → its C entries
     "rank_flags": {"efg_rank_flags": [_I, _P, _I, _P, _L, _P, _P]},
-    "gather_gemm": {
-        "efg_gather_gemm": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-        "efg_gather_gemm_stacked": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "rank_flags_seq4": {"efg_rank_flags_seq4": _RANK_VARIANT_ARGS},
+    "rank_flags_hostwin": {"efg_rank_flags_hostwin": _RANK_VARIANT_ARGS},
+    "gather_gemm": {"efg_gather_gemm": _GEMM_ARGS, "efg_gather_gemm_stacked": _STACKED_ARGS},
+    "gather_gemm_g3": {
+        "efg_gather_gemm_g3": _GEMM_ARGS, "efg_gather_gemm_g3_stacked": _STACKED_ARGS,
     },
     "gather_dw": {"efg_gather_dw": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]},
 }
@@ -141,15 +173,94 @@ def _rank_flags_cuda(keys: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def merge_rank_flags(keys: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
+def _clamped(keys: torch.Tensor, queries: torch.Tensor):
+    """(keys clamped to CLAMP_Q, queries with padding set to CLAMP_Q): the
+    rank kernels' view of their inputs."""
+    return (torch.clamp(keys, max=CLAMP_Q).contiguous(),
+            torch.where(queries >= INVALID_Q, CLAMP_Q, queries).to(torch.int32))
+
+
+def seq4_seeds(keys: torch.Tensor, queries: torch.Tensor):
+    """The seq4 kernel's block seeds, as efg_tpu seeds `_rank_kernel_seq4`
+    (its sparse_kernels.py:1058-1068), one per block of SEQ4_QUERIES
+    consecutive queries of a row instead of one per row: the 512-key chunk
+    that holds lower_bound(first query) − 1. The −1 keeps the q−1
+    neighbour of a first query whose lower bound is a chunk multiple (it
+    sits in the chunk before). Returns (seeds [P, ⌈Vq/SEQ4_QUERIES⌉] int32,
+    n_below [1] int32 = count(keys_c < CLAMP_Q), the count of every
+    padding query)."""
+    kc, qc = _clamped(keys, queries[:, ::SEQ4_QUERIES])
+    probe = torch.cat([qc.reshape(-1), qc.new_full((1,), CLAMP_Q)])
+    lb = torch.searchsorted(kc, probe, out_int32=True)
+    seeds = torch.clamp(lb[:-1] - 1, min=0) // SEQ4_CHUNK
+    return seeds.reshape(qc.shape).contiguous(), lb[-1:].clone()
+
+
+def hostwin_windows(keys: torch.Tensor, queries: torch.Tensor):
+    """The hostwin kernel's key windows, computed as efg_tpu computes them
+    for `_rank_kernel` (its sparse_kernels.py:1119-1133): for each band of
+    HOSTWIN_ROW queries, the key rows (of HOSTWIN_ROW keys) from the row of
+    lower_bound(band start) − 1 to the row of lower_bound(next band start)
+    + 1; a row's last band reaches the last key row. Bands start every
+    HOSTWIN_ROW queries of a row (efg_tpu pads rows to 1024 queries first;
+    the windows of the real bands differ only where its padding band comes
+    next, and both cover what the band's queries need). Returns (wrow,
+    nrows), each [P, ⌈Vq/HOSTWIN_ROW⌉] int32."""
+    kr = -(-keys.shape[0] // HOSTWIN_ROW)
+    kc, qs = _clamped(keys, queries[:, ::HOSTWIN_ROW])
+    pos = torch.searchsorted(kc, qs.contiguous(), out_int32=True)
+    nxt = torch.cat([pos[:, 1:], pos.new_full((pos.shape[0], 1), kr * HOSTWIN_ROW - 1)], dim=1)
+    wrow = torch.clamp(pos - 1, min=0) // HOSTWIN_ROW
+    last = torch.clamp((nxt + 1) // HOSTWIN_ROW, max=kr - 1)
+    nrows = torch.clamp(last - wrow + 1, min=1)
+    return wrow.contiguous(), nrows.to(torch.int32).contiguous()
+
+
+def _rank_flags_variant_cuda(impl: str, keys: torch.Tensor, queries: torch.Tensor):
+    """Launch `rank_flags_<impl>.cu` ("seq4" or "hostwin") after the
+    wrapper's own searchsorted: seq4 takes (seeds, n_below), hostwin
+    (wrow, nrows), one entry per block of queries."""
+    dev = keys.device
+    _require(keys, "keys", torch.int32, 1, dev)
+    _require(queries, "queries", torch.int32, 2, dev)
+    n_rows, vq = queries.shape
+    out = torch.empty_like(queries)
+    per_block, extra = (seq4_seeds if impl == "seq4" else hostwin_windows)(keys, queries)
+    stem = f"rank_flags_{impl}"
+    lib = _build.load(stem, _SIGNATURES[stem])
+    err = getattr(lib, f"efg_{stem}")(
+        dev.index or 0, keys.data_ptr(), keys.shape[0], queries.data_ptr(), n_rows, vq,
+        per_block.data_ptr(), extra.data_ptr(), per_block.shape[1], out.data_ptr(), _stream(dev),
+    )
+    _build.check(lib, err, f"{stem} launch")
+    launches[stem] += 1
+    return out
+
+
+def rank_impl(seq: bool = True) -> str:
+    """The rank kernel a call runs: EFG_RANK_IMPL, or "hostwin" for
+    `seq=False`, with efg_tpu's error for any other value."""
+    impl = _RANK_IMPL if seq else "hostwin"
+    if impl not in RANK_IMPLS:
+        raise ValueError(f"EFG_RANK_IMPL={impl!r}: expected one of 'seq', 'seq4', 'hostwin'")
+    return impl
+
+
+def merge_rank_flags(keys: torch.Tensor, queries: torch.Tensor, *,
+                     seq: bool = True) -> torch.Tensor:
     """keys [Vk] int32 sorted ascending (entries ≥ INVALID_Q = padding);
     queries [P, Vq] int32, non-decreasing per row (≥ INVALID_Q = padding).
     Returns packed [P, Vq] int32 = count(keys < q)·8 + (q−1∈keys)·4 +
     (q∈keys)·2 + (q+1∈keys). Flags at padding queries are garbage by
-    contract — the caller masks them."""
-    if _on_card(keys):
-        return _rank_flags_cuda(keys.contiguous(), queries.to(torch.int32).contiguous())
-    return rank_flags_plain(keys, queries)
+    contract — the caller masks them. On the card the kernel is
+    `rank_impl(seq)`'s; every one computes the same function."""
+    impl = rank_impl(seq)
+    if not _on_card(keys):
+        return rank_flags_plain(keys, queries)
+    keys, queries = keys.contiguous(), queries.to(torch.int32).contiguous()
+    if impl == "seq":
+        return _rank_flags_cuda(keys, queries)
+    return _rank_flags_variant_cuda(impl, keys, queries)
 
 
 # ---------------------------------------------------------------------------
@@ -211,8 +322,18 @@ def _pad_cols(t: torch.Tensor, width: int) -> torch.Tensor:
     return torch.nn.functional.pad(t, (0, width - t.shape[-1])) if t.shape[-1] != width else t
 
 
+def use_g3(cin: int, n_pairs: int) -> bool:
+    """efg_tpu's gate of its group-merged grid (its sparse_kernels.py:580):
+    EFG_SPARSE_G3 set, the gathered operand at most 64 channels wide, and at
+    least two δz-groups of three pairs. On the flagship it admits 16 of the
+    21 forward gathers and 15 of the 21 stacked (backward) ones."""
+    return _G3 and cin <= 64 and n_pairs // 3 >= 2
+
+
 def _gather_gemm_cuda(features, packed, weights, emit: bool):
     dev = features.device
+    g3 = use_g3(features.shape[1], packed.shape[0])
+    stem = "gather_gemm_g3" if g3 else "gather_gemm"
     v_in, c = features.shape
     n_pairs, v_out = packed.shape
     o = weights.shape[1]
@@ -228,24 +349,25 @@ def _gather_gemm_cuda(features, packed, weights, emit: bool):
     _require(packed, "packed", torch.int32, 2, dev)
     _require(w, "weights", torch.bfloat16, 2, dev)
     out = torch.empty(v_out, ow, dtype=torch.float32, device=dev)
-    lib = _build.load("gather_gemm", _SIGNATURES["gather_gemm"])
+    lib = _build.load(stem, _SIGNATURES[stem])
     if emit:
         stacked = torch.empty(v_out, n_pairs * 3 * cw, dtype=torch.bfloat16, device=dev)
-        err = lib.efg_gather_gemm_stacked(
+        entry = getattr(lib, f"efg_{stem}_stacked")
+        err = entry(
             dev.index or 0, f.data_ptr(), packed.data_ptr(), w.data_ptr(), out.data_ptr(),
             stacked.data_ptr(), v_in, v_out, n_pairs, cw, ow, _stream(dev),
         )
-        _build.check(lib, err, "gather_gemm_stacked launch")
-        launches["gather_gemm_stacked"] += 1
+        _build.check(lib, err, f"{stem}_stacked launch")
+        launches[f"{stem}_stacked"] += 1
         if cw != c:
             stacked = stacked.view(v_out, n_pairs * 3, cw)[..., :c].reshape(v_out, -1)
         return out[:, :o], stacked
-    err = lib.efg_gather_gemm(
+    err = getattr(lib, f"efg_{stem}")(
         dev.index or 0, f.data_ptr(), packed.data_ptr(), w.data_ptr(),
         out.data_ptr(), v_in, v_out, n_pairs, cw, ow, _stream(dev),
     )
-    _build.check(lib, err, "gather_gemm launch")
-    launches["gather_gemm"] += 1
+    _build.check(lib, err, f"{stem} launch")
+    launches[stem] += 1
     return out[:, :o]
 
 
@@ -255,7 +377,8 @@ def fused_gather_gemm(features: torch.Tensor, packed: torch.Tensor,
     packed rulebook [P, V_out]; features [V_in, C] and weights
     [P·3·C, O] (rows (pair, tap, channel)) are rounded to bf16.
     V_in == V_out for SubM convs; strided convs index input rows from the
-    output sites. C, O ≤ 128."""
+    output sites. C, O ≤ 128. On the card the calls `use_g3` admits run
+    the group-merged kernel."""
     if _on_card(features):
         return _gather_gemm_cuda(features, packed, weights, emit=False)
     return gather_gemm_plain(features, packed, weights)

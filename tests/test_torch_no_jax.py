@@ -71,9 +71,13 @@ def test_every_kernel_source_is_bound_and_built():
     from efg_tpu_torch.ops.cuda import sparse_kernels as K
 
     sources = sorted(p.stem for p in (ROOT / "efg_tpu_torch" / "csrc").glob("*.cu"))
-    assert sources == sorted(K.KERNEL_SOURCES) == ["gather_dw", "gather_gemm", "rank_flags"]
+    assert sources == sorted(K.KERNEL_SOURCES) == [
+        "gather_dw", "gather_gemm", "gather_gemm_g3", "rank_flags", "rank_flags_hostwin",
+        "rank_flags_seq4"]
     for stem in sources:
         text = (ROOT / "efg_tpu_torch" / "csrc" / f"{stem}.cu").read_text()
         for entry in K._SIGNATURES[stem]:
             assert f'extern "C" int {entry}(' in text, entry
-    assert set(K.launches) == {"rank_flags", "gather_gemm", "gather_gemm_stacked", "gather_dw"}
+    assert set(K.launches) == {
+        "rank_flags", "gather_gemm", "gather_gemm_stacked", "gather_dw", "rank_flags_seq4",
+        "rank_flags_hostwin", "gather_gemm_g3", "gather_gemm_g3_stacked"}
