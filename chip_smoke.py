@@ -21,7 +21,9 @@ either. Phases (each prints JSON lines; any failure exits 1):
              inputs, is rerun through the kernel and through its plain
              PyTorch version on the card: the rank kernel must agree
              exactly (count field everywhere, flags at valid queries), the
-             gather-GEMM within 1e-3·max|ref|. Medians of 20 timed runs.
+             gather-GEMM within 1e-3·max|ref|. Medians of 20 timed runs;
+             each rank call is also captured in CUDA graphs for its device
+             time and its kernel count, beside torch.searchsorted's.
 4. breakdown — one bs=4 step stage by stage (voxelize + VFE, sparse trunk,
              RPN, head, decode, post-processing, and the NMS IoU matrix and
              greedy loop), CUDA-event medians.
@@ -48,10 +50,11 @@ either. Phases (each prints JSON lines; any failure exits 1):
 8. variants — the kernels behind efg_tpu's switches (EFG_RANK_IMPL=seq4,
              `seq=False`, EFG_SPARSE_G3). First on the captured inputs of
              phases kernels and train_kernels: the seq4 and hostwin rank
-             kernels on all 20 rank calls (exact, and equal to
-             rank_flags.cu), the g3 gather-GEMM on the 16 forward and the
-             15 stacked calls its gate admits (out within 1e-3·max|ref|,
-             taps bit-exact). Then the path under seq4 + g3: the flagship
+             kernels on all 20 rank calls (exact, equal to rank_flags.cu,
+             one device kernel a call), all three rank kernels on the
+             hazard cases RANK_EDGE_CASES (exact), the g3 gather-GEMM on the
+             16 forward and the 15 stacked calls its gate admits (out within
+             1e-3·max|ref|, taps bit-exact). Then the path under seq4 + g3: the flagship
              from the seeded weights serves two bs=4 requests (launches
              seq4 8, g3 16, gather-GEMM 5 per forward) and trains a warm-up
              and the timed steps (seq4 12, g3 16 + 5, stacked g3 15 + 6 per
@@ -631,6 +634,95 @@ def backward_label(i: int, g, conv) -> str:
 RANK_TRAIN_LABELS = ["subm0", "down1", "down1.inverse", "subm1", "down2", "down2.inverse",
                      "subm2", "down3", "down3.inverse", "subm3", "extra_conv", "extra_conv.inverse"]
 
+# The rank kernels' hazards (this script's own numpy copy of the case makers
+# in tests/test_torch_sparse_variants.py, plus one past 2^20 keys): each
+# (keys [Vk] int32 sorted, queries [P, Vq] int32, rows strictly increasing
+# then padding), run through all three rank kernels in phase variants.
+INVALID_Q, CLAMP_Q = 1 << 29, 1 << 30  # the rank contract's padding thresholds
+I32_MAX = np.iinfo(np.int32).max
+
+
+def _padded_case():
+    rs = np.random.RandomState(7)
+    keys = np.sort(rs.choice(40000, 3000, replace=False)).astype(np.int32)
+    keys = np.pad(keys, (0, 7000), constant_values=I32_MAX)
+    base = np.sort(rs.choice(42000, 600, replace=False)).astype(np.int32)
+    tail = np.concatenate([base[:350], INVALID_Q + np.arange(250, dtype=np.int32)])
+    return keys, np.stack([tail, np.full(600, CLAMP_Q, np.int32), base + 3])
+
+
+def _boundary_case(chunk):
+    keys = np.pad(np.arange(chunk, dtype=np.int32), (0, 64), constant_values=CLAMP_Q)
+    return keys, (np.arange(64, dtype=np.int32) * 2 + chunk)[None]
+
+
+def _vk1_case():
+    row = np.array([-9, 0, 5, 6, 7, 8, 9, 40, INVALID_Q, CLAMP_Q], np.int32)
+    return np.array([7], np.int32), np.stack([row, row + 1, np.full(10, INVALID_Q, np.int32)])
+
+
+def _vk_mod4_case():
+    rs = np.random.RandomState(11)
+    keys = np.sort(rs.choice(3000, 1027, replace=False)).astype(np.int32)
+    base = np.sort(rs.choice(np.arange(-40, 3100), 700, replace=False)).astype(np.int32)
+    return keys, np.stack([base, base + 1, base + 2999])
+
+
+def _all_padding_case():
+    keys = np.concatenate([INVALID_Q + np.array([0, 5, 9]), np.full(100, CLAMP_Q),
+                           np.full(100, I32_MAX)]).astype(np.int32)
+    valid = np.arange(0, 600, 2)
+    return keys, np.stack([valid, np.concatenate([valid[:200], INVALID_Q + np.arange(100)])]
+                          ).astype(np.int32)
+
+
+def _invalid_keys_case():
+    rs = np.random.RandomState(12)
+    keys = np.concatenate([np.sort(rs.choice(20000, 900, replace=False)),
+                           INVALID_Q + np.sort(rs.choice(1000, 30, replace=False)),
+                           np.full(100, CLAMP_Q)]).astype(np.int32)
+    base = np.sort(rs.choice(21000, 800, replace=False))
+    return keys, np.stack([base, np.concatenate([base[:500], INVALID_Q + np.arange(300)]),
+                           np.concatenate([base[:64], np.full(736, CLAMP_Q)])]).astype(np.int32)
+
+
+def _outside_case():
+    rs = np.random.RandomState(13)
+    keys = np.pad(np.sort(rs.choice(np.arange(10000, 20000), 1000, replace=False)), (0, 24),
+                  constant_values=CLAMP_Q).astype(np.int32)
+    below = np.sort(rs.choice(np.arange(-50000, 10000), 300, replace=False))
+    above = np.sort(rs.choice(np.arange(20000, 400000), 300, replace=False))
+    mixed = np.sort(np.concatenate([below[::2], above[::2]]))
+    return keys, np.stack([below, above, mixed]).astype(np.int32)
+
+
+def _long_case():
+    rs = np.random.RandomState(14)
+    keys = np.pad(np.sort(rs.choice(200000, 39000, replace=False)), (0, 1001),
+                  constant_values=I32_MAX).astype(np.int32)
+    base = np.sort(rs.choice(200000, 1500, replace=False))
+    return keys, np.stack([base, np.concatenate([base[:1200] + 1, INVALID_Q + np.arange(300)]),
+                           np.concatenate([base[::5], np.full(1200, CLAMP_Q)])]).astype(np.int32)
+
+
+def _vk_2e20_case():
+    """Vk = 2^20 + 3 (the warp search's fourth round), a padding tail, four
+    rows of 5000 queries; the last row ends in padding."""
+    rs = np.random.RandomState(15)
+    keys = np.pad(np.sort(rs.choice(4 << 20, (1 << 20) - 997, replace=False)), (0, 1000),
+                  constant_values=I32_MAX).astype(np.int32)
+    base = np.sort(rs.choice(4 << 20, 5000, replace=False))
+    tail = np.concatenate([base[:4000] + 7, INVALID_Q + np.arange(1000)])
+    return keys, np.stack([base, base + 1, base - 4096, tail]).astype(np.int32)
+
+
+RANK_EDGE_CASES = {
+    "boundary_512": lambda: _boundary_case(512), "boundary_128": lambda: _boundary_case(128),
+    "padded": _padded_case, "vk1": _vk1_case, "vk_mod4": _vk_mod4_case,
+    "all_padding": _all_padding_case, "invalid_keys": _invalid_keys_case,
+    "outside": _outside_case, "long": _long_case, "vk_2e20": _vk_2e20_case,
+}
+
 
 @contextlib.contextmanager
 def switches(K, rank_impl: str = "seq", g3: bool = False):
@@ -644,47 +736,137 @@ def switches(K, rank_impl: str = "seq", g3: bool = False):
         K._RANK_IMPL, K._G3 = saved
 
 
+def _rank_agrees(got, ref, q) -> bool:
+    """The rank contract's equality: counts everywhere, flags at valid queries."""
+    import torch
+
+    valid = q < INVALID_Q
+    return torch.equal(got >> 3, ref >> 3) and torch.equal(got[valid], ref[valid])
+
+
+CU_GRAPH_NODE_TYPE_KERNEL = 0  # CUgraphNodeType of a kernel node (cuda.h)
+GRAPH_REPS = 20  # calls in the graph that times one call's device work
+
+
+def graph_nodes(graph) -> tuple:
+    """(kernel nodes, all nodes) of a captured torch.cuda.CUDAGraph, read
+    with cuGraphGetNodes / cuGraphNodeGetType from libcuda."""
+    import ctypes
+
+    cuda = ctypes.CDLL("libcuda.so.1")
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if cuda.cuGraphGetNodes(raw, None, ctypes.byref(n)) != 0:
+        raise AssertionError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if n.value and cuda.cuGraphGetNodes(raw, nodes, ctypes.byref(n)) != 0:
+        raise AssertionError("cuGraphGetNodes failed")
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        if cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) != 0:
+            raise AssertionError("cuGraphNodeGetType failed")
+        kinds.append(kind.value)
+    return sum(k == CU_GRAPH_NODE_TYPE_KERNEL for k in kinds), len(kinds)
+
+
+def graph_device(fn) -> dict:
+    """What one call of `fn` asks of the device, from CUDA graphs: the
+    kernels (and all operations) a graph that captures one call holds, and
+    its device time, the median CUDA-event time of replaying a graph of
+    GRAPH_REPS calls over GRAPH_REPS (the device runs the calls back to
+    back, so the host's time per call drops out). torch.profiler is not
+    used for this: after the first phases of this script it recorded the
+    device events of a short call only now and then."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture, as torch.cuda.graph asks
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    one, many = torch.cuda.CUDAGraph(keep_graph=True), torch.cuda.CUDAGraph()
+    with torch.cuda.graph(one):
+        fn()
+    with torch.cuda.graph(many):
+        for _ in range(GRAPH_REPS):
+            fn()
+    kernels, nodes = graph_nodes(one)
+    ms = timed(many.replay) / GRAPH_REPS
+    del one, many
+    return {"device_ms": ms, "kernels": kernels, "nodes": nodes}
+
+
 def _rank_row(label, keys, queries, impl="seq"):
     """Kernel vs plain on one captured rank call (exact), with times and
-    bound. A variant ("seq4", or "hostwin" through `seq=False`) is held
-    against the default kernel's result as well."""
+    bound, and from CUDA graphs of the call (`graph_device`) its device
+    time and its device kernels (one, for each of the three kernels) beside
+    torch.searchsorted's. A variant ("seq4", or "hostwin" through
+    `seq=False`) is held against the default kernel's result as well."""
     import torch
 
     from efg_tpu_torch.ops.cuda import sparse_kernels as K
 
     q = queries.to(torch.int32).contiguous()
-    run = functools.partial(K.merge_rank_flags, keys, q)
-    if impl != "seq":
-        def run():
-            with switches(K, rank_impl="seq4" if impl == "seq4" else "seq"):
-                return K.merge_rank_flags(keys, q, seq=impl != "hostwin")
-
-    got = run()
+    kc = torch.clamp(keys, max=CLAMP_Q)
+    qc = torch.where(q >= INVALID_Q, CLAMP_Q, q)
     refs = {"plain": K.rank_flags_plain(keys, q)}
     if impl != "seq":
         refs["rank_flags.cu"] = K.merge_rank_flags(keys, q)
-    ref = refs["plain"]
-    torch.cuda.synchronize()
-    valid = q < K.INVALID_Q
-    for name, r in refs.items():
-        if not (torch.equal(got >> 3, r >> 3) and torch.equal(got[valid], r[valid])):
-            raise AssertionError(f"rank_flags ({impl}) {label}: kernel disagrees with {name}")
-    kc = torch.clamp(keys, max=K.CLAMP_Q)
-    qc = torch.where(q >= K.INVALID_Q, K.CLAMP_Q, q)
+    run = functools.partial(K.merge_rank_flags, keys, q, seq=impl != "hostwin")
+    library = functools.partial(torch.searchsorted, kc, qc, out_int32=True)
+    with switches(K, rank_impl="seq4" if impl == "seq4" else "seq"):
+        got = run()
+        torch.cuda.synchronize()
+        for name, r in refs.items():
+            if not _rank_agrees(got, r, q):
+                raise AssertionError(f"rank_flags ({impl}) {label}: kernel disagrees with {name}")
+        ms = timed(run)
+        dev = graph_device(run)
+    lib_dev = graph_device(library)
+    if (dev["kernels"], dev["nodes"]) != (1, 1):
+        raise AssertionError(f"rank_flags ({impl}) {label}: one call is {dev['kernels']} kernels "
+                             f"in {dev['nodes']} device operations, expected 1")
     n, vk = q.numel(), keys.numel()
     bytes_ = 4 * vk + 8 * n  # keys once, queries in, result out
     ops = n * (int(np.ceil(np.log2(max(vk, 2)))) + 3)  # binary search + 3 probes
-    row = dict(label=label, P=q.shape[0], Vq=q.shape[1], Vk=vk,
-               ms=timed(run),
-               plain_ms=timed(lambda: K.rank_flags_plain(keys, q)),
-               library_ms=timed(lambda: torch.searchsorted(kc, qc, out_int32=True)),
+    valid = q < INVALID_Q
+    ref = refs["plain"]
+    row = dict(label=label, P=q.shape[0], Vq=q.shape[1], Vk=vk, ms=ms,
+               plain_ms=timed(lambda: K.rank_flags_plain(keys, q)), library_ms=timed(library),
+               device_ms=dev["device_ms"], device_kernels=dev["kernels"],
+               library_device_ms=lib_dev["device_ms"], library_device_kernels=lib_dev["kernels"],
                bytes_ms=1e3 * bytes_ / H100_BYTES_PER_S, ops_ms=1e3 * ops / H100_F32_OPS,
                max_abs_err=int((got[valid] - ref[valid]).abs().max()) if valid.any() else 0)
     row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
-    if impl != "seq":  # the wrapper's torch ops before the launch (seeds / windows), alone
-        prep = K.seq4_seeds if impl == "seq4" else K.hostwin_windows
-        row["prep_ms"] = timed(lambda: prep(keys, q))
     return row
+
+
+def rank_edge_cases():
+    """RANK_EDGE_CASES on the card through rank_flags.cu, seq4 and hostwin,
+    each against the plain version (counts everywhere, flags at valid
+    queries); returns a row per case."""
+    import torch
+
+    from efg_tpu_torch.ops.cuda import sparse_kernels as K
+
+    if (K.INVALID_Q, K.CLAMP_Q) != (INVALID_Q, CLAMP_Q):
+        raise AssertionError("the port's rank thresholds differ from this script's")
+    rows = []
+    for name, make in RANK_EDGE_CASES.items():
+        keys, queries = (torch.from_numpy(a).cuda() for a in make())
+        ref = K.rank_flags_plain(keys, queries)
+        agree = {}
+        for impl in ("seq", "seq4", "hostwin"):
+            with switches(K, rank_impl="seq4" if impl == "seq4" else "seq"):
+                got = K.merge_rank_flags(keys, queries, seq=impl != "hostwin")
+            torch.cuda.synchronize()
+            agree[impl] = _rank_agrees(got, ref, queries)
+        rows.append({"case": name, "P": queries.shape[0], "Vq": queries.shape[1],
+                     "Vk": keys.shape[0], "agree_with_plain": agree})
+        if not all(agree.values()):
+            raise AssertionError(f"rank edge case {name}: agreement with plain {agree}")
+    return rows
 
 
 def _gemm_row(label, features, packed, weights, *, emit=False, g3=False):
@@ -874,8 +1056,10 @@ def phase_variant_kernels(serve, train, card: str):
     """Per-kernel part of phase `variants`: the seq4 and hostwin rank kernels
     on all 8 serving-forward and 12 training-step rank calls (counts equal
     everywhere to the plain version and to rank_flags.cu, flags equal at
-    valid queries), the g3 kernel on every captured forward and stacked call
-    its gate admits. Returns the kernel rows by name."""
+    valid queries, one device kernel a call) and all three rank kernels on
+    the hazard cases, the g3 kernel on every captured forward and stacked
+    call its gate admits. Returns the kernel rows by name."""
+    edges = rank_edge_cases()
     rank = {}
     for impl in ("seq4", "hostwin"):
         rank[impl] = {
@@ -888,7 +1072,7 @@ def phase_variant_kernels(serve, train, card: str):
         train.stacked, [backward_label(i, call[0], conv)
                         for i, (call, conv) in enumerate(zip(train.stacked, train.convs))],
         emit=True, conv_features=[c["features"] for c in train.convs])
-    emit({"phase": "variant_kernels", "card": card,
+    emit({"phase": "variant_kernels", "card": card, "rank_edge_cases": edges,
           "rank_calls": {impl: rows for impl, rows in rank.items()},
           "g3_admitted": {"forward": fwd_admitted, "stacked": st_admitted},
           "g3_calls": fwd_rows, "g3_stacked_calls": st_rows})
@@ -918,7 +1102,9 @@ def phase_variant_kernels(serve, train, card: str):
     ]
     for r, impl in zip(rows[:2], ("seq4", "hostwin")):
         r["serve_ms"] = round(sum(x["ms"] for x in rank[impl]["serve"]), 6)
-        r["prep_ms"] = round(sum(x["prep_ms"] for x in rank[impl]["train"]), 6)
+        # against one torch.searchsorted on the same calls, in time and in device time
+        r["ms_over_library"] = r["ms"] / r["library_ms"]
+        r["device_ms_over_library"] = r["device_ms"] / r["library_device_ms"]
     return {r["name"]: r for r in rows}
 
 
@@ -1076,6 +1262,9 @@ def kernel_row(name, source, replaces_line, launches, rows, *, tolerance, per, c
            "per": per, "tolerance": tolerance, "card": card, "calls": len(rows)}
     if library_call:
         row["library_call"] = library_call
+    if "device_ms" in rows[0]:  # rank rows: device time and kernels from CUDA graphs
+        row.update(device_ms=total("device_ms"), library_device_ms=total("library_device_ms"),
+                   device_kernels_per_call=max(r["device_kernels"] for r in rows))
     return row
 
 

@@ -10,9 +10,17 @@ backward, one for each Pallas kernel:
   its Pallas kernel (`EFG_RANK_IMPL`, `seq=`):
   · "seq" (default) → `csrc/rank_flags.cu` (replaces `_rank_kernel_seq`);
   · "seq4" → `csrc/rank_flags_seq4.cu` (replaces `_rank_kernel_seq4`):
-    a merge-join over 512-key chunks from a per-block seed;
+    blocks of 256 queries of a row from the 512-key chunk before the
+    lower bound of their first query;
   · `seq=False` ("hostwin") → `csrc/rank_flags_hostwin.cu` (replaces
-    `_rank_kernel`): per-band key windows from one searchsorted.
+    `_rank_kernel`): bands of 128 queries, each in its own key window.
+  Both are bound by bytes and are one launch per call: each block finds
+  its start (or window) with a warp search of the keys, where the TPU
+  kernels take theirs from a searchsorted before the pallas_call
+  (`seq4_seeds`, `hostwin_windows` keep that formula for the CPU tests);
+  then it stages with cp.async, all at once, the 512-key pieces that hold
+  its queries' lower bounds, as a directory of piece edges names them
+  (`csrc/rank_walk.cuh`), and searches them in shared memory.
 - `fused_gather_gemm` → `csrc/gather_gemm.cu` (replaces `_fwd_kernel`): the
   packed-rulebook gather + GEMM that runs every sparse conv's forward;
   `gather_gemm_stacked` is its `emit_stacked` variant, which also returns
@@ -85,7 +93,7 @@ launches: Dict[str, int] = {
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _GEMM_ARGS = [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
 _STACKED_ARGS = [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
-_RANK_VARIANT_ARGS = [_I, _P, _I, _P, _I, _I, _P, _P, _I, _P, _P]
+_RANK_VARIANT_ARGS = [_I, _P, _I, _P, _I, _I, _P, _P]
 _SIGNATURES = {  # csrc/<stem>.cu → its C entries
     "rank_flags": {"efg_rank_flags": [_I, _P, _I, _P, _L, _P, _P]},
     "rank_flags_seq4": {"efg_rank_flags_seq4": _RANK_VARIANT_ARGS},
@@ -111,7 +119,7 @@ def build_kernels() -> Dict[str, dict]:
 
 
 def _on_card(t: torch.Tensor) -> bool:
-    if t.device.type == "cuda":
+    if t.is_cuda:
         if COMPUTE_DTYPE != torch.bfloat16:
             raise ValueError(f"the sparse kernels compute in bf16, not {COMPUTE_DTYPE}")
         return True
@@ -132,7 +140,9 @@ def _require(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int, device) 
 
 
 def _stream(device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    # the raw handle, as torch.cuda.current_stream(device).cuda_stream gives
+    # it, without building a Stream object (a few microseconds a launch)
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(device.index))
 
 
 # ---------------------------------------------------------------------------
@@ -181,13 +191,14 @@ def _clamped(keys: torch.Tensor, queries: torch.Tensor):
 
 
 def seq4_seeds(keys: torch.Tensor, queries: torch.Tensor):
-    """The seq4 kernel's block seeds, as efg_tpu seeds `_rank_kernel_seq4`
-    (its sparse_kernels.py:1058-1068), one per block of SEQ4_QUERIES
-    consecutive queries of a row instead of one per row: the 512-key chunk
-    that holds lower_bound(first query) − 1. The −1 keeps the q−1
-    neighbour of a first query whose lower bound is a chunk multiple (it
-    sits in the chunk before). Returns (seeds [P, ⌈Vq/SEQ4_QUERIES⌉] int32,
-    n_below [1] int32 = count(keys_c < CLAMP_Q), the count of every
+    """The start of every seq4 block, as efg_tpu seeds `_rank_kernel_seq4`
+    (its sparse_kernels.py:1058-1068) but per block of SEQ4_QUERIES
+    consecutive queries of a row instead of per row: the 512-key chunk that
+    holds lower_bound(first query) − 1. The −1 keeps the q−1 neighbour of a
+    first query whose lower bound is a chunk multiple (it sits in the chunk
+    before). The kernel finds both values itself with a warp search; this
+    is the formula, for the CPU tests. Returns (seeds [P, ⌈Vq/SEQ4_QUERIES⌉]
+    int32, n_below [1] int32 = count(keys_c < CLAMP_Q), the count of every
     padding query)."""
     kc, qc = _clamped(keys, queries[:, ::SEQ4_QUERIES])
     probe = torch.cat([qc.reshape(-1), qc.new_full((1,), CLAMP_Q)])
@@ -204,8 +215,9 @@ def hostwin_windows(keys: torch.Tensor, queries: torch.Tensor):
     + 1; a row's last band reaches the last key row. Bands start every
     HOSTWIN_ROW queries of a row (efg_tpu pads rows to 1024 queries first;
     the windows of the real bands differ only where its padding band comes
-    next, and both cover what the band's queries need). Returns (wrow,
-    nrows), each [P, ⌈Vq/HOSTWIN_ROW⌉] int32."""
+    next, and both cover what the band's queries need). The kernel finds
+    its window itself with two warp searches; this is the formula, for the
+    CPU tests. Returns (wrow, nrows), each [P, ⌈Vq/HOSTWIN_ROW⌉] int32."""
     kr = -(-keys.shape[0] // HOSTWIN_ROW)
     kc, qs = _clamped(keys, queries[:, ::HOSTWIN_ROW])
     pos = torch.searchsorted(kc, qs.contiguous(), out_int32=True)
@@ -217,20 +229,18 @@ def hostwin_windows(keys: torch.Tensor, queries: torch.Tensor):
 
 
 def _rank_flags_variant_cuda(impl: str, keys: torch.Tensor, queries: torch.Tensor):
-    """Launch `rank_flags_<impl>.cu` ("seq4" or "hostwin") after the
-    wrapper's own searchsorted: seq4 takes (seeds, n_below), hostwin
-    (wrow, nrows), one entry per block of queries."""
+    """Launch `rank_flags_<impl>.cu` ("seq4" or "hostwin"): one kernel,
+    which finds every block's start in the keys itself."""
     dev = keys.device
     _require(keys, "keys", torch.int32, 1, dev)
     _require(queries, "queries", torch.int32, 2, dev)
     n_rows, vq = queries.shape
     out = torch.empty_like(queries)
-    per_block, extra = (seq4_seeds if impl == "seq4" else hostwin_windows)(keys, queries)
     stem = f"rank_flags_{impl}"
     lib = _build.load(stem, _SIGNATURES[stem])
     err = getattr(lib, f"efg_{stem}")(
         dev.index or 0, keys.data_ptr(), keys.shape[0], queries.data_ptr(), n_rows, vq,
-        per_block.data_ptr(), extra.data_ptr(), per_block.shape[1], out.data_ptr(), _stream(dev),
+        out.data_ptr(), _stream(dev),
     )
     _build.check(lib, err, f"{stem} launch")
     launches[stem] += 1

@@ -2,16 +2,19 @@
 `seq=False`, EFG_SPARSE_G3) in efg_tpu_torch against efg_tpu's.
 
 On the CPU every variant runs the plain version, so the arithmetic each
-Hopper variant adds is held here through what surrounds it: the seq4
-kernel's block seeds and the hostwin kernel's key windows, computed by the
-port's wrappers and walked by a numpy model of each kernel that reads only
-the keys the kernel stages, against efg_tpu's Pallas kernels in interpret
-mode; the g3 gate against the one efg_tpu applies, over every gather of the
-trunk's forward and backward; the stacked layout of the group-merged grid.
-The kernels themselves are held against the plain versions on the card by
-chip_smoke.py (phase `variants`)."""
+Hopper variant adds is held here through numpy models of the kernels: the
+seq4 and hostwin kernels' warp searches (their starts equal to the
+formula `seq4_seeds` / `hostwin_windows` keeps) and their walk over the
+pieces a directory names, reading only the keys the kernel reads, against
+efg_tpu's Pallas kernels in interpret mode on hazard cases; the g3 gate
+against the one efg_tpu applies, over every gather of the trunk's forward
+and backward; the stacked layout of the group-merged grid. The kernels
+themselves are held against the plain versions on the card by
+chip_smoke.py (phase `variants`, with its copy of the hazard cases)."""
 
 import functools
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -64,90 +67,193 @@ def test_rank_switch_resolves_as_jax(env, seq, monkeypatch):
     assert K.launches == NO_LAUNCHES
 
 
-def _chunk_rank(chunk, q):
-    """(count of chunk keys < q, q−1 ∈ chunk, q ∈ chunk, q+1 ∈ chunk) for a
-    sorted chunk, as each kernel thread forms them in shared memory."""
-    n = len(chunk)
-    lo = np.searchsorted(chunk, q, side="left")
-    at = lambda i: chunk[np.clip(i, 0, n - 1)]  # noqa: E731
-    e = (lo < n) & (at(lo) == q)
-    return (lo, (lo > 0) & (at(lo - 1) == q - 1), e, (lo + e < n) & (at(lo + e) == q + 1))
+# rank_walk.cuh: warp lanes, keys per piece, pieces per directory, pieces staged at once
+LANES, PIECE, DIR, SLOTS = 32, 512, 32, 4
+SEQ4_SPEC, HOSTWIN_SPEC = 2, 1  # pieces each kernel stages while its first directory loads
 
 
-def _staged(keys, start, n):
-    """Keys [start, start + n) clamped, CLAMP_Q past the end: what a block
-    stages (it reads nothing at or past Vk)."""
-    out = np.full(n, CLAMP_Q, np.int64)
-    real = keys[start:start + n]
-    out[:len(real)] = np.minimum(real, CLAMP_Q)
-    return out
+def warp_lower_bound(kc, q):
+    """rank_walk.cuh `warp_lower_bound` in numpy: lower_bound(q) over the
+    clamped keys kc. The unknown keys are [lo, hi); each round the 32 lanes
+    probe the last key of 32 segments of ⌈(hi − lo)/32⌉ keys, the ballot of
+    "key < q" is a prefix of the lanes, and its length picks the segment.
+    Returns (position, rounds, highest index read)."""
+    lo, hi, rounds, top = 0, len(kc), 0, -1
+    while hi > lo:
+        step = -(-(hi - lo) // LANES)
+        idx = lo + (np.arange(LANES) + 1) * step - 1
+        on = idx < hi
+        lt = np.zeros(LANES, bool)
+        lt[on] = kc[idx[on]] < q
+        c = int(lt.sum())
+        assert lt[:c].all()  # the ballot is a prefix
+        top = max(top, int(idx[on].max()))
+        lo += c * step
+        hi = min(lo + step - 1, hi)
+        rounds += 1
+    return lo, rounds, top
 
 
-def _finish(q, cnt, fm, f0, fp, pad_count):
-    valid = q < INVALID_Q
-    flags = fm * 4 + f0 * 2 + fp
-    return np.where(valid, cnt * 8 + flags, pad_count * 8)
+def _keys_at(kc, lim, p):
+    """Clamped keys at positions p, CLAMP_Q at and past lim; (keys, the
+    highest position read)."""
+    p = np.asarray(p)
+    read = p < lim
+    out = np.full(p.shape, CLAMP_Q, np.int64)
+    out[read] = kc[p[read]]
+    return out, int(p[read].max()) if read.any() else -1
+
+
+def _stage(kc, lim, base):
+    """rank_walk.cuh's staging of one piece in numpy: keys [base, base +
+    512) as 16-byte vectors; the vector that reaches lim (<= Vk) is read key
+    by key, CLAMP_Q at and past lim. Returns (piece, highest index read)."""
+    p = base + 4 * np.arange(PIECE // 4)
+    idx = (p[:, None] + np.arange(4)).reshape(-1)
+    vector = np.repeat(p + 4 <= lim, 4)
+    read = vector | (idx < lim)  # a whole vector, or the keys of the last one below lim
+    piece = np.full(PIECE, CLAMP_Q, np.int64)
+    piece[read] = kc[idx[read]]
+    return piece, int(idx[read].max()) if read.any() else -1
+
+
+def _walk(kc, lim, begin, q, search, spec):
+    """rank_walk.cuh `walk` in numpy: directories of 32 pieces of 512 keys
+    from `begin` (their first and last keys), each searching query's piece
+    (the first whose last key is >= q); the first `spec` pieces staged while
+    the first directory loads, and, unless they hold every lower bound, the
+    pieces that hold one staged after it; the probes across a piece's edge
+    read from the directory. Returns ((count, fm, f0, fp) per query, pieces
+    staged as the directory names them, directories, highest index
+    read)."""
+    cnt = np.zeros(q.shape, np.int64)
+    fm, f0, fp = (np.zeros(q.shape, bool) for _ in range(3))
+    open_, before = search.copy(), q.copy()  # before: the key ahead of this directory
+    staged, dirs, top = 0, 0, -1
+    slots = [None] * SLOTS
+    base = begin
+    while True:
+        starts = base + PIECE * np.arange(DIR + 1)
+        first, t1 = _keys_at(kc, lim, starts)
+        last, t2 = _keys_at(kc, lim, starts[:DIR] + PIECE - 1)
+        dirs, top = dirs + 1, max(top, t1, t2)
+        if base == begin:  # the speculative pieces, slot j holding piece j
+            for j in range(spec):
+                slots[j], t = _stage(kc, lim, base + j * PIECE)
+                top = max(top, t)
+        c = np.where(open_ & (q <= last[-1]), np.searchsorted(last, q, side="left"), -1)
+        need = np.unique(c[c >= 0])
+        resident = base == begin and (need < spec).all()  # the staged pieces hold every one
+        # (pieces, their slots): the resident pieces in their own slots, else
+        # groups of up to SLOTS pieces, slot k taking the group's k-th piece
+        groups = ([(need, need)] if resident else
+                  [(need[g:g + SLOTS], range(len(need[g:g + SLOTS])))
+                   for g in range(0, len(need), SLOTS)])
+        for pieces, where in groups:
+            if not resident:
+                for k, j in zip(where, pieces):
+                    slots[k], t = _stage(kc, lim, base + j * PIECE)
+                    staged, top = staged + 1, max(top, t)
+            for k, j in zip(where, pieces):
+                piece, mine = slots[k], c == j
+                lo = np.searchsorted(piece, q, side="left")
+                assert (lo[mine] < PIECE).all()  # the piece's last key is >= q
+                at = lambda i: piece[np.clip(i, 0, PIECE - 1)]  # noqa: E731, B023
+                prev = np.where(lo > 0, at(lo - 1), last[j - 1] if j > 0 else before)
+                e = at(lo) == q
+                nxt = np.where(lo + e < PIECE, at(lo + e), first[j + 1])
+                cnt = np.where(mine, base + j * PIECE + lo, cnt)
+                fm, f0, fp = (np.where(mine, v, old) for v, old in
+                              ((prev == q - 1, fm), (e, f0), (nxt == q + 1, fp)))
+        open_ &= c < 0
+        before = np.full(q.shape, last[-1])
+        if not open_.any():
+            return (cnt, fm, f0, fp), staged, dirs, top
+        base += DIR * PIECE
+
+
+def _block_stats(shape):
+    """Per block: its start (seed or window row), pieces staged as its
+    directories name them, directories loaded, warp-search rounds, the
+    highest key index read (−1: none) and the pieces that hold some
+    searching query's lower bound."""
+    return {k: np.full(shape, -1, np.int64)
+            for k in ("start", "staged", "dirs", "rounds", "top", "lb_pieces")}
+
+
+def _lb_pieces(kc, begin, q):
+    """How many 512-key pieces from `begin` hold the lower bound of some q."""
+    return len(np.unique((np.searchsorted(kc, q, side="left") - begin) // PIECE)) if len(q) else 0
 
 
 def seq4_model(keys, queries):
-    """rank_flags_seq4.cu in numpy: per block of SEQ4_QUERIES queries, the
-    walk over 512-key chunks from the wrapper's seed and its stop rule.
-    Returns (packed, chunks staged per block)."""
-    seeds, n_below = K.seq4_seeds(torch.from_numpy(keys), torch.from_numpy(queries))
-    seeds, n_below = seeds.numpy(), int(n_below[0])
-    nq, ch = K.SEQ4_QUERIES, K.SEQ4_CHUNK
-    n_chunks = -(-len(keys) // ch)
+    """rank_flags_seq4.cu in numpy, block by block (SEQ4_QUERIES queries of
+    a row): the warp search for the lower bound of the block's first query,
+    the seed (lower bound − 1) / 512, the padding count from a warp search
+    for CLAMP_Q, and the walk from the seed. Returns (packed, per-block
+    stats, n_below)."""
+    kc = np.minimum(keys.astype(np.int64), CLAMP_Q)
+    nq, (n_rows, vq) = K.SEQ4_QUERIES, queries.shape
     out = np.zeros(queries.shape, np.int64)
-    staged = np.zeros(seeds.shape, int)
-    for p in range(queries.shape[0]):
-        for b in range(seeds.shape[1]):
+    stats = _block_stats((n_rows, -(-vq // nq)))
+    n_below = None
+    for p in range(n_rows):
+        for b in range(stats["start"].shape[1]):
             q = queries[p, b * nq:(b + 1) * nq].astype(np.int64)
             valid = q < INVALID_Q
-            cnt = np.full(q.shape, seeds[p, b] * ch, np.int64)
-            fm = f0 = fp = np.zeros(q.shape, bool)
+            lb, rounds, top = warp_lower_bound(kc, q[0]) if valid[0] else (0, 0, -1)
+            seed = max(lb - 1, 0) // PIECE
+            below = 0
+            if not valid.all():  # each warp that holds a padding query
+                below, r2, t2 = warp_lower_bound(kc, CLAMP_Q)
+                n_below, rounds, top = below, max(rounds, r2), max(top, t2)
+            (cnt, fm, f0, fp), staged, dirs = (0, 0, 0, 0), 0, 0
             if valid.any():
-                qmax = q[valid].max()
-                for r in range(seeds[p, b], n_chunks):
-                    chunk = _staged(keys, r * ch, ch)
-                    staged[p, b] += 1
-                    lo, m, e, pl = _chunk_rank(chunk, q)
-                    cnt, fm, f0, fp = cnt + lo, fm | m, f0 | e, fp | pl
-                    if chunk[-1] >= qmax + 2 or chunk[-1] >= CLAMP_Q:
-                        break
-            out[p, b * nq:(b + 1) * nq] = _finish(q, cnt, fm, f0, fp, n_below)
-    return out, staged
+                (cnt, fm, f0, fp), staged, dirs, t3 = _walk(kc, len(keys), seed * PIECE, q, valid,
+                                                             SEQ4_SPEC)
+                top = max(top, t3)
+            out[p, b * nq:(b + 1) * nq] = np.where(valid, cnt * 8 + fm * 4 + f0 * 2 + fp,
+                                                    below * 8)
+            for k, v in zip(stats, (seed, staged, dirs, rounds, top,
+                                    _lb_pieces(kc, seed * PIECE, q[valid]))):
+                stats[k][p, b] = v
+    return out, stats, n_below
 
 
-def hostwin_model(keys, queries, piece_rows=16):
-    """rank_flags_hostwin.cu in numpy: per band of 128 queries, its window
-    from the wrapper, staged in pieces of 16 rows, with the early stop at a
-    piece ending in CLAMP_Q. Returns (packed, rows staged per band)."""
-    wrow, nrows = (t.numpy() for t in K.hostwin_windows(torch.from_numpy(keys),
-                                                         torch.from_numpy(queries)))
-    row = K.HOSTWIN_ROW
+def hostwin_model(keys, queries):
+    """rank_flags_hostwin.cu in numpy, band by band (HOSTWIN_ROW queries of
+    a row): the warp searches for the lower bounds of the band's first query
+    and of the next band's, the window from them, and the walk over the
+    window's keys. Returns (packed, per-band stats with "nrows")."""
+    kc = np.minimum(keys.astype(np.int64), CLAMP_Q)
+    row, (n_rows, vq) = K.HOSTWIN_ROW, queries.shape
+    kr = -(-len(keys) // row)
+    qc_all = np.where(queries < INVALID_Q, queries.astype(np.int64), CLAMP_Q)
     out = np.zeros(queries.shape, np.int64)
-    staged = np.zeros(wrow.shape, int)
-    for p in range(queries.shape[0]):
-        for b in range(wrow.shape[1]):
-            q = queries[p, b * row:(b + 1) * row].astype(np.int64)
-            valid = q < INVALID_Q
-            qc = np.where(valid, q, CLAMP_Q)
-            has_pad = not valid.all()
-            qmax = q[valid].max() if valid.any() else None
-            cnt = np.full(q.shape, wrow[p, b] * row, np.int64)
-            fm = f0 = fp = np.zeros(q.shape, bool)
-            for r0 in range(0, nrows[p, b], piece_rows):
-                rows = min(piece_rows, nrows[p, b] - r0)
-                piece = _staged(keys, (wrow[p, b] + r0) * row, rows * row)
-                staged[p, b] += rows
-                lo, m, e, pl = _chunk_rank(piece, qc)
-                cnt, fm, f0, fp = cnt + lo, fm | m, f0 | e, fp | pl
-                if piece[-1] >= CLAMP_Q or (not has_pad and piece[-1] >= qmax + 2):
-                    break
-            # padding queries keep their window count (no flags)
-            out[p, b * row:(b + 1) * row] = np.where(valid, _finish(q, cnt, fm, f0, fp, 0),
-                                                     cnt * 8)
-    return out, staged
+    stats = _block_stats((n_rows, -(-vq // row)))
+    stats["nrows"] = np.full_like(stats["start"], -1)
+    for p in range(n_rows):
+        for b in range(stats["start"].shape[1]):
+            valid = queries[p, b * row:(b + 1) * row] < INVALID_Q
+            qc = qc_all[p, b * row:(b + 1) * row]
+            lb, rounds, top = warp_lower_bound(kc, qc[0])
+            last = kr - 1
+            if b + 1 < stats["start"].shape[1]:  # the next band's start
+                lb1, r1, t1 = warp_lower_bound(kc, qc_all[p, (b + 1) * row])
+                last, rounds, top = min((lb1 + 1) // row, kr - 1), max(rounds, r1), max(top, t1)
+            wrow = max(lb - 1, 0) // row
+            nrows = max(last - wrow + 1, 1)
+            lim = min(len(keys), (wrow + nrows) * row)
+            (cnt, fm, f0, fp), staged, dirs, t3 = _walk(kc, lim, wrow * row, qc,
+                                                         np.ones(qc.shape, bool), HOSTWIN_SPEC)
+            out[p, b * row:(b + 1) * row] = cnt * 8 + np.where(valid, fm * 4 + f0 * 2 + fp, 0)
+            for k, v in zip(stats, (wrow, staged, dirs, rounds, max(top, t3),
+                                    _lb_pieces(kc, wrow * row, qc), nrows)):
+                stats[k][p, b] = v
+    return out, stats
+
+
+I32_MAX = np.iinfo(np.int32).max
 
 
 def _padded_case():
@@ -157,7 +263,7 @@ def _padded_case():
     nor 128."""
     rs = np.random.RandomState(7)
     keys = np.sort(rs.choice(40000, 3000, replace=False)).astype(np.int32)
-    keys = np.pad(keys, (0, 7000), constant_values=np.iinfo(np.int32).max)
+    keys = np.pad(keys, (0, 7000), constant_values=I32_MAX)
     base = np.sort(rs.choice(42000, 600, replace=False)).astype(np.int32)
     tail = np.concatenate([base[:350], INVALID_Q + np.arange(250, dtype=np.int32)])
     queries = np.stack([tail, np.full(600, CLAMP_Q, np.int32), base + 3])
@@ -171,34 +277,162 @@ def _boundary_case(chunk):
     return keys, (np.arange(64, dtype=np.int32) * 2 + chunk)[None]
 
 
+def _vk1_case():
+    """Vk = 1: queries below, beside, at and above the one key, then
+    padding; and a row of padding only."""
+    row = np.array([-9, 0, 5, 6, 7, 8, 9, 40, INVALID_Q, CLAMP_Q], np.int32)
+    return np.array([7], np.int32), np.stack([row, row + 1, np.full(10, INVALID_Q, np.int32)])
+
+
+def _vk_mod4_case():
+    """Vk = 1027, all keys valid: the last 16-byte vector reaches past Vk.
+    The queries run below the first key and past the last one."""
+    rs = np.random.RandomState(11)
+    keys = np.sort(rs.choice(3000, 1027, replace=False)).astype(np.int32)
+    base = np.sort(rs.choice(np.arange(-40, 3100), 700, replace=False)).astype(np.int32)
+    return keys, np.stack([base, base + 1, base + 2999])
+
+
+def _all_padding_case():
+    """Every key is padding (Vk = 203): three in [INVALID_Q, CLAMP_Q), then
+    CLAMP_Q and int32 max. Valid queries count 0; padding queries count the
+    three."""
+    keys = np.concatenate([INVALID_Q + np.array([0, 5, 9]), np.full(100, CLAMP_Q),
+                           np.full(100, I32_MAX)]).astype(np.int32)
+    valid = np.arange(0, 600, 2)
+    return keys, np.stack([valid, np.concatenate([valid[:200], INVALID_Q + np.arange(100)])]
+                          ).astype(np.int32)
+
+
+def _invalid_keys_case():
+    """30 keys in [INVALID_Q, CLAMP_Q) between 900 valid keys and a CLAMP_Q
+    tail (Vk = 1030): padding queries count them, valid ones do not."""
+    rs = np.random.RandomState(12)
+    keys = np.concatenate([np.sort(rs.choice(20000, 900, replace=False)),
+                           INVALID_Q + np.sort(rs.choice(1000, 30, replace=False)),
+                           np.full(100, CLAMP_Q)]).astype(np.int32)
+    base = np.sort(rs.choice(21000, 800, replace=False))
+    return keys, np.stack([base, np.concatenate([base[:500], INVALID_Q + np.arange(300)]),
+                           np.concatenate([base[:64], np.full(736, CLAMP_Q)])]).astype(np.int32)
+
+
+def _outside_case():
+    """Keys in [10000, 20000) then padding; rows of queries below the first
+    key (some negative), above the last, and both."""
+    rs = np.random.RandomState(13)
+    keys = np.pad(np.sort(rs.choice(np.arange(10000, 20000), 1000, replace=False)), (0, 24),
+                  constant_values=CLAMP_Q).astype(np.int32)
+    below = np.sort(rs.choice(np.arange(-50000, 10000), 300, replace=False))
+    above = np.sort(rs.choice(np.arange(20000, 400000), 300, replace=False))
+    mixed = np.sort(np.concatenate([below[::2], above[::2]]))
+    return keys, np.stack([below, above, mixed]).astype(np.int32)
+
+
+def _long_case():
+    """Vk = 40001, past 2^15, with a padding tail; rows of 1500 queries whose
+    blocks span a dozen 512-key pieces, and a row of 300 sparser ones whose
+    blocks span more than one directory (32 pieces)."""
+    rs = np.random.RandomState(14)
+    keys = np.pad(np.sort(rs.choice(200000, 39000, replace=False)), (0, 1001),
+                  constant_values=I32_MAX).astype(np.int32)
+    base = np.sort(rs.choice(200000, 1500, replace=False))
+    return keys, np.stack([base, np.concatenate([base[:1200] + 1, INVALID_Q + np.arange(300)]),
+                           np.concatenate([base[::5], np.full(1200, CLAMP_Q)])]).astype(np.int32)
+
+
 RANK_CASES = {"rank_case": lambda: _rank_case(3), "boundary_512": lambda: _boundary_case(512),
-              "boundary_128": lambda: _boundary_case(128), "padded": _padded_case}
+              "boundary_128": lambda: _boundary_case(128), "padded": _padded_case,
+              "vk1": _vk1_case, "vk_mod4": _vk_mod4_case, "all_padding": _all_padding_case,
+              "invalid_keys": _invalid_keys_case, "outside": _outside_case, "long": _long_case}
+
+
+def _max_rounds(vk):
+    """The most rounds the warp search takes over Vk keys: a round leaves at
+    most ⌈n/32⌉ − 1 of n unknown keys, so k rounds resolve up to N_k keys,
+    N_k = 32·(N_{k−1} + 1): 32, 1056, 33 824, 1 082 400."""
+    k, n = 0, 0
+    while n < vk:
+        k, n = k + 1, LANES * (n + 1)
+    return k
 
 
 @pytest.mark.parametrize("case", list(RANK_CASES))
 @pytest.mark.parametrize("impl", ["seq4", "hostwin"])
 def test_rank_variant_walk_matches_pallas(impl, case):
-    """The numpy model of the Hopper kernel, on the wrapper's seeds or
-    windows, against efg_tpu's kernel of the same name: counts exact
-    everywhere, flags exact at valid queries. A block of padding only reads
-    no chunk; no block stages the keys' padding tail."""
+    """The numpy model of the Hopper kernel (its warp searches and its walk
+    over the pieces its directory names) against efg_tpu's kernel of the
+    same name: counts exact everywhere, flags exact at valid queries. The
+    starts the blocks find are the TPU wrapper's formula (`seq4_seeds`,
+    `hostwin_windows`); no block reads at or past Vk or stages a piece that
+    holds no lower bound; a block of padding only stages nothing."""
     keys, queries = RANK_CASES[case]()
     want = np.asarray(PK._merge_rank_flags_impl(jnp.asarray(keys), jnp.asarray(queries),
                                                 nb=8, impl=impl))
-    got, staged = (seq4_model if impl == "seq4" else hostwin_model)(keys, queries)
+    kt, qt = torch.from_numpy(keys), torch.from_numpy(queries)
+    if impl == "seq4":
+        got, stats, n_below = seq4_model(keys, queries)
+        seeds, below = K.seq4_seeds(kt, qt)
+        walks = queries[:, ::K.SEQ4_QUERIES] < INVALID_Q  # a padding block walks nothing
+        np.testing.assert_array_equal(stats["start"][walks], seeds.numpy()[walks])
+        assert n_below in (None, int(below[0]))
+    else:
+        got, stats = hostwin_model(keys, queries)
+        wrow, nrows = K.hostwin_windows(kt, qt)
+        np.testing.assert_array_equal(stats["start"], wrow.numpy())
+        np.testing.assert_array_equal(stats["nrows"], nrows.numpy())
     np.testing.assert_array_equal(got >> 3, want >> 3)
     ok = queries < INVALID_Q
     np.testing.assert_array_equal(got[ok], want[ok])
-    np.testing.assert_array_equal(got >> 3, K.rank_flags_plain(
-        torch.from_numpy(keys), torch.from_numpy(queries)).numpy() >> 3)
-    if case == "padded":  # the padding tail (14 chunks, 55 rows) is never walked
+    np.testing.assert_array_equal(got >> 3, K.rank_flags_plain(kt, qt).numpy() >> 3)
+    vk = len(keys)
+    assert stats["top"].max() < vk
+    assert stats["rounds"].max() <= _max_rounds(vk)
+    # beyond the speculative pieces, only pieces that hold a lower bound are
+    # staged; a block of padding only stages nothing
+    assert (stats["staged"] <= np.maximum(stats["lb_pieces"], 0)).all()
+    if case == "padded":
         if impl == "seq4":
-            assert staged[1].max() == 0  # padding only: the count comes from n_below
-            assert staged[0].max() <= 3  # stops at the first chunk ending in CLAMP_Q
-        else:
-            _, nrows = K.hostwin_windows(torch.from_numpy(keys), torch.from_numpy(queries))
-            assert nrows.max() > 50  # a row's last band: its window reaches the last key row
-            assert staged.max() <= 16  # one piece, then the stop at a CLAMP_Q row
+            assert stats["dirs"][1].max() == 0  # padding only: the count is n_below
+        else:  # a row's last band: its window reaches the last key row, one piece holds it
+            assert stats["nrows"][:, -1].min() > 50 and stats["lb_pieces"][:, -1].max() == 1
+            assert stats["staged"][:, -1].max() == 0  # that piece is the speculative one
+    if case == "long":  # blocks that stage more than one group of 4 pieces, and span directories
+        assert stats["staged"].max() > 4 and stats["dirs"].max() >= 2
+
+
+@pytest.mark.parametrize("vk", [1, 32, 33, 1056, 40001, (1 << 20) + 3])
+def test_warp_search_is_lower_bound(vk):
+    """The warp search of both kernels against searchsorted over sorted keys
+    with a padding tail: keys below, at, between and above, CLAMP_Q and
+    beyond; no read at or past Vk, and at most `_max_rounds` rounds (4 up
+    to 1 082 400 keys)."""
+    rs = np.random.RandomState(vk % 1000)
+    n_pad = vk // 7
+    kc = np.sort(rs.choice(4 * vk + 8, vk - n_pad, replace=False)).astype(np.int64)
+    kc = np.concatenate([kc, np.full(n_pad, CLAMP_Q)])
+    qs = np.concatenate([[-5, 0, CLAMP_Q, CLAMP_Q + 1], kc[rs.randint(0, vk, 40)],
+                         rs.randint(-10, 4 * vk + 20, 40)])
+    for q in qs:
+        lb, rounds, top = warp_lower_bound(kc, q)
+        assert lb == np.searchsorted(kc, q, side="left")
+        assert rounds <= _max_rounds(vk) and top < vk
+    assert _max_rounds(vk) == {1: 1, 32: 1, 33: 2, 1056: 2, 40001: 4, (1 << 20) + 3: 4}[vk]
+
+
+def test_chip_smoke_cases_are_these():
+    """chip_smoke.py's own copy of the hazard cases, which it runs through
+    the three rank kernels on the card, makes the same arrays as these."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    shared = set(cs.RANK_EDGE_CASES) & set(RANK_CASES)
+    assert shared == set(RANK_CASES) - {"rank_case"}
+    for name in shared:
+        for a, b in zip(cs.RANK_EDGE_CASES[name](), RANK_CASES[name]()):
+            assert a.dtype == b.dtype == np.int32
+            np.testing.assert_array_equal(a, b)
+    assert cs.RANK_EDGE_CASES["vk_2e20"]()[0].shape == ((1 << 20) + 3,)
 
 
 GRID = (32, 32, 40)  # (nx, ny, nz): the trunk at test_torch_sparse_net's size
