@@ -7,7 +7,8 @@ either. Phases (each prints JSON lines; any failure exits 1):
 
 1. device  — card name and power limit, torch/CUDA versions, TF32 off,
              build every CUDA kernel source in `efg_tpu_torch/csrc/`
-             (one nvcc per source, all started together).
+             (one nvcc per source, all started together); each kernel
+             instantiation's registers and spills as ptxas prints them.
 2. slice   — CenterPoint-VoxelNet at the flagship's full width (Waymo grid
              1504×1504×41, max_voxels 120000, stage caps 80k/50k/30k/25k,
              bf16 trunk activations, RPN (5,5)/(128,256)/(256,256), one task
@@ -22,8 +23,12 @@ either. Phases (each prints JSON lines; any failure exits 1):
              PyTorch version on the card: the rank kernel must agree
              exactly (count field everywhere, flags at valid queries), the
              gather-GEMM within 1e-3·max|ref|. Medians of 20 timed runs;
-             each rank call is also captured in CUDA graphs for its device
-             time and its kernel count, beside torch.searchsorted's.
+             each rank and gather-GEMM call is also captured in CUDA graphs
+             for its device time and its kernel count (one), the rank calls
+             beside torch.searchsorted's. The gather-GEMM's hazard cases
+             GEMM_EDGE_CASES run through both entries of gather_gemm.cu
+             against the plain versions (out within 1e-3·max|ref|, stacked
+             taps bit for bit).
 4. breakdown — one bs=4 step stage by stage (voxelize + VFE, sparse trunk,
              RPN, head, decode, post-processing, and the NMS IoU matrix and
              greedy loop), CUDA-event medians.
@@ -41,7 +46,8 @@ either. Phases (each prints JSON lines; any failure exits 1):
 7. train_kernels — every backward kernel call of the captured step rerun
              on its captured inputs through the kernel and its plain
              version: stacked gather-GEMM (taps bit-exact, out within
-             1e-3·max|ref|), the dW kernel on every conv's (features,
+             1e-3·max|ref|, device time and one kernel a call from CUDA
+             graphs), the dW kernel on every conv's (features,
              rulebook, gradient) against its plain version and against the
              dW the stacked path produced (1e-3·max|ref|), and the rank
              kernel on all 12 rulebook builds (exact). Medians of 20 runs.
@@ -288,16 +294,45 @@ def phase_device():
     t0 = time.perf_counter()
     logs = K.build_kernels()
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for log in logs.values() for ln in log["log"].splitlines()
-             if "registers" in ln or "spill" in ln]
     emit({"phase": "device", "card": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "device_name": torch.cuda.get_device_name(0),
           "allow_tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
                          "cudnn": torch.backends.cudnn.allow_tf32},
           "build_seconds": round(build_s, 3),
           "per_source_seconds": {k: round(v["seconds"], 3) for k, v in logs.items()},
-          "ptxas": ptxas[:40]})
+          "ptxas": {k: ptxas_usage(v["log"]) for k, v in logs.items()}})
     return card
+
+
+def ptxas_usage(log: str) -> list:
+    """Each kernel's registers, static shared memory and spills from
+    `nvcc -Xptxas -v` output, as "kernel<template args>: Used ... | spills"."""
+    out, name, spill = [], "?", ""
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = _kernel_name(m.group(1))
+        elif "spill" in ln:
+            spill = ln.strip()
+        elif "Used" in ln and "registers" in ln:
+            out.append(f"{name}: {ln.split(':', 1)[1].strip()} | {spill}")
+    return out
+
+
+def _kernel_name(mangled: str) -> str:
+    """`name<integer template arguments>` of a mangled kernel symbol: the
+    length-prefixed identifier that ends in "_kernel", and the literals of
+    the template argument list after it."""
+    for m in re.finditer(r"\d+", mangled):
+        run = m.group()
+        for k in range(len(run)):  # the length prefix may follow other digits
+            n = int(run[k:])
+            ident = mangled[m.end():m.end() + n]
+            if len(ident) == n and ident.endswith("_kernel"):
+                args = re.match(r"I((?:L[a-z]\d+E)+)E", mangled[m.end() + n:])
+                lits = re.findall(r"L[a-z](\d+)E", args.group(1)) if args else []
+                return ident + (f"<{','.join(lits)}>" if lits else "")
+    return mangled
 
 
 def make_model(kw, device):
@@ -432,6 +467,7 @@ def phase_kernels(capture, card: str, launches: dict):
     against its plain version; returns the kernel rows by name."""
     rank_rows = [_rank_row(RANK_LABELS[i], k, q) for i, (k, q) in enumerate(capture.rank)]
     gemm_rows = [_gemm_row(gemm_label(i), *call)[0] for i, call in enumerate(capture.gemm)]
+    edges = gemm_edge_cases()
     per = "sum over the {} calls of one bs=4 serving forward"
     rows = {
         "rank_flags": kernel_row("rank_flags", "rank_flags.cu", 882, launches["rank_flags"],
@@ -442,7 +478,7 @@ def phase_kernels(capture, card: str, launches: dict):
                                   card=card),
     }
     emit({"phase": "kernels", "summary": list(rows.values()), "rank_calls": rank_rows,
-          "gemm_calls": gemm_rows})
+          "gemm_calls": gemm_rows, "gemm_edge_cases": edges})
     return rows
 
 
@@ -723,6 +759,89 @@ RANK_EDGE_CASES = {
     "outside": _outside_case, "long": _long_case, "vk_2e20": _vk_2e20_case,
 }
 
+# The gather-GEMM's hazards (this script's own numpy copy of the case makers
+# in tests/test_torch_sparse_gemm_cases.py): each (features [V_in, C] f32,
+# packed [P, V_out] int32 with pos monotone per pair, weights [P·3·C, O]
+# f32), run through both entries of gather_gemm.cu in phase kernels.
+GEMM_TM = 128  # output rows per block of gather_gemm.cu (its kTM)
+
+
+def _gemm_case(seed, v_out, c=32, o=32, n_pairs=9, v_in=None, density=0.3, edit=None):
+    """A random rulebook whose set flags all name rows in [0, V_in), unless
+    `edit(packed, v_in)` plants a hazard. No fm at pos = V_in: a padded
+    sparse tensor's rulebook never has it, and efg_tpu's Pallas kernel reads
+    that tap (row V_in − 1) as 0, where the contract reads the row."""
+    rs = np.random.RandomState(seed)
+    v_in = v_out if v_in is None else v_in
+    pos = np.sort(rs.randint(0, v_in + 1, (n_pairs, v_out)), axis=1)
+    fl = rs.rand(n_pairs, v_out, 3) < density
+    fm = fl[..., 0] & (pos >= 1) & (pos < v_in)
+    f0 = fl[..., 1] & (pos < v_in)
+    fp = fl[..., 2] & (pos + f0 < v_in)
+    packed = (pos * 8 + fm * 4 + f0 * 2 + fp).astype(np.int32)
+    if edit is not None:
+        packed = edit(packed, v_in).astype(np.int32)
+    feats = rs.randn(v_in, c).astype(np.float32)
+    w = (rs.randn(n_pairs * 3 * c, o) * 0.1).astype(np.float32)
+    return feats, packed, w
+
+
+def _tile_empty(packed, v_in):
+    packed[:, GEMM_TM:2 * GEMM_TM] &= ~7  # the second tile has no flag
+    return packed
+
+
+def _all_off(packed, v_in):
+    return packed & ~7
+
+
+def _one_tap(packed, v_in):
+    packed = packed & ~7
+    r = int(np.argmax((packed[4] >> 3) < v_in))  # a row of pair 4 whose pos names a row
+    packed[4, r] |= 2
+    return packed
+
+
+def _outside_rows(packed, v_in):
+    """Set flags on rows −1 and V_in: pos 0 with fm (pair 0), pos V_in with
+    f0 and fp (pair 1), pos V_in − 1 with all three (pair 2, fp at V_in)."""
+    packed[0, :3] = 0 * 8 + 4 + 2
+    packed[1, -3:] = v_in * 8 + 2 + 1
+    pos2 = np.minimum(packed[2] >> 3, v_in - 1)
+    packed[2] = pos2 * 8 + (packed[2] & 7)
+    packed[2, -3:] = (v_in - 1) * 8 + 7
+    return packed
+
+
+def _pos_v_in_off(packed, v_in):
+    packed[:, -40:] = v_in * 8  # pos = V_in, every flag off
+    return packed
+
+
+def _middle_only(packed, v_in):
+    """Only the middle taps of pairs 3-5, as a (3, 1, 1) conv's rulebook:
+    24 of the 27 taps empty in every tile."""
+    keep = np.zeros_like(packed)
+    keep[3:6] = 2
+    return packed & (~7 | keep)
+
+
+GEMM_EDGE_CASES = {
+    **{f"v_out_{v}": functools.partial(_gemm_case, 30 + i, v)
+       for i, v in enumerate((1, GEMM_TM - 1, GEMM_TM, GEMM_TM + 1, 3 * GEMM_TM + 5))},
+    **{f"width_{c}x{o}": functools.partial(_gemm_case, 40 + 4 * i + j, 200, c, o)
+       for i, c in enumerate((16, 32, 64, 128)) for j, o in enumerate((16, 32, 64, 128))},
+    "pairs_1": functools.partial(_gemm_case, 60, 300, 16, 16, n_pairs=1),
+    "pairs_18": functools.partial(_gemm_case, 61, 300, 64, 32, n_pairs=18, v_in=150),
+    "tile_empty": functools.partial(_gemm_case, 62, 3 * GEMM_TM + 5, edit=_tile_empty),
+    "all_off": functools.partial(_gemm_case, 63, 300, edit=_all_off),
+    "one_tap": functools.partial(_gemm_case, 64, 300, 128, 64, edit=_one_tap),
+    "outside_rows": functools.partial(_gemm_case, 65, 300, 16, 32, v_in=250, edit=_outside_rows),
+    "pos_v_in_off": functools.partial(_gemm_case, 66, 300, 64, 64, v_in=120, edit=_pos_v_in_off),
+    "middle_only": functools.partial(_gemm_case, 67, 300, 128, 128, density=0.6,
+                                     edit=_middle_only),
+}
+
 
 @contextlib.contextmanager
 def switches(K, rank_impl: str = "seq", g3: bool = False):
@@ -892,21 +1011,25 @@ def _gemm_row(label, features, packed, weights, *, emit=False, g3=False):
     got, ref = run(), plain(f, p, w)
     torch.cuda.synchronize()
     (out, st), (ref_out, ref_st) = (got, ref) if emit else ((got, None), (ref, None))
-    scale = float(ref_out.abs().max())
-    err = float((out - ref_out).abs().max())
-    taps_equal = st is None or torch.equal(st, ref_st)
-    if not (taps_equal and err <= 1e-3 * max(scale, 1e-6)):
-        raise AssertionError(f"gather_gemm{'_g3' if g3 else ''}{'_stacked' if emit else ''} "
-                             f"{label}: taps equal {taps_equal}, out max|Δ| {err} "
-                             f"(max|ref| {scale})")
+    name = f"gather_gemm{'_g3' if g3 else ''}{'_stacked' if emit else ''} {label}"
+    err, scale = _gemm_agrees(name, out, ref_out, st, ref_st)
+    del got, out, ref, ref_out, ref_st
     v_in, c = f.shape
     n_pairs, v_out = p.shape
     o = w.shape[1]
     found = _found(p)
     bytes_ = (2 * v_in * c + 4 * n_pairs * v_out + 2 * w.numel() + 4 * v_out * o
               + (2 * v_out * n_pairs * 3 * c if emit else 0))  # the stacked taps written
+    # The graph of GRAPH_REPS calls drops each call's outputs, so its private
+    # pool hands the same blocks (2.76 GB of taps on down3's inverse) to the
+    # next call: one call's outputs are live at a time.
+    dev = graph_device(run)
+    if (dev["kernels"], dev["nodes"]) != (1, 1):
+        raise AssertionError(f"{name}: one call is {dev['kernels']} kernels in {dev['nodes']} "
+                             "device operations, expected 1")
     row = dict(label=label, P=n_pairs, V_in=v_in, V_out=v_out, C=c, O=o, taps_found=found,
-               ms=timed(run), plain_ms=timed(lambda: plain(f, p, w)),
+               ms=timed(run), device_ms=dev["device_ms"], device_kernels=dev["kernels"],
+               plain_ms=timed(lambda: plain(f, p, w)),
                bytes_ms=1e3 * bytes_ / H100_BYTES_PER_S,
                ops_ms=1e3 * 2 * found * c * o / H100_BF16_FLOPS,
                max_abs_err=err, max_ref=scale)
@@ -914,6 +1037,47 @@ def _gemm_row(label, features, packed, weights, *, emit=False, g3=False):
         row["taps_bit_exact"] = True
     row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
     return row, st
+
+
+def _gemm_agrees(name, out, ref_out, st=None, ref_st=None):
+    """A gather-GEMM result against its plain version: out within
+    1e-3·max|ref| (another summation order), stacked taps bit for bit.
+    Returns (max|Δ| of out, max|ref|)."""
+    import torch
+
+    scale = float(ref_out.abs().max()) if ref_out.numel() else 0.0
+    err = float((out - ref_out).abs().max()) if out.numel() else 0.0
+    taps_equal = st is None or torch.equal(st, ref_st)
+    if not (out.shape == ref_out.shape and taps_equal and err <= 1e-3 * max(scale, 1e-6)):
+        raise AssertionError(f"{name}: taps equal {taps_equal}, out max|Δ| {err} "
+                             f"(max|ref| {scale}), shape {tuple(out.shape)}")
+    return err, scale
+
+
+def gemm_edge_cases():
+    """GEMM_EDGE_CASES on the card through both entries of gather_gemm.cu,
+    each against the plain versions; returns a row per case."""
+    import torch
+
+    from efg_tpu_torch.ops.cuda import sparse_kernels as K
+
+    rows = []
+    for name, make in GEMM_EDGE_CASES.items():
+        feats, packed, weights = make()
+        f = torch.from_numpy(feats).to("cuda", torch.bfloat16)
+        p = torch.from_numpy(packed).cuda()
+        w = torch.from_numpy(weights).to("cuda", torch.bfloat16)
+        ref_out, ref_st = K.gather_gemm_stacked_plain(f, p, w)
+        out = K.fused_gather_gemm(f, p, w)
+        st_out, st = K.gather_gemm_stacked(f, p, w)
+        torch.cuda.synchronize()
+        err, scale = _gemm_agrees(f"gather_gemm case {name}", out, ref_out)
+        err_st, _ = _gemm_agrees(f"gather_gemm_stacked case {name}", st_out, ref_out, st, ref_st)
+        rows.append({"case": name, "P": p.shape[0], "V_in": f.shape[0], "V_out": p.shape[1],
+                     "C": f.shape[1], "O": w.shape[1], "taps_found": _found(p),
+                     "max_abs_err": err, "max_abs_err_stacked": err_st, "max_ref": scale,
+                     "taps_bit_exact": True})
+    return rows
 
 
 def _found(packed):
@@ -1262,9 +1426,11 @@ def kernel_row(name, source, replaces_line, launches, rows, *, tolerance, per, c
            "per": per, "tolerance": tolerance, "card": card, "calls": len(rows)}
     if library_call:
         row["library_call"] = library_call
-    if "device_ms" in rows[0]:  # rank rows: device time and kernels from CUDA graphs
-        row.update(device_ms=total("device_ms"), library_device_ms=total("library_device_ms"),
+    if "device_ms" in rows[0]:  # device time and kernels from CUDA graphs
+        row.update(device_ms=total("device_ms"),
                    device_kernels_per_call=max(r["device_kernels"] for r in rows))
+    if "library_device_ms" in rows[0]:
+        row["library_device_ms"] = total("library_device_ms")
     return row
 
 

@@ -352,8 +352,11 @@ def _gather_gemm_cuda(features, packed, weights, emit: bool):
     # other widths run zero-padded to the kernel's: zero channels add nothing
     cw, ow = _width(c), _width(o)
     f = _pad_cols(features.to(torch.bfloat16), cw).contiguous()
-    w = weights.to(torch.bfloat16).reshape(n_pairs * 3, c, o)
-    w = _pad_cols(torch.nn.functional.pad(w, (0, 0, 0, cw - c)), ow).reshape(-1, ow).contiguous()
+    w = weights.to(torch.bfloat16)
+    if (cw, ow) != (c, o):  # a zero pad still copies: only where a width differs
+        w = w.reshape(n_pairs * 3, c, o)
+        w = _pad_cols(torch.nn.functional.pad(w, (0, 0, 0, cw - c)), ow).reshape(-1, ow)
+    w = w.contiguous()
     packed = packed.to(torch.int32).contiguous()
     _require(f, "features", torch.bfloat16, 2, dev)
     _require(packed, "packed", torch.int32, 2, dev)
