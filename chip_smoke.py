@@ -26,9 +26,10 @@ either. Phases (each prints JSON lines; any failure exits 1):
              each rank and gather-GEMM call is also captured in CUDA graphs
              for its device time and its kernel count (one), the rank calls
              beside torch.searchsorted's. The gather-GEMM's hazard cases
-             GEMM_EDGE_CASES run through both entries of gather_gemm.cu
-             against the plain versions (out within 1e-3·max|ref|, stacked
-             taps bit for bit).
+             GEMM_EDGE_CASES run through both entries of gather_gemm.cu,
+             and of gather_gemm_g3.cu where its gate admits them, against
+             the plain versions (out within 1e-3·max|ref|, stacked taps bit
+             for bit).
 4. breakdown — one bs=4 step stage by stage (voxelize + VFE, sparse trunk,
              RPN, head, decode, post-processing, and the NMS IoU matrix and
              greedy loop), CUDA-event medians.
@@ -60,7 +61,8 @@ either. Phases (each prints JSON lines; any failure exits 1):
              one device kernel a call), all three rank kernels on the
              hazard cases RANK_EDGE_CASES (exact), the g3 gather-GEMM on the
              16 forward and the 15 stacked calls its gate admits (out within
-             1e-3·max|ref|, taps bit-exact). Then the path under seq4 + g3: the flagship
+             1e-3·max|ref|, taps bit-exact), each beside gather_gemm.cu's
+             times on the same call. Then the path under seq4 + g3: the flagship
              from the seeded weights serves two bs=4 requests (launches
              seq4 8, g3 16, gather-GEMM 5 per forward) and trains a warm-up
              and the timed steps (seq4 12, g3 16 + 5, stacked g3 15 + 6 per
@@ -833,6 +835,9 @@ GEMM_EDGE_CASES = {
        for i, c in enumerate((16, 32, 64, 128)) for j, o in enumerate((16, 32, 64, 128))},
     "pairs_1": functools.partial(_gemm_case, 60, 300, 16, 16, n_pairs=1),
     "pairs_18": functools.partial(_gemm_case, 61, 300, 64, 32, n_pairs=18, v_in=150),
+    "pairs_18_c16": functools.partial(_gemm_case, 68, 300, 16, 16, n_pairs=18),
+    "pairs_18_c32": functools.partial(_gemm_case, 69, 300, 32, 32, n_pairs=18, v_in=250),
+    "pairs_7": functools.partial(_gemm_case, 70, 260, 32, 16, n_pairs=7),
     "tile_empty": functools.partial(_gemm_case, 62, 3 * GEMM_TM + 5, edit=_tile_empty),
     "all_off": functools.partial(_gemm_case, 63, 300, edit=_all_off),
     "one_tap": functools.partial(_gemm_case, 64, 300, 128, 64, edit=_one_tap),
@@ -1056,7 +1061,8 @@ def _gemm_agrees(name, out, ref_out, st=None, ref_st=None):
 
 def gemm_edge_cases():
     """GEMM_EDGE_CASES on the card through both entries of gather_gemm.cu,
-    each against the plain versions; returns a row per case."""
+    and of gather_gemm_g3.cu where efg_tpu's g3 gate admits the case, each
+    against the plain versions; returns a row per case."""
     import torch
 
     from efg_tpu_torch.ops.cuda import sparse_kernels as K
@@ -1068,15 +1074,23 @@ def gemm_edge_cases():
         p = torch.from_numpy(packed).cuda()
         w = torch.from_numpy(weights).to("cuda", torch.bfloat16)
         ref_out, ref_st = K.gather_gemm_stacked_plain(f, p, w)
-        out = K.fused_gather_gemm(f, p, w)
-        st_out, st = K.gather_gemm_stacked(f, p, w)
-        torch.cuda.synchronize()
-        err, scale = _gemm_agrees(f"gather_gemm case {name}", out, ref_out)
-        err_st, _ = _gemm_agrees(f"gather_gemm_stacked case {name}", st_out, ref_out, st, ref_st)
-        rows.append({"case": name, "P": p.shape[0], "V_in": f.shape[0], "V_out": p.shape[1],
-                     "C": f.shape[1], "O": w.shape[1], "taps_found": _found(p),
-                     "max_abs_err": err, "max_abs_err_stacked": err_st, "max_ref": scale,
-                     "taps_bit_exact": True})
+        row = {"case": name, "P": p.shape[0], "V_in": f.shape[0], "V_out": p.shape[1],
+               "C": f.shape[1], "O": w.shape[1], "taps_found": _found(p), "max_ref": 0.0}
+        with switches(K, g3=True):
+            admitted = K.use_g3(f.shape[1], p.shape[0])
+        for kernel, g3 in (("gather_gemm", False), ("gather_gemm_g3", True)):
+            if g3 and not admitted:
+                continue
+            with switches(K, g3=g3):
+                out = K.fused_gather_gemm(f, p, w)
+                st_out, st = K.gather_gemm_stacked(f, p, w)
+            torch.cuda.synchronize()
+            err, scale = _gemm_agrees(f"{kernel} case {name}", out, ref_out)
+            err_st, _ = _gemm_agrees(f"{kernel}_stacked case {name}", st_out, ref_out, st, ref_st)
+            row[kernel] = {"max_abs_err": err, "max_abs_err_stacked": err_st,
+                           "taps_bit_exact": True}
+            row["max_ref"] = scale
+        rows.append(row)
     return rows
 
 
@@ -1194,9 +1208,10 @@ def offload(capture, device):
 
 def _g3_rows(calls, labels, *, emit, conv_features=None):
     """The g3 kernel on every captured gather-GEMM call that `use_g3`
-    admits (`_gemm_row`); the stacked rows also time the dense dW after the
-    kernel (`torch.matmul`, f32) as their library call. Returns (rows,
-    "admitted / calls")."""
+    admits (`_gemm_row`), each beside gather_gemm.cu's ms and device ms on
+    the same call, timed just before it; the stacked rows also time the
+    dense dW after the kernel (`torch.matmul`, f32) as their library call.
+    Returns (rows, "admitted / calls")."""
     import torch
 
     from efg_tpu_torch.ops.cuda import sparse_kernels as K
@@ -1206,7 +1221,9 @@ def _g3_rows(calls, labels, *, emit, conv_features=None):
         with switches(K, g3=True):
             if not K.use_g3(features.shape[1], packed.shape[0]):
                 continue
+        default, _ = _gemm_row(labels[i], features, packed, weights, emit=emit)
         row, st = _gemm_row(labels[i], features, packed, weights, emit=emit, g3=True)
+        row.update(default_ms=default["ms"], default_device_ms=default["device_ms"])
         if emit:
             st_f32, f_f32 = st.float(), conv_features[i].to(torch.bfloat16).float()
             row["library_ms"] = timed(lambda: torch.matmul(st_f32.t(), f_f32))
@@ -1264,6 +1281,9 @@ def phase_variant_kernels(serve, train, card: str):
                                 "kernel), f32 operands",
                    per=per_step + " (the 15 conv backwards the gate admits)", card=card),
     ]
+    for r, calls in zip(rows[2:], (fwd_rows, st_rows)):  # gather_gemm.cu on the same calls
+        r["default_ms"] = round(sum(x["default_ms"] for x in calls), 6)
+        r["default_device_ms"] = round(sum(x["default_device_ms"] for x in calls), 6)
     for r, impl in zip(rows[:2], ("seq4", "hostwin")):
         r["serve_ms"] = round(sum(x["ms"] for x in rank[impl]["serve"]), 6)
         # against one torch.searchsorted on the same calls, in time and in device time

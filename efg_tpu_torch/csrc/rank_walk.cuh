@@ -1,9 +1,10 @@
-// rank_walk.cuh: what the seq4 and hostwin rank kernels share, for Hopper
-// (sm_90a): the warp search that finds a block's place in the keys, and
-// the walk that stages, from there on, the 512-key pieces that hold its
-// queries' lower bounds and searches them in shared memory.
+// rank_walk.cuh: what the rank kernels share, for Hopper (sm_90a): the warp
+// search that finds a block's place in the keys (all three kernels), and
+// the walk of seq4 and hostwin that stages, from there on, the 512-key
+// pieces that hold its queries' lower bounds and searches them in shared
+// memory.
 //
-// Both kernels compute the rank contract of rank_flags.cu: keys [Vk] int32
+// All compute the rank contract of rank_flags.cu: keys [Vk] int32
 // ascending (entries >= INVALID_Q are padding), read as min(key, CLAMP_Q);
 // per query q (padding queries read as CLAMP_Q) the count of keys < q and
 // whether q−1, q, q+1 are keys.
@@ -32,25 +33,52 @@ __device__ __forceinline__ int key_or_clamp(const int* __restrict__ keys, long l
   return p < lim ? key_at(keys, (int)p) : kClampQ;
 }
 
-// lower_bound(q) over min(keys[0, vk), CLAMP_Q), found by one whole warp
-// (every lane calls it with the same q). The unknown keys are [lo, hi);
-// each round the 32 lanes probe the last key of each of 32 equal segments
-// (spacing ⌈(hi − lo)/32⌉), the ballot of "key < q" is a prefix of the lanes,
-// and its length c leaves the segment after the c-th, less its probed key:
-// at most ⌈(hi − lo)/32⌉ − 1 keys. So 4 rounds resolve up to 1 082 400 keys
-// (Vk = 480 000 at the flagship's bs=4 stage 0). Every probe lies in
-// [lo, hi) ⊆ [0, vk): nothing at or past Vk is read.
-__device__ __forceinline__ int warp_lower_bound(const int* __restrict__ keys, int vk, int q) {
+// lower_bound(q[i]) over min(keys, CLAMP_Q) for N targets at once, found by
+// one whole warp (every lane calls it with the same arguments). Target i's
+// lower bound is known to lie in [lo[i], hi[i]] (hi[i] <= Vk; keys before
+// lo[i] are < q[i], the key at hi[i], if any, is >= q[i]); lo[i] == hi[i]
+// asks nothing. Each round the 32 lanes probe, for every open target, the
+// last key of each of 32 equal segments of its unknown keys [lo, hi)
+// (spacing ⌈(hi − lo)/32⌉); the ballot of "key < q" is a prefix of the
+// lanes, and its length c leaves the segment after the c-th, less its
+// probed key: at most ⌈(hi − lo)/32⌉ − 1 keys. So 4 rounds resolve up to
+// 1 082 400 keys (Vk = 480 000 at the flagship's bs=4 stage 0). The N
+// targets' probes of a round are issued together, so N searches take the
+// round trips of one. The search stops once at most `slack` keys of every
+// target are unknown: its lower bound then lies in [lo[i], hi[i]] (slack
+// 0: lo == hi, the lower bound). Every probe lies in [lo, hi): nothing at
+// or past Vk is read.
+template <int N>
+__device__ __forceinline__ void warp_lower_bounds(const int* __restrict__ keys, const int (&q)[N],
+                                                  int (&lo)[N], int (&hi)[N], int slack = 0) {
   const int lane = threadIdx.x & 31;
-  int lo = 0, hi = vk;
-  while (hi > lo) {
-    const int step = (hi - lo + 31) >> 5;
-    const int idx = lo + (lane + 1) * step - 1;
-    const int c = __popc(__ballot_sync(kFull, idx < hi && key_at(keys, idx) < q));
-    lo += c * step;
-    hi = min(lo + step - 1, hi);
+  for (;;) {
+    bool lt[N], open = false;
+    int step[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      step[i] = (hi[i] - lo[i] + 31) >> 5;
+      const int idx = lo[i] + (lane + 1) * step[i] - 1;
+      const bool ask = hi[i] - lo[i] > slack;
+      lt[i] = ask && idx < hi[i] && key_at(keys, idx) < q[i];
+      open |= ask;
+    }
+    if (!open) return;  // lo and hi are the same in every lane
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      if (hi[i] - lo[i] > slack) {
+        lo[i] += __popc(__ballot_sync(kFull, lt[i])) * step[i];
+        hi[i] = min(lo[i] + step[i] - 1, hi[i]);
+      }
+    }
   }
-  return lo;
+}
+
+// lower_bound(q) over min(keys[0, vk), CLAMP_Q), by one whole warp.
+__device__ __forceinline__ int warp_lower_bound(const int* __restrict__ keys, int vk, int q) {
+  int qs[1] = {q}, lo[1] = {0}, hi[1] = {vk};
+  warp_lower_bounds<1>(keys, qs, lo, hi);
+  return lo[0];
 }
 
 __device__ __forceinline__ void cp_async16(int* smem, const int* gmem) {

@@ -168,17 +168,24 @@ def rank_flags_plain(keys: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
     return (pos * 8 + fm * 4 + f0 * 2 + fp.to(torch.int32)).to(torch.int32)
 
 
+def _int32(t: torch.Tensor) -> torch.Tensor:
+    """t as a contiguous int32 tensor (itself where it is one: `.to` costs a
+    microsecond of host time even when it has nothing to do)."""
+    if t.dtype != torch.int32:
+        t = t.to(torch.int32)
+    return t if t.is_contiguous() else t.contiguous()
+
+
 def _rank_flags_cuda(keys: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
     dev = keys.device
     _require(keys, "keys", torch.int32, 1, dev)
     _require(queries, "queries", torch.int32, 2, dev)
     out = torch.empty_like(queries)
     lib = _build.load("rank_flags", _SIGNATURES["rank_flags"])
-    err = lib.efg_rank_flags(
-        dev.index or 0, keys.data_ptr(), keys.shape[0], queries.data_ptr(),
-        queries.numel(), out.data_ptr(), _stream(dev),
-    )
-    _build.check(lib, err, "rank_flags launch")
+    err = lib.efg_rank_flags(dev.index or 0, keys.data_ptr(), keys.shape[0], queries.data_ptr(),
+                             queries.numel(), out.data_ptr(), _stream(dev))
+    if err:
+        _build.check(lib, err, "rank_flags launch")
     launches["rank_flags"] += 1
     return out
 
@@ -267,7 +274,7 @@ def merge_rank_flags(keys: torch.Tensor, queries: torch.Tensor, *,
     impl = rank_impl(seq)
     if not _on_card(keys):
         return rank_flags_plain(keys, queries)
-    keys, queries = keys.contiguous(), queries.to(torch.int32).contiguous()
+    keys, queries = keys.contiguous(), _int32(queries)
     if impl == "seq":
         return _rank_flags_cuda(keys, queries)
     return _rank_flags_variant_cuda(impl, keys, queries)
@@ -357,7 +364,7 @@ def _gather_gemm_cuda(features, packed, weights, emit: bool):
         w = w.reshape(n_pairs * 3, c, o)
         w = _pad_cols(torch.nn.functional.pad(w, (0, 0, 0, cw - c)), ow).reshape(-1, ow)
     w = w.contiguous()
-    packed = packed.to(torch.int32).contiguous()
+    packed = _int32(packed)
     _require(f, "features", torch.bfloat16, 2, dev)
     _require(packed, "packed", torch.int32, 2, dev)
     _require(w, "weights", torch.bfloat16, 2, dev)
@@ -445,7 +452,7 @@ def _gather_dw_cuda(features, packed, g) -> torch.Tensor:
     cw, ow = _width(c), _width(o)
     f = _pad_cols(features.to(torch.bfloat16), cw).contiguous()
     gb = _pad_cols(g.to(torch.bfloat16), ow).contiguous()
-    packed = packed.to(torch.int32).contiguous()
+    packed = _int32(packed)
     _require(f, "features", torch.bfloat16, 2, dev)
     _require(packed, "packed", torch.int32, 2, dev)
     _require(gb, "g", torch.bfloat16, 2, dev)

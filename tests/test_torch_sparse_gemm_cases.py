@@ -4,7 +4,7 @@ The plain versions of `fused_gather_gemm` and `gather_gemm_stacked`
 (efg_tpu_torch.ops.cuda.sparse_kernels) against efg_tpu's Pallas
 `fused_gather_gemm` (emit_stacked) in interpret mode, on small cases that
 plant what the Hopper kernel `csrc/gather_gemm.cu` has to get right: V_out
-around its 128-row tile, every (C, O) it takes, P of 1, 9 and 18, tiles and
+around its 128-row tile, every (C, O) it takes, P of 1, 7, 9 and 18, tiles and
 calls without a flag, a lone tap, set flags on rows outside [0, V_in), and
 pos = V_in. A numpy model of the kernel's block schedule (tiles of 128 rows,
 steps of a pair or a tap, steps that no row of a tile needs skipped) is
@@ -105,6 +105,9 @@ GEMM_CASES = {
        for i, c in enumerate((16, 32, 64, 128)) for j, o in enumerate((16, 32, 64, 128))},
     "pairs_1": functools.partial(_gemm_case, 60, 300, 16, 16, n_pairs=1),
     "pairs_18": functools.partial(_gemm_case, 61, 300, 64, 32, n_pairs=18, v_in=150),
+    "pairs_18_c16": functools.partial(_gemm_case, 68, 300, 16, 16, n_pairs=18),
+    "pairs_18_c32": functools.partial(_gemm_case, 69, 300, 32, 32, n_pairs=18, v_in=250),
+    "pairs_7": functools.partial(_gemm_case, 70, 260, 32, 16, n_pairs=7),
     "tile_empty": functools.partial(_gemm_case, 62, 3 * GEMM_TM + 5, edit=_tile_empty),
     "all_off": functools.partial(_gemm_case, 63, 300, edit=_all_off),
     "one_tap": functools.partial(_gemm_case, 64, 300, 128, 64, edit=_one_tap),

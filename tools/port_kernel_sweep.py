@@ -1,0 +1,366 @@
+#!/usr/bin/env python3
+"""Time plans of the port's g3 gather-GEMM and default rank kernel, and the
+rank kernel's wrapper, on one NVIDIA card.
+
+Run from the root of a checkout: `python3 tools/port_kernel_sweep.py
+[--parent DIR] [--only rank|g3] [--out FILE]` (needs one CUDA device;
+writes its JSON lines to stdout and to FILE, by default
+efg_tpu_torch/build/port_kernel_sweep.jsonl). It
+
+1. builds the kernel sources, and `efg_tpu_torch/csrc/gather_gemm_g3.cu`
+   and `rank_flags.cu` once more for each plan in G3_PLANS and RANK_PLANS:
+   the source with the `constexpr` lines that the plan names replaced,
+   compiled into efg_tpu_torch/build/sweep/ (with `--parent DIR`, the
+   sources of that checkout as plan "parent" too);
+2. captures, from the flagship model of chip_smoke.py (weights from its
+   seed), the gather-GEMM calls of one bs=4 serving forward and the stacked
+   calls of one bs=4 training step, and the rank calls of both;
+3. on every call that efg_tpu's g3 gate admits, times gather_gemm.cu (and
+   the parent's) and each plan in turns (device ms from CUDA graphs of the call, as
+   chip_smoke.py's `graph_device`), each plan held against the plain
+   version (out within 1e-3·max|ref|, stacked taps bit for bit);
+4. on every rank call, times each rank_flags.cu plan in turns beside
+   torch.searchsorted, each held against the plain version, and splits the
+   wrapper's host time per call into its parts.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import json
+import os
+import re
+import shutil
+import statistics
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, HERE)
+
+import chip_smoke as CS  # noqa: E402
+
+# Plan-line replacements of gather_gemm_g3.cu, by plan name ("as_source"
+# replaces nothing). "gemm" is gather_gemm.cu's own plan (a block per
+# tile, its steps and rings), so that its row measures two builds of one
+# plan; "persist" its steps in persistent blocks everywhere; "persist_b"
+# that with the launch bound of gather_gemm.cu's register count at C ≤ 32
+# (4 blocks an SM at C = 16, 3 at C = 32); "group" a δz-group a step
+# wherever a two-slot ring of them fits (C = 16, and C = 32 at O ≤ 32).
+G3_PLANS = {
+    "as_source": {},
+    "gemm": {"GROUP": "false", "PERSIST": "false"},
+    "persist": {"GROUP": "false", "PERSIST": "true"},
+    "persist_b": {"GROUP": "false", "PERSIST": "true",
+                  "MIN_BLOCKS": "C == 16 && O <= 32 ? 4 : (C == 32 && O <= 32 ? 3 : 2)"},
+    "group": {"GROUP": "C == 16 || (C == 32 && O <= 32)", "TAPS": "C == 64 && !GROUP ? 1 : 3",
+              "PERSIST": "true"},
+}
+# constexpr replacements of rank_flags.cu, by plan name: "exact" searches
+# the span's ends exactly; "p2" and "p8" give a warp 64 and 256 queries
+# (a window of 128 and 512 keys)
+RANK_PLANS = {
+    "as_source": {},
+    "exact": {"kSlack": "0"},
+    "p2": {"kPerLane": "2", "kWindow": "128"},
+    "p8": {"kPerLane": "8", "kWindow": "512"},
+}
+OUT = os.path.join(HERE, "efg_tpu_torch", "build", "port_kernel_sweep.jsonl")
+
+
+def emit(obj) -> None:
+    line = json.dumps(obj)
+    print(line, flush=True)
+    with open(OUT, "a") as f:
+        f.write(line + "\n")
+
+
+def plan_source(stem, name, lines):
+    """csrc/<stem>.cu with the `constexpr` line of each member that the plan
+    names given the plan's expression; each member must name exactly one
+    line."""
+    from efg_tpu_torch.ops.cuda import build as B
+
+    text = (B.CSRC / f"{stem}.cu").read_text()
+    for member, expr in lines.items():
+        text, n = re.subn(rf"(constexpr \w+ {member} = )[^;]+;", rf"\g<1>{expr};", text)
+        if n != 1:
+            raise AssertionError(f"{stem} plan {name}: {n} lines for {member}, not 1")
+    return text
+
+
+@contextlib.contextmanager
+def library(stem, lib):
+    """The kernel wrappers of `stem` launch from `lib` inside the block
+    (build.load's cache holds it), and from what the cache held before
+    after it."""
+    from efg_tpu_torch.ops.cuda import build as B
+
+    had, before = stem in B._LIBS, B._LIBS.get(stem)
+    B._LIBS[stem] = lib
+    try:
+        yield
+    finally:
+        if had:
+            B._LIBS[stem] = before
+        else:
+            del B._LIBS[stem]
+
+
+def build_variants(stem, plans, parent=None):
+    """Compile csrc/<stem>.cu once per plan (its `constexpr` lines that the
+    plan names replaced) and, given a parent checkout, the parent's source,
+    one nvcc each, all at once, into efg_tpu_torch/build/sweep/; returns
+    ({name: ctypes.CDLL}, {name: ptxas lines})."""
+    from efg_tpu_torch.ops.cuda import build as B
+    from efg_tpu_torch.ops.cuda import sparse_kernels as K
+
+    sources = {name: (plan_source(stem, name, lines), B.CSRC) for name, lines in plans.items()}
+    if parent:
+        csrc = os.path.join(parent, "efg_tpu_torch", "csrc")
+        with open(os.path.join(csrc, f"{stem}.cu")) as f:
+            sources["parent"] = (f.read(), csrc)
+    procs = {}
+    for name, (text, headers) in sources.items():
+        d = B.BUILD_DIR / "sweep" / stem / name
+        shutil.rmtree(d, ignore_errors=True)
+        d.mkdir(parents=True)
+        for h in os.listdir(headers):
+            if h.endswith(".cuh"):
+                shutil.copy(os.path.join(headers, h), d / h)
+        (d / f"{stem}.cu").write_text(text)
+        lib = d / f"lib{stem}.so"
+        cmd = [B.nvcc(), *B.NVCC_FLAGS, "-o", str(lib), str(d / f"{stem}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True), lib)
+    libs, logs = {}, {}
+    for name, (proc, lib) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {stem} plan {name}:\n{log}")
+        cdll = ctypes.CDLL(str(lib))
+        for entry, argtypes in K._SIGNATURES[stem].items():
+            getattr(cdll, entry).argtypes = argtypes
+            getattr(cdll, entry).restype = ctypes.c_int
+        cdll.efg_error_string.argtypes = [ctypes.c_int]
+        cdll.efg_error_string.restype = ctypes.c_char_p
+        libs[name], logs[name] = cdll, CS.ptxas_usage(log)
+    return libs, logs
+
+
+def capture():
+    """(forward gather-GEMM calls with labels, stacked calls with labels,
+    rank calls with labels) of one bs=4 serving forward and one bs=4
+    training step of the flagship."""
+    import torch
+
+    from efg_tpu_torch.engine.trainer import eval_step, init_state, train_step
+    from efg_tpu_torch.ops.cuda import sparse_kernels as K
+
+    md, _ = CS.make_model(CS.FLAGSHIP, "cuda")
+    batch = CS.flagship_batch(*CS.BATCHES[-1])
+    with CS.Capture(K) as serve:
+        eval_step(md, batch)
+    tx = CS.make_solver()
+    state = init_state(md, tx)
+    tb = CS.train_batch(*CS.TRAIN_BATCH, "cuda")
+    with CS.BackwardCapture(K) as train:
+        train_step(md, tx, state, tb)
+    torch.cuda.synchronize()
+    fwd = [(CS.gemm_label(i), c) for i, c in enumerate(serve.gemm)]
+    st = [(CS.backward_label(i, call[0], conv), call)
+          for i, (call, conv) in enumerate(zip(train.stacked, train.convs))]
+    rank = ([(f"serve {CS.RANK_LABELS[i]}", c) for i, c in enumerate(serve.rank)]
+            + [(f"train {lbl}", c) for lbl, c in zip(CS.RANK_TRAIN_LABELS, train.rank)])
+    del md, state, tx
+    return fwd, st, rank
+
+
+def sweep_gemm(libs, calls, emit_taps: bool, gemm_parent=None):
+    """Each admitted call through gather_gemm.cu (and, given, the parent's
+    gather_gemm.cu) and every plan, in turns (two rounds, the order reversed
+    in the second); returns per-call rows."""
+    import torch
+
+    from efg_tpu_torch.ops.cuda import sparse_kernels as K
+
+    kernel = K.gather_gemm_stacked if emit_taps else K.fused_gather_gemm
+    plain = K.gather_gemm_stacked_plain if emit_taps else K.gather_gemm_plain
+    rows = []
+    for label, (features, packed, weights) in calls:
+        with CS.switches(K, g3=True):
+            if not K.use_g3(features.shape[1], packed.shape[0]):
+                continue
+        f = features.to(torch.bfloat16).contiguous()
+        w = weights.to(torch.bfloat16).contiguous()
+        p = packed.contiguous()
+        ref = plain(f, p, w)
+        ref_out = ref[0] if emit_taps else ref
+
+        def run(name):
+            if name == "gather_gemm.cu":
+                return kernel(f, p, w)
+            if name == "gather_gemm.cu parent":
+                with library("gather_gemm", gemm_parent):
+                    return kernel(f, p, w)
+            with library("gather_gemm_g3", libs[name]), CS.switches(K, g3=True):
+                return kernel(f, p, w)
+
+        names = ["gather_gemm.cu", *(["gather_gemm.cu parent"] if gemm_parent else []), *libs]
+        times = {n: [] for n in names}
+        for name in names:
+            got = run(name)
+            torch.cuda.synchronize()
+            out, st = (got if emit_taps else (got, None))
+            CS._gemm_agrees(f"{name} {label}", out, ref_out, st, ref[1] if emit_taps else None)
+            del got, out, st
+        for order in (names, names[::-1]):
+            for name in order:
+                dev = CS.graph_device(lambda: run(name))
+                if (dev["kernels"], dev["nodes"]) != (1, 1):
+                    raise AssertionError(f"{name} {label}: {dev}")
+                times[name].append(dev["device_ms"])
+        n_pairs, v_out = p.shape
+        row = {"label": label, "C": f.shape[1], "O": w.shape[1], "P": n_pairs, "V_out": v_out,
+               "found": CS._found(p), "device_ms": {n: statistics.median(t)
+                                                    for n, t in times.items()},
+               "device_ms_runs": times}
+        emit({"sweep": "stacked" if emit_taps else "forward", **row})
+        rows.append(row)
+        del ref, ref_out
+    return rows
+
+
+def sweep_rank(libs, calls):
+    """Each captured rank call through every rank_flags.cu plan (and the
+    parent's kernel), in turns (two rounds, the order reversed in the
+    second), each held against the plain version bit for bit, beside
+    torch.searchsorted; then the wrapper's host time split by part (median
+    µs per call over 200 calls)."""
+    import torch
+
+    from efg_tpu_torch.ops.cuda import build as B
+    from efg_tpu_torch.ops.cuda import sparse_kernels as K
+
+    rows = []
+    for label, (keys, queries) in calls:
+        q = queries.to(torch.int32).contiguous()
+        ref = K.rank_flags_plain(keys, q)
+        kc = torch.clamp(keys, max=CS.CLAMP_Q)
+        qc = torch.where(q >= CS.INVALID_Q, CS.CLAMP_Q, q)
+
+        def run(name):
+            with library("rank_flags", libs[name]):
+                return K.merge_rank_flags(keys, q)
+
+        times = {n: [] for n in libs}
+        for name in libs:
+            got = run(name)
+            torch.cuda.synchronize()
+            exact = torch.equal(got, ref) if name != "parent" else CS._rank_agrees(got, ref, q)
+            if not exact:
+                raise AssertionError(f"rank_flags.cu {name} {label}: differs from plain")
+        for order in (list(libs), list(libs)[::-1]):
+            for name in order:
+                dev = CS.graph_device(lambda: run(name))
+                if (dev["kernels"], dev["nodes"]) != (1, 1):
+                    raise AssertionError(f"{name} {label}: {dev}")
+                times[name].append(dev["device_ms"])
+        with library("rank_flags", libs["as_source"]):
+            ms = CS.timed(lambda: K.merge_rank_flags(keys, q))
+        lib_dev = CS.graph_device(lambda: torch.searchsorted(kc, qc, out_int32=True))
+        row = {"label": label, "P": q.shape[0], "Vq": q.shape[1], "Vk": keys.numel(),
+               "device_ms": {n: statistics.median(t) for n, t in times.items()},
+               "ms": ms, "library_ms": CS.timed(lambda: torch.searchsorted(kc, qc, out_int32=True)),
+               "library_device_ms": lib_dev["device_ms"]}
+        emit({"sweep": "rank", **row})
+        rows.append(row)
+
+    keys, queries = calls[0][1]
+    q = queries.to(torch.int32).contiguous()
+    lib = B.load("rank_flags", K._SIGNATURES["rank_flags"])
+    out = torch.empty_like(q)
+    dev = keys.device
+    stream = K._stream(dev)
+    parts = {
+        "merge_rank_flags": lambda: K.merge_rank_flags(keys, q),
+        "_rank_flags_cuda": lambda: K._rank_flags_cuda(keys, q),
+        "_require x2": lambda: (K._require(keys, "keys", torch.int32, 1, dev),
+                                K._require(q, "queries", torch.int32, 2, dev)),
+        "empty_like": lambda: torch.empty_like(q),
+        "_stream": lambda: K._stream(dev),
+        "ctypes launch": lambda: lib.efg_rank_flags(0, keys.data_ptr(), keys.shape[0],
+                                                    q.data_ptr(), q.numel(), out.data_ptr(),
+                                                    stream),
+    }
+    host = {}
+    for name, fn in parts.items():
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(200):
+            t0 = time.perf_counter()
+            fn()
+            ts.append((time.perf_counter() - t0) * 1e6)
+        torch.cuda.synchronize()
+        host[name] = statistics.median(ts)
+    emit({"sweep": "rank_wrapper_host_us", "call": calls[0][0], **host})
+    return rows
+
+
+def main() -> int:
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", help="a checkout of the parent tree: its kernels join the sweep")
+    ap.add_argument("--only", choices=("rank", "g3"), help="sweep one kernel only")
+    ap.add_argument("--out", help="the file the JSON lines go to")
+    args = ap.parse_args()
+    global OUT
+    OUT = args.out or OUT
+    if not torch.cuda.is_available():
+        print("port_kernel_sweep: no CUDA device", file=sys.stderr)
+        return 2
+    os.makedirs(os.path.dirname(OUT), exist_ok=True)
+    open(OUT, "w").close()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from efg_tpu_torch.ops.cuda import sparse_kernels as K
+
+    card = CS.nvidia_smi_line()
+    t0 = time.perf_counter()
+    built = K.build_kernels()
+    g3_libs, g3_logs = ({}, {}) if args.only == "rank" else build_variants(
+        "gather_gemm_g3", G3_PLANS, args.parent)
+    gemm_parent = (build_variants("gather_gemm", {}, args.parent)[0]["parent"]
+                   if args.parent and args.only != "rank" else None)
+    rank_libs, rank_logs = ({}, {}) if args.only == "g3" else build_variants(
+        "rank_flags", RANK_PLANS, args.parent)
+    emit({"card": card, "build_seconds": time.perf_counter() - t0,
+          "ptxas": {"gather_gemm_g3": g3_logs, "rank_flags": rank_logs},
+          "built_ptxas": {k: CS.ptxas_usage(v["log"]) for k, v in built.items()}})
+    fwd, st, rank = capture()
+    summary = {"card": card}
+    if rank_libs:
+        rows = sweep_rank(rank_libs, rank)
+        summary["rank_train_step"] = {n: sum(r["device_ms"][n] for r in rows[8:])
+                                      for n in rank_libs}
+        summary["rank_serve"] = {n: sum(r["device_ms"][n] for r in rows[:8]) for n in rank_libs}
+        summary["rank_library_train_step"] = sum(r["library_device_ms"] for r in rows[8:])
+    for kind, calls, emit_taps in (("forward", fwd, False), ("stacked", st, True)):
+        if not g3_libs:
+            break
+        rows = sweep_gemm(g3_libs, calls, emit_taps, gemm_parent)
+        summary[kind] = {n: sum(r["device_ms"][n] for r in rows) for n in rows[0]["device_ms"]}
+        summary[kind + "_calls"] = len(rows)
+    emit({"sweep": "summary", **summary})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
