@@ -50,10 +50,16 @@ either. Phases (each prints JSON lines; any failure exits 1):
              1e-3·max|ref|, device time and one kernel a call from CUDA
              graphs), the dW kernel on every conv's (features,
              rulebook, gradient) against its plain version and against the
-             dW the stacked path produced (1e-3·max|ref|), and the rank
+             dW the stacked path produced (1e-3·max|ref|), two calls equal
+             bit for bit, its device time and two kernels a call (the
+             blocks' partials, their sum over row chunks), and the rank
              kernel on all 12 rulebook builds (exact). Medians of 20 runs.
+             Per conv, the two routes to its backward by device time: dW
+             kernel + d_features gather without taps against stacked
+             gather + dense f32 dW (`torch.matmul`), with their sums.
              One stage-0 conv cut to C=5, O=8 runs the wrappers' padding
-             branch through the dW kernel and the gather-GEMM.
+             branch through the dW kernel (twice, equal bits) and the
+             gather-GEMM.
 8. variants — the kernels behind efg_tpu's switches (EFG_RANK_IMPL=seq4,
              `seq=False`, EFG_SPARSE_G3). First on the captured inputs of
              phases kernels and train_kernels: the seq4 and hostwin rank
@@ -323,18 +329,23 @@ def ptxas_usage(log: str) -> list:
 
 def _kernel_name(mangled: str) -> str:
     """`name<integer template arguments>` of a mangled kernel symbol: the
-    length-prefixed identifier that ends in "_kernel", and the literals of
-    the template argument list after it."""
+    shortest length-prefixed identifier that ends in "_kernel" (a digit run
+    inside an enclosing namespace's name can prefix a longer one), and the
+    literals of the template argument list after it."""
+    found = []
     for m in re.finditer(r"\d+", mangled):
         run = m.group()
         for k in range(len(run)):  # the length prefix may follow other digits
             n = int(run[k:])
             ident = mangled[m.end():m.end() + n]
             if len(ident) == n and ident.endswith("_kernel"):
-                args = re.match(r"I((?:L[a-z]\d+E)+)E", mangled[m.end() + n:])
-                lits = re.findall(r"L[a-z](\d+)E", args.group(1)) if args else []
-                return ident + (f"<{','.join(lits)}>" if lits else "")
-    return mangled
+                found.append((n, ident, m.end() + n))
+    if not found:
+        return mangled
+    _, ident, end = min(found)
+    args = re.match(r"I((?:L[a-z]\d+E)+)E", mangled[end:])
+    lits = re.findall(r"L[a-z](\d+)E", args.group(1)) if args else []
+    return ident + (f"<{','.join(lits)}>" if lits else "")
 
 
 def make_model(kw, device):
@@ -1110,7 +1121,7 @@ def phase_train_kernels(capture, card: str, launches: dict):
     rank_rows = [_rank_row(lbl, k, q) for lbl, (k, q) in zip(RANK_TRAIN_LABELS, capture.rank)]
 
     # each conv backward makes one stacked call, in the order autograd runs them
-    st_rows, dw_rows = [], []
+    st_rows, dw_rows, routes = [], [], []
     for i, ((g, packed, w), conv) in enumerate(zip(capture.stacked, capture.convs)):
         label = backward_label(i, g, conv)
         row, st = _gemm_row(label, g, packed, w, emit=True)
@@ -1119,36 +1130,50 @@ def phase_train_kernels(capture, card: str, launches: dict):
         # the dense dW of the stacked path: stackedᵀ @ features, f32 (library call)
         f = conv["features"].to(torch.bfloat16).contiguous()
         st_f32, f_f32 = st.float(), f.float()
-        lib_ms = timed(lambda: torch.matmul(st_f32.t(), f_f32))
+        matmul = functools.partial(torch.matmul, st_f32.t(), f_f32)
+        lib_ms, lib_dev = timed(matmul), graph_device(matmul)
 
         # the dW kernel on the same conv: (features, forward rulebook, g)
         fp, gm, dw_stacked = conv["packed"].contiguous(), conv["g"].contiguous(), conv["dw"]
-        dw = K.fused_gather_dw(f, fp, gm)
+        run = functools.partial(K.fused_gather_dw, f, fp, gm)
+        dw, again = run(), run()
         ref_dw = K.gather_dw_plain(f, fp, gm)
         torch.cuda.synchronize()
+        if not torch.equal(dw, again):
+            raise AssertionError(f"gather_dw {label}: two calls on the same inputs differ")
         scale = float(ref_dw.abs().max())
         err_plain = float((dw - ref_dw).abs().max())
         err_stacked = float((dw - dw_stacked).abs().max())
         if not (err_plain <= 1e-3 * max(scale, 1e-6) and err_stacked <= 1e-3 * max(scale, 1e-6)):
             raise AssertionError(f"gather_dw {label}: max|Δ| {err_plain} vs plain, {err_stacked} "
                                  f"vs the stacked path (max|ref| {scale})")
+        del again, ref_dw
+        dev = graph_device(run)
+        if (dev["kernels"], dev["nodes"]) != (2, 2):  # the blocks' partials, then their sum
+            raise AssertionError(f"gather_dw {label}: one call is {dev['kernels']} kernels in "
+                                 f"{dev['nodes']} device operations, expected 2")
         v_in, c = f.shape
         n_pairs, v_out = fp.shape
         o = gm.shape[1]
         found = _found(fp)
         bytes_ = 2 * v_in * c + 4 * n_pairs * v_out + 2 * v_out * o + 4 * n_pairs * 3 * c * o
         row = dict(label=label, P=n_pairs, V_in=v_in, V_out=v_out, C=c, O=o, taps_found=found,
-                   ms=timed(lambda: K.fused_gather_dw(f, fp, gm)),
+                   ms=timed(run), device_ms=dev["device_ms"], device_kernels=dev["kernels"],
                    plain_ms=timed(lambda: K.gather_dw_plain(f, fp, gm)),
-                   library_ms=lib_ms, bytes_ms=1e3 * bytes_ / H100_BYTES_PER_S,
+                   library_ms=lib_ms, library_device_ms=lib_dev["device_ms"],
+                   bytes_ms=1e3 * bytes_ / H100_BYTES_PER_S,
                    ops_ms=1e3 * 2 * found * c * o / H100_BF16_FLOPS,
-                   max_abs_err=err_plain, max_abs_err_vs_stacked=err_stacked, max_ref=scale)
+                   max_abs_err=err_plain, max_abs_err_vs_stacked=err_stacked, max_ref=scale,
+                   bit_equal_twice=True)
         row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
         dw_rows.append(row)
+        routes.append(_route_row(label, row, st_rows[-1], g, packed, w))
         del st, st_f32, f_f32
 
+    sums = {k: sum(r[k] for r in routes) for k in routes[0] if k.endswith("_ms")}
     emit({"phase": "train_kernels", "card": card, "rank_calls": rank_rows,
-          "stacked_calls": st_rows, "dw_calls": dw_rows, "padding_cases": _padding_cases(capture)})
+          "stacked_calls": st_rows, "dw_calls": dw_rows, "padding_cases": _padding_cases(capture),
+          "dw_routes": {"calls": routes, "sums": sums}})
     per_step = "sum over the calls of one bs=4 training step"
     rows = [
         kernel_row("rank_flags", "rank_flags.cu", 882, launches["rank_flags"], rank_rows,
@@ -1160,12 +1185,37 @@ def phase_train_kernels(capture, card: str, launches: dict):
         kernel_row("gather_dw", "gather_dw.cu", 652, launches["gather_dw"], dw_rows,
                    library_call="torch.matmul of the stacked taps (the dense dW the stacked path "
                                 "runs instead), f32 operands",
-                   tolerance="1e-3 * max|ref| vs plain and vs the stacked path",
+                   tolerance="1e-3 * max|ref| vs plain and vs the stacked path; two calls "
+                             "bit for bit",
                    per="sum over the 21 conv backwards of one bs=4 training step (run on their "
                        "captured inputs; the training step itself takes dW from the stacked taps)",
                    card=card),
     ]
     return {r["name"]: r for r in rows}
+
+
+def _route_row(label, dw_row, st_row, g, packed, w):
+    """The two ways to one conv's backward on its captured inputs, by
+    device time (CUDA graphs): the dW kernel + the d_features gather without
+    taps (`fused_gather_gemm`), against the stacked gather (which also
+    writes the taps) + the dense f32 dW of the taps (`torch.matmul`)."""
+    import torch
+
+    from efg_tpu_torch.ops.cuda import sparse_kernels as K
+
+    gb, p = g.to(torch.bfloat16).contiguous(), packed.contiguous()
+    wb = w.to(torch.bfloat16).contiguous()
+    run = functools.partial(K.fused_gather_gemm, gb, p, wb)
+    out, (ref, _) = run(), K.gather_gemm_stacked(gb, p, wb)
+    torch.cuda.synchronize()
+    _gemm_agrees(f"gather_gemm d_features {label}", out, ref)
+    gather = graph_device(run)["device_ms"]
+    del out, ref
+    row = {"label": label, "dw_kernel_ms": dw_row["device_ms"], "gather_ms": gather,
+           "stacked_ms": st_row["device_ms"], "matmul_ms": dw_row["library_device_ms"]}
+    row["kernel_route_ms"] = row["dw_kernel_ms"] + row["gather_ms"]
+    row["stacked_route_ms"] = row["stacked_ms"] + row["matmul_ms"]
+    return row
 
 
 def _padding_cases(capture):
@@ -1184,10 +1234,14 @@ def _padding_cases(capture):
     g = conv["g"][:, :8].contiguous()
     p = conv["packed"].contiguous()
     gen = torch.Generator().manual_seed(SEED)
-    w = (torch.randn(p.shape[0] * 3 * 5, 8, generator=gen) * 0.1).to("cuda", torch.bfloat16)
+    w = (torch.randn(p.shape[0] * 3 * 5, 8, generator=gen) * 0.1).to(p.device, torch.bfloat16)
     rows = []
+    dw, dw_again = K.fused_gather_dw(f, p, g), K.fused_gather_dw(f, p, g)
+    torch.cuda.synchronize()
+    if not torch.equal(dw, dw_again):
+        raise AssertionError("gather_dw C=5 O=8: two calls on the same inputs differ")
     for name, got, ref in (
-            ("gather_dw C=5 O=8", K.fused_gather_dw(f, p, g), K.gather_dw_plain(f, p, g)),
+            ("gather_dw C=5 O=8", dw, K.gather_dw_plain(f, p, g)),
             ("gather_gemm C=5 O=8", K.fused_gather_gemm(f, p, w), K.gather_gemm_plain(f, p, w))):
         torch.cuda.synchronize()
         scale, err = float(ref.abs().max()), float((got - ref).abs().max())

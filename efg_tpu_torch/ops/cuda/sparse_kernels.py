@@ -30,7 +30,9 @@ backward, one for each Pallas kernel:
   (replaces `_fwd_kernel_g3`, forward and stacked): one K = 3·C product
   per pair over its three tap rows, loaded as one span.
 - `fused_gather_dw` → `csrc/gather_dw.cu` (replaces `_dw_kernel`): dW by
-  re-gathering the inputs, where the stacked taps do not apply.
+  re-gathering the inputs, where the stacked taps do not apply: a block
+  per (pair, channel chunk, row chunk), its partial summed over the row
+  chunks in a fixed order by a second kernel.
 
 Each wrapper dispatches on the tensor's device: a CUDA tensor launches the
 kernel the switches select (or raises), a CPU tensor runs the plain
@@ -102,7 +104,10 @@ _SIGNATURES = {  # csrc/<stem>.cu → its C entries
     "gather_gemm_g3": {
         "efg_gather_gemm_g3": _GEMM_ARGS, "efg_gather_gemm_g3_stacked": _STACKED_ARGS,
     },
-    "gather_dw": {"efg_gather_dw": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]},
+    "gather_dw": {
+        "efg_gather_dw_chunks": [_I, _I, _I, _I, _I, ctypes.POINTER(_I)],
+        "efg_gather_dw": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    },
 }
 KERNEL_SOURCES = tuple(_SIGNATURES)
 
@@ -456,11 +461,17 @@ def _gather_dw_cuda(features, packed, g) -> torch.Tensor:
     _require(f, "features", torch.bfloat16, 2, dev)
     _require(packed, "packed", torch.int32, 2, dev)
     _require(gb, "g", torch.bfloat16, 2, dev)
-    dw = torch.zeros(n_pairs * 3 * cw, ow, dtype=torch.float32, device=dev)
     lib = _build.load("gather_dw", _SIGNATURES["gather_dw"])
+    chunks = ctypes.c_int(0)
+    err = lib.efg_gather_dw_chunks(dev.index or 0, v_out, n_pairs, cw, ow, ctypes.byref(chunks))
+    _build.check(lib, err, "gather_dw row chunks")
+    # each block's partial, summed over the row chunks in order into dw,
+    # which the kernels write whole
+    ws = torch.empty(chunks.value, n_pairs * 3 * cw, ow, dtype=torch.float32, device=dev)
+    dw = torch.empty(n_pairs * 3 * cw, ow, dtype=torch.float32, device=dev)
     err = lib.efg_gather_dw(
-        dev.index or 0, f.data_ptr(), packed.data_ptr(), gb.data_ptr(), dw.data_ptr(),
-        v_in, v_out, n_pairs, cw, ow, _stream(dev),
+        dev.index or 0, f.data_ptr(), packed.data_ptr(), gb.data_ptr(), ws.data_ptr(),
+        dw.data_ptr(), v_in, v_out, n_pairs, cw, ow, chunks.value, _stream(dev),
     )
     _build.check(lib, err, "gather_dw launch")
     launches["gather_dw"] += 1
@@ -472,9 +483,10 @@ def fused_gather_dw(features: torch.Tensor, packed: torch.Tensor,
     """dW [P·3·C, O] f32 of the packed contraction (rows (pair, tap, c)):
     Σ_v flag_t · f[row_t(v)]ᵀ g[v], with features [V_in, C] and the
     upstream gradient g [V_out, O] (pre-masked by out_valid) rounded to
-    bf16. On the card the sum over V is reduced with f32 atomics, in no
-    fixed order: compare at f32-accumulation tolerance (~1e-5 of max|dW|),
-    never bit for bit."""
+    bf16. On the card the sum over V runs in a fixed order (row chunks
+    of the kernel's blocks, summed in chunk order), so two calls on the
+    same inputs give the same bits; against the plain version, whose order
+    differs, compare at f32-accumulation tolerance (~1e-5 of max|dW|)."""
     if _on_card(features):
         return _gather_dw_cuda(features, packed, g)
     return gather_dw_plain(features, packed, g)

@@ -1,27 +1,31 @@
 #!/usr/bin/env python3
-"""Time plans of the port's g3 gather-GEMM and default rank kernel, and the
-rank kernel's wrapper, on one NVIDIA card.
+"""Time plans of the port's g3 gather-GEMM, default rank kernel and dW
+kernel, and the rank kernel's wrapper, on one NVIDIA card.
 
 Run from the root of a checkout: `python3 tools/port_kernel_sweep.py
-[--parent DIR] [--only rank|g3] [--out FILE]` (needs one CUDA device;
+[--parent DIR] [--only rank|g3|dw] [--out FILE]` (needs one CUDA device;
 writes its JSON lines to stdout and to FILE, by default
 efg_tpu_torch/build/port_kernel_sweep.jsonl). It
 
-1. builds the kernel sources, and `efg_tpu_torch/csrc/gather_gemm_g3.cu`
-   and `rank_flags.cu` once more for each plan in G3_PLANS and RANK_PLANS:
-   the source with the `constexpr` lines that the plan names replaced,
-   compiled into efg_tpu_torch/build/sweep/ (with `--parent DIR`, the
-   sources of that checkout as plan "parent" too);
+1. builds the kernel sources, and `efg_tpu_torch/csrc/gather_gemm_g3.cu`,
+   `rank_flags.cu` and `gather_dw.cu` once more for each plan in G3_PLANS,
+   RANK_PLANS and DW_PLANS: the source with the `constexpr` lines that the
+   plan names replaced, compiled into efg_tpu_torch/build/sweep/ (with
+   `--parent DIR`, the sources of that checkout as plan "parent" too);
 2. captures, from the flagship model of chip_smoke.py (weights from its
    seed), the gather-GEMM calls of one bs=4 serving forward and the stacked
-   calls of one bs=4 training step, and the rank calls of both;
+   calls and conv backwards of one bs=4 training step, and the rank calls
+   of both;
 3. on every call that efg_tpu's g3 gate admits, times gather_gemm.cu (and
    the parent's) and each plan in turns (device ms from CUDA graphs of the call, as
    chip_smoke.py's `graph_device`), each plan held against the plain
    version (out within 1e-3·max|ref|, stacked taps bit for bit);
 4. on every rank call, times each rank_flags.cu plan in turns beside
    torch.searchsorted, each held against the plain version, and splits the
-   wrapper's host time per call into its parts.
+   wrapper's host time per call into its parts;
+5. on every conv backward's (features, rulebook, gradient), times each
+   gather_dw.cu plan (and the parent's kernel, with the C entry it has) in
+   turns, each held against the plain version (1e-3·max|ref|).
 """
 
 from __future__ import annotations
@@ -67,6 +71,24 @@ RANK_PLANS = {
     "p2": {"kPerLane": "2", "kWindow": "128"},
     "p8": {"kPerLane": "8", "kWindow": "512"},
 }
+# Plan-line replacements of gather_dw.cu, by plan name: "mma" mma.sync at
+# every width (no wgmma); "wg_s2" a two-slot ring for the wgmma plans;
+# "wg_2blk" wgmma at C = O = 64 on 64-row steps, two slots and a launch
+# bound of 2 blocks an SM; "waves2" row chunks for 2 blocks per resident
+# block (fewer partials); "rows4k" 4096 rows a block at C = O = 16 too
+DW_PLANS = {
+    "as_source": {},
+    "mma": {"WG": "0"},
+    "wg_s2": {"STAGES": "WG ? 2 : (C == 16 && O <= 64 ? 3 : 2)"},
+    "wg_2blk": {"TM": "C >= 64 && O == 64 ? 64 : 128",
+                "STAGES": "WG ? 2 : (C == 16 && O <= 64 ? 3 : 2)",
+                "MIN_BLOCKS": "C >= 64 && O == 128 ? 1 : 2"},
+    "waves2": {"WAVES": "2"},
+    "rows4k": {"ROWS": "4096"},
+}
+# the C entry of a dW kernel from before the workspace (dw zeroed by the
+# caller, no row chunks)
+DW_ENTRY_ZEROED = [ctypes.c_int, *[ctypes.c_void_p] * 4, *[ctypes.c_int] * 5, ctypes.c_void_p]
 OUT = os.path.join(HERE, "efg_tpu_torch", "build", "port_kernel_sweep.jsonl")
 
 
@@ -142,8 +164,11 @@ def build_variants(stem, plans, parent=None):
             raise RuntimeError(f"nvcc failed for {stem} plan {name}:\n{log}")
         cdll = ctypes.CDLL(str(lib))
         for entry, argtypes in K._SIGNATURES[stem].items():
-            getattr(cdll, entry).argtypes = argtypes
-            getattr(cdll, entry).restype = ctypes.c_int
+            if hasattr(cdll, entry):  # a parent may have fewer entries
+                getattr(cdll, entry).argtypes = argtypes
+                getattr(cdll, entry).restype = ctypes.c_int
+        if stem == "gather_dw" and not hasattr(cdll, "efg_gather_dw_chunks"):
+            cdll.efg_gather_dw.argtypes = DW_ENTRY_ZEROED
         cdll.efg_error_string.argtypes = [ctypes.c_int]
         cdll.efg_error_string.restype = ctypes.c_char_p
         libs[name], logs[name] = cdll, CS.ptxas_usage(log)
@@ -152,8 +177,8 @@ def build_variants(stem, plans, parent=None):
 
 def capture():
     """(forward gather-GEMM calls with labels, stacked calls with labels,
-    rank calls with labels) of one bs=4 serving forward and one bs=4
-    training step of the flagship."""
+    rank calls with labels, conv backwards with labels) of one bs=4 serving
+    forward and one bs=4 training step of the flagship."""
     import torch
 
     from efg_tpu_torch.engine.trainer import eval_step, init_state, train_step
@@ -174,8 +199,10 @@ def capture():
           for i, (call, conv) in enumerate(zip(train.stacked, train.convs))]
     rank = ([(f"serve {CS.RANK_LABELS[i]}", c) for i, c in enumerate(serve.rank)]
             + [(f"train {lbl}", c) for lbl, c in zip(CS.RANK_TRAIN_LABELS, train.rank)])
+    convs = [(CS.backward_label(i, call[0], conv), conv)
+             for i, (call, conv) in enumerate(zip(train.stacked, train.convs))]
     del md, state, tx
-    return fwd, st, rank
+    return fwd, st, rank, convs
 
 
 def sweep_gemm(libs, calls, emit_taps: bool, gemm_parent=None):
@@ -311,6 +338,72 @@ def sweep_rank(libs, calls):
     return rows
 
 
+def _dw_zeroed(lib, f, p, g):
+    """dW through a kernel with the zeroed-output entry (DW_ENTRY_ZEROED),
+    at kernel widths."""
+    import torch
+
+    from efg_tpu_torch.ops.cuda import build as B
+    from efg_tpu_torch.ops.cuda import sparse_kernels as K
+
+    v_in, c = f.shape
+    n_pairs, v_out = p.shape
+    o = g.shape[1]
+    assert c in K.GEMM_CHANNELS and o in K.GEMM_CHANNELS, (c, o)
+    dw = torch.zeros(n_pairs * 3 * c, o, dtype=torch.float32, device=f.device)
+    B.check(lib, lib.efg_gather_dw(f.device.index or 0, f.data_ptr(), p.data_ptr(), g.data_ptr(),
+                                   dw.data_ptr(), v_in, v_out, n_pairs, c, o,
+                                   K._stream(f.device)), "gather_dw (zeroed entry) launch")
+    return dw
+
+
+def sweep_dw(libs, convs):
+    """Each conv backward's dW through every gather_dw.cu plan (and the
+    parent's kernel), in turns (two rounds, the order reversed in the
+    second), each held against the plain version within 1e-3·max|ref|;
+    returns per-call rows."""
+    import torch
+
+    from efg_tpu_torch.ops.cuda import sparse_kernels as K
+
+    rows = []
+    for label, conv in convs:
+        f = conv["features"].to(torch.bfloat16).contiguous()
+        p, g = conv["packed"].contiguous(), conv["g"].contiguous()
+        ref = K.gather_dw_plain(f, p, g)
+        scale = float(ref.abs().max())
+
+        def run(name):
+            lib = libs[name]
+            if not hasattr(lib, "efg_gather_dw_chunks"):
+                return _dw_zeroed(lib, f, p, g)
+            with library("gather_dw", lib):
+                return K.fused_gather_dw(f, p, g)
+
+        errs = {}
+        for name in libs:
+            got = run(name)
+            torch.cuda.synchronize()
+            errs[name] = float((got - ref).abs().max())
+            if not errs[name] <= 1e-3 * max(scale, 1e-6):
+                raise AssertionError(f"gather_dw {name} {label}: max|Δ| {errs[name]} "
+                                     f"(max|ref| {scale})")
+            del got
+        times = {n: [] for n in libs}
+        for order in (list(libs), list(libs)[::-1]):
+            for name in order:
+                times[name].append(CS.graph_device(lambda: run(name))["device_ms"])
+        n_pairs, v_out = p.shape
+        row = {"label": label, "C": f.shape[1], "O": g.shape[1], "P": n_pairs, "V_out": v_out,
+               "found": CS._found(p), "max_ref": scale, "max_abs_err": errs,
+               "device_ms": {n: statistics.median(t) for n, t in times.items()},
+               "device_ms_runs": times}
+        emit({"sweep": "dw", **row})
+        rows.append(row)
+        del ref
+    return rows
+
+
 def main() -> int:
     import argparse
 
@@ -318,7 +411,7 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="a checkout of the parent tree: its kernels join the sweep")
-    ap.add_argument("--only", choices=("rank", "g3"), help="sweep one kernel only")
+    ap.add_argument("--only", choices=("rank", "g3", "dw"), help="sweep one kernel only")
     ap.add_argument("--out", help="the file the JSON lines go to")
     args = ap.parse_args()
     global OUT
@@ -335,17 +428,26 @@ def main() -> int:
     card = CS.nvidia_smi_line()
     t0 = time.perf_counter()
     built = K.build_kernels()
-    g3_libs, g3_logs = ({}, {}) if args.only == "rank" else build_variants(
-        "gather_gemm_g3", G3_PLANS, args.parent)
+    def want(kernel):
+        return args.only in (None, kernel)
+
+    g3_libs, g3_logs = build_variants("gather_gemm_g3", G3_PLANS, args.parent) if want("g3") \
+        else ({}, {})
     gemm_parent = (build_variants("gather_gemm", {}, args.parent)[0]["parent"]
-                   if args.parent and args.only != "rank" else None)
-    rank_libs, rank_logs = ({}, {}) if args.only == "g3" else build_variants(
-        "rank_flags", RANK_PLANS, args.parent)
+                   if args.parent and want("g3") else None)
+    rank_libs, rank_logs = build_variants("rank_flags", RANK_PLANS, args.parent) \
+        if want("rank") else ({}, {})
+    dw_libs, dw_logs = build_variants("gather_dw", DW_PLANS, args.parent) if want("dw") \
+        else ({}, {})
     emit({"card": card, "build_seconds": time.perf_counter() - t0,
-          "ptxas": {"gather_gemm_g3": g3_logs, "rank_flags": rank_logs},
+          "ptxas": {"gather_gemm_g3": g3_logs, "rank_flags": rank_logs, "gather_dw": dw_logs},
           "built_ptxas": {k: CS.ptxas_usage(v["log"]) for k, v in built.items()}})
-    fwd, st, rank = capture()
+    fwd, st, rank, convs = capture()
     summary = {"card": card}
+    if dw_libs:
+        rows = sweep_dw(dw_libs, convs)
+        summary["dw"] = {n: sum(r["device_ms"][n] for r in rows) for n in dw_libs}
+        summary["dw_calls"] = len(rows)
     if rank_libs:
         rows = sweep_rank(rank_libs, rank)
         summary["rank_train_step"] = {n: sum(r["device_ms"][n] for r in rows[8:])
