@@ -84,6 +84,18 @@ either. Phases (each prints JSON lines; any failure exits 1):
              gradient of every parameter, and the losses and grad_norm of
              every step, within fixed bf16 tolerances; a third run on the
              card with a planted fault (one conv's dW doubled) must fail.
+11. engine — the port's CLI (`efg_tpu_torch.cli.main`, task=train) in
+             process, output under a temporary EFG_CACHE_DIR: the synthetic
+             experiment as its config.yaml defines it (30 iterations,
+             records 1-30 with finite and falling losses, the checkpoint
+             after step 15 and model_final, launches 30 × phase train's
+             per-step counts); a --resume run from that checkpoint (records
+             16-30 within train_check's step tolerances of the first run);
+             the flagship's full width through the same entry point (bs 4,
+             160k-point synthetic scenes, 8 iterations, launches 8 × phase
+             train's): the loop's iteration time (metrics.json), its step
+             time (CUDA events) and data time (host), beside phase train's
+             bare step and peak memory.
 
 The second-to-last line lists every kernel as JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", ...}}.
@@ -164,6 +176,37 @@ VARIANT_SERVE_LAUNCHES = {**SERVE_LAUNCHES, "rank_flags": 0, "rank_flags_seq4": 
 VARIANT_TRAIN_LAUNCHES = {**TRAIN_LAUNCHES, "rank_flags": 0, "rank_flags_seq4": 12,
                           "gather_gemm": 5, "gather_gemm_g3": 16, "gather_gemm_stacked": 6,
                           "gather_gemm_g3_stacked": 15}
+
+
+# phase engine: the synthetic experiment through the port's CLI, as its
+# config.yaml defines it (bs 2, 8192 points, 30 iterations, the
+# SpMiddleResNetFHD trunk, RPN 64/128); only the evaluator is dropped, a
+# checkpoint asked for after step 15 and a record written every step
+ENGINE_CONFIG = "playground/detection.3d/synthetic/centerpoint.synth.voxelnet/config.yaml"
+ENGINE_RUN = ["trainer.evaluators=", "trainer.checkpoint_iter=15", "trainer.log_interval=1",
+              "trainer.window_size=1"]
+ENGINE_ITERS = 30
+# the same entry point at the flagship's full width (FLAGSHIP, POST_CFG,
+# LOSS_CFG's max_objs, MAX_GT) on 160k-point synthetic scenes, bs 4, 8
+# iterations
+ENGINE_FLAGSHIP = [
+    "trainer.evaluators=", "trainer.log_interval=1", "trainer.window_size=1",
+    "trainer.checkpoint_period=1000000", "solver.lr_scheduler.max_iters=8",
+    "dataloader.batch_size=4", f"dataset.points_per_frame={N_POINTS}",
+    f"dataset.processors.train[5].PadPoints.num_points={N_POINTS}", f"dataset.max_gt={MAX_GT}",
+    *(f"{k}={json.dumps(v)}" for k, v in (
+        ("dataset.pc_range", FLAGSHIP["pc_range"]),
+        ("dataset.voxel_size", FLAGSHIP["voxel_size"]),
+        ("model.max_voxels", FLAGSHIP["max_voxels"]),
+        ("model.stage_caps", FLAGSHIP["stage_caps"]),
+        *((f"model.neck.{k}", v) for k, v in FLAGSHIP["neck_cfg"]),
+        ("model.post_process.post_center_limit_range", POST_CFG["post_center_limit_range"]),
+        ("model.post_process.score_threshold", POST_CFG["score_threshold"]),
+        *((f"model.post_process.nms.{k}", v) for k, v in POST_CFG["nms"].items()),
+        ("model.loss.max_objs", LOSS_CFG["max_objs"]))),
+    f"model.act_dtype={FLAGSHIP['act_dtype']}",
+]
+ENGINE_FLAGSHIP_ITERS = 8
 
 
 def emit(obj) -> None:
@@ -610,8 +653,8 @@ class BackwardCapture:
 def phase_train(md, card: str):
     """Train the flagship model: a warm-up step, TRAIN_STEPS timed steps,
     one step whose kernel calls are captured, then one step timed part by
-    part. Returns the capture, the per-step launch counts and the first
-    step's losses and grad_norm."""
+    part. Returns the capture, the per-step launch counts, the first
+    step's losses and grad_norm, and the timed steps' milliseconds."""
     import torch
 
     from efg_tpu_torch.engine.trainer import apply_grads, init_state, train_forward, train_step
@@ -623,6 +666,7 @@ def phase_train(md, card: str):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     capture = counts = first = None
+    timed_ms = []
     for i in range(TRAIN_STEPS + 2):  # warm-up, timed steps, then one captured step
         captured = i == TRAIN_STEPS + 1
         K.reset_launches()
@@ -637,6 +681,8 @@ def phase_train(md, card: str):
         torch.cuda.synchronize()
         counts = dict(K.launches)
         ms = start.elapsed_time(end)
+        if 0 < i <= TRAIN_STEPS:
+            timed_ms.append(ms)
         vals = {k: float(v) for k, v in metrics.items()}
         emit({"phase": "train", "step": i, "kind": "warm-up" if i == 0 else
               "captured" if captured else "timed", "batch_size": TRAIN_BATCH[0],
@@ -672,7 +718,7 @@ def phase_train(md, card: str):
                                   for j, n in enumerate(parts)},
           "step_ms": round(ev[0].elapsed_time(ev[4]), 3), "loss": float(losses["loss"].detach()),
           "peak_mem_gb": round(torch.cuda.max_memory_allocated() / 2**30, 3), "card": card})
-    return capture, counts, first
+    return capture, counts, first, timed_ms
 
 
 def backward_label(i: int, g, conv) -> str:
@@ -1677,6 +1723,237 @@ def phase_train_profile(md, card: str):
           "top_device_time": [{"name": n[:120], "count": c, "ms": ms} for n, (c, ms) in top]})
 
 
+class LoopProbe:
+    """Wraps the trainer loop's `train_step` and its prefetcher's `next`
+    for one CLI run: each step's CUDA-event milliseconds (from its first
+    launch to its last kernel) and each batch's host seconds in `next`
+    (building the batch, pinning it and starting its copy)."""
+
+    def __init__(self):
+        self.step_events, self.data_s = [], []
+
+    def __enter__(self):
+        import torch
+
+        from efg_tpu_torch.data import prefetcher as P
+        from efg_tpu_torch.engine import trainer as T
+
+        self._orig = (T.train_step, P.DevicePrefetcher.__next__)
+        step0, next0 = self._orig
+
+        def step(*args):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = step0(*args)
+            b.record()
+            self.step_events.append((a, b))
+            return out
+
+        def next_(it):
+            t0 = time.perf_counter()
+            out = next0(it)
+            self.data_s.append(time.perf_counter() - t0)
+            return out
+
+        T.train_step, P.DevicePrefetcher.__next__ = step, next_
+        return self
+
+    def __exit__(self, *exc):
+        from efg_tpu_torch.data import prefetcher as P
+        from efg_tpu_torch.engine import trainer as T
+
+        T.train_step, P.DevicePrefetcher.__next__ = self._orig
+        return False
+
+    def step_ms(self):
+        return [a.elapsed_time(b) for a, b in self.step_events]
+
+
+def _engine_run(argv, out_dir, device):
+    """One in-process CLI run with the launch counts reset before it;
+    returns (its metrics.json records from this run, launch counts,
+    probe)."""
+    from efg_tpu_torch.cli import main as cli
+    from efg_tpu_torch.ops.cuda import sparse_kernels as K
+
+    metrics = os.path.join(out_dir, "metrics.json")
+    n_before = sum(1 for _ in open(metrics)) if os.path.exists(metrics) else 0
+    K.reset_launches()
+    with LoopProbe() as probe:
+        rc = cli.main(["--config", os.path.join(HERE, ENGINE_CONFIG), "--device", device,
+                       *argv])
+    counts = dict(K.launches)
+    if rc != 0:
+        raise AssertionError(f"engine: the CLI returned {rc} for {argv}")
+    with open(metrics) as f:
+        records = [json.loads(line) for line in f][n_before:]
+    return records, counts, probe
+
+
+def _losses(records):
+    """{iteration: record} of the records that carry a loss; every loss
+    must be finite."""
+    out = {int(r["iteration"]): r for r in records if "loss" in r}
+    bad = {it: r for it, r in out.items()
+           if not all(np.isfinite(r[k]) for k in ("loss", "0_hm_loss", "0_loc_loss", "grad_norm"))}
+    if bad:
+        raise AssertionError(f"engine: non-finite losses {bad}")
+    return out
+
+
+def _data_item_ms(opts, items=3):
+    """Host milliseconds of one dataset item of the run `opts` configure,
+    split into scene generation and each processor (medians over
+    `items` items, each seeded as the loader seeds it)."""
+    from efg_tpu_torch.config import Configuration
+    from efg_tpu_torch.data import build_dataset
+
+    config = Configuration(config_file=os.path.join(HERE, ENGINE_CONFIG),
+                           opts=["task=train", *opts]).get_config()
+    ds = build_dataset(config)
+    parts = {}
+    for idx in range(items):
+        np.random.seed(idx)
+        t0 = time.perf_counter()
+        points, boxes, names = ds._gen_scene(idx)
+        parts.setdefault("scene", []).append(time.perf_counter() - t0)
+        info = {"annotations": {"gt_boxes": boxes, "gt_names": names}, "sweeps": []}
+        for proc in ds.transforms:
+            t0 = time.perf_counter()
+            points, info = proc(points, info)
+            parts.setdefault(repr(proc), []).append(time.perf_counter() - t0)
+    return {k: 1e3 * float(np.median(v)) for k, v in parts.items()}
+
+
+def _steps_of(per_step: dict, steps: int) -> dict:
+    return {k: v * steps for k, v in per_step.items()}
+
+
+def phase_engine(card: str, bare_step_ms, device="cuda", small=()):
+    """The port's CLI (`efg_tpu_torch.cli.main`) in process, output under a
+    temporary EFG_CACHE_DIR:
+    1. the synthetic experiment as written, 30 iterations: records 1-30
+       with finite losses, the mean of the last 5 below the first 5's,
+       model_0000014 (the checkpoint after step 15) and model_final, and
+       the launch counts of 30 steps of phase train (the trainer's setup
+       runs no kernel: torch modules are created without a forward);
+    2. model_final removed, a --resume run from step 15: records 16-30
+       within train_check's tolerances of run 1's (their largest relative
+       difference and whether they are equal bit for bit are printed);
+    3. the flagship's full width through the same entry point, 8
+       iterations: launches per step as phase train, finite losses, the
+       median iteration `time` (metrics.json), the loop's step and
+       data time, the bare step of phase train, and peak memory.
+    `small` overrides shrink every run for a rehearsal on the CPU."""
+    import tempfile
+
+    import torch
+
+    cache = tempfile.mkdtemp(prefix="chip_smoke_engine_")
+    old_cache = os.environ.get("EFG_CACHE_DIR")
+    os.environ["EFG_CACHE_DIR"] = cache
+    from efg_tpu_torch.cli.main import experiment_relpath
+
+    out_dir = os.path.join(cache, "EFG_torch", experiment_relpath(ENGINE_CONFIG))
+    try:
+        records, counts, probe = _engine_run(["task=train", *ENGINE_RUN, *small], out_dir, device)
+        run1 = _losses(records)
+        expected = _steps_of(TRAIN_LAUNCHES, ENGINE_ITERS)
+        setup_share = {k: counts[k] - expected[k] for k in counts}
+        files = sorted(f for f in os.listdir(out_dir) if f.startswith("model_"))
+        first5 = float(np.mean([run1[i]["loss"] for i in range(1, 6)]))
+        last5 = float(np.mean([run1[i]["loss"] for i in range(ENGINE_ITERS - 4, ENGINE_ITERS + 1)]))
+        emit({"phase": "engine", "part": "experiment", "card": card, "iterations": ENGINE_ITERS,
+              "records": sorted(run1), "loss_first5_mean": first5, "loss_last5_mean": last5,
+              "checkpoints": files, "launches": counts, "launches_expected": expected,
+              "setup_share": setup_share,
+              "iteration_time_ms_median": 1e3 * float(np.median(
+                  [r["time"] for r in records if "time" in r and r["iteration"] < ENGINE_ITERS])),
+              "loop_step_ms_cuda_events_median": float(np.median(probe.step_ms())),
+              "data_time_ms_median": 1e3 * float(np.median(probe.data_s))})
+        if sorted(run1) != list(range(1, ENGINE_ITERS + 1)):
+            raise AssertionError(f"engine: records {sorted(run1)}, expected 1-{ENGINE_ITERS}")
+        if not last5 < first5:
+            raise AssertionError(f"engine: loss did not fall ({first5} → {last5})")
+        if files != ["model_0000014", "model_final"]:
+            raise AssertionError(f"engine: checkpoints {files}")
+        if counts != expected:
+            raise AssertionError(f"engine: launches {counts}, expected {expected}")
+
+        os.remove(os.path.join(out_dir, "model_final"))
+        records, counts, _ = _engine_run(["--resume", "task=train", *ENGINE_RUN, *small],
+                                         out_dir, device)
+        run2 = _losses(records)
+        keys = ("loss", "0_hm_loss", "0_loc_loss", "grad_norm")
+        rel = {it: {k: abs(run2[it][k] - run1[it][k]) / abs(run1[it][k]) for k in keys}
+               for it in run2}
+        worst = max(max(v.values()) for v in rel.values())
+        worst_at = max(((it, k) for it, v in rel.items() for k in v), key=lambda ik: rel[ik[0]][ik[1]])
+        bits = all(run2[it][k] == run1[it][k] for it in run2 for k in keys)
+        expected = _steps_of(TRAIN_LAUNCHES, ENGINE_ITERS - 15)
+        emit({"phase": "engine", "part": "resume", "card": card, "records": sorted(run2),
+              "max_rel_diff_vs_run1": worst, "max_rel_diff_at": worst_at,
+              # record 16 holds the loss of the first step after the
+              # restore, computed on the restored weights before any update
+              "max_rel_diff_by_record": {it: max(v.values()) for it, v in sorted(rel.items())},
+              "equal_bit_for_bit": bits,
+              "tolerance": dict(zip(("losses", "grad_norm"), CHECK_STEP_TOL[True])),
+              "launches": counts, "launches_expected": expected})
+        if sorted(run2) != list(range(16, ENGINE_ITERS + 1)):
+            raise AssertionError(f"engine resume: records {sorted(run2)}, expected 16-30")
+        over = [(it, k) for it, v in rel.items() for k, x in v.items()
+                if not x <= CHECK_STEP_TOL[True][k == "grad_norm"]]
+        if over:
+            raise AssertionError(f"engine resume: above tolerance vs run 1: {over}")
+        if counts != expected:
+            raise AssertionError(f"engine resume: launches {counts}, expected {expected}")
+
+        flag_cache = os.path.join(cache, "flagship")
+        os.environ["EFG_CACHE_DIR"] = flag_cache
+        flag_dir = out_dir.replace(cache, flag_cache, 1)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        records, counts, probe = _engine_run(["task=train", *ENGINE_FLAGSHIP, *small], flag_dir,
+                                             device)
+        run3 = _losses(records)
+        expected = _steps_of(TRAIN_LAUNCHES, ENGINE_FLAGSHIP_ITERS)
+        # IterTimer's "time" after its 3 warm-up iterations (the record
+        # written after training repeats the last one)
+        times = [r["time"] for r in records
+                 if "time" in r and r["iteration"] < ENGINE_FLAGSHIP_ITERS]
+        step_ms = probe.step_ms()
+        out = {"phase": "engine", "part": "flagship", "card": card,
+               "batch_size": 4, "points_per_cloud": N_POINTS,
+               "iterations": ENGINE_FLAGSHIP_ITERS, "records": sorted(run3),
+               "losses": [run3[i]["loss"] for i in sorted(run3)],
+               "iteration_time_ms_median": 1e3 * float(np.median(times)) if times else None,
+               "iteration_time_ms": [1e3 * t for t in times],
+               "loop_step_ms_cuda_events_median": float(np.median(step_ms[1:])),
+               "loop_step_ms_cuda_events": step_ms,
+               "data_time_ms_median": 1e3 * float(np.median(probe.data_s[1:])),
+               "data_time_ms": [1e3 * t for t in probe.data_s],
+               "bare_train_step_ms_median": float(np.median(bare_step_ms)),
+               "bare_train_step_ms": list(bare_step_ms),
+               "peak_mem_gb": round(torch.cuda.max_memory_allocated() / 2**30, 3)
+               if device == "cuda" else None,
+               "launches": counts, "launches_expected": expected}
+        out["data_item_ms"] = _data_item_ms([*ENGINE_FLAGSHIP, *small])
+        emit(out)
+        if sorted(run3) != list(range(1, ENGINE_FLAGSHIP_ITERS + 1)):
+            raise AssertionError(f"engine flagship: records {sorted(run3)}")
+        if counts != expected:
+            raise AssertionError(f"engine flagship: launches {counts}, expected {expected}")
+    finally:
+        if old_cache is None:
+            os.environ.pop("EFG_CACHE_DIR", None)
+        else:
+            os.environ["EFG_CACHE_DIR"] = old_cache
+        import shutil
+
+        shutil.rmtree(cache, ignore_errors=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -1706,13 +1983,14 @@ def main() -> int:
         del capture
         phase_breakdown(md, model_cfg)
         phase_check()
-        capture, launches, step1 = phase_train(md, card)
+        capture, launches, step1, bare_step_ms = phase_train(md, card)
         train = phase_train_kernels(capture, card, launches)
         variants = phase_variant_kernels(offload(serve_capture, "cuda"), capture, card)
         del capture, serve_capture
         serve_counts, train_counts = phase_variants(card, step1)
         phase_train_profile(md, card)
         phase_train_check()
+        phase_engine(card, bare_step_ms)
         # a rank kernel's row is the training step's (its forward rulebooks
         # and the inverse ones); the serving forward's is in the kernels line
         train["rank_flags"]["launches_serve"] = serve["rank_flags"]["launches"]

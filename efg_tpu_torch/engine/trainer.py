@@ -1,18 +1,45 @@
-"""The train and eval steps (port of `step_fn` and `eval_fn` of
-`efg_tpu/engine/trainer.py`).
+"""The train and eval steps and the hook-driven trainer around them (port
+of `efg_tpu/engine/trainer.py`).
 
-efg_tpu jits both; here they run eagerly. The trainer loop, hooks and
-checkpointing come with the engine slice.
+efg_tpu jits its steps; here they run eagerly. `DefaultTrainer` is
+efg_tpu's loop: data, optimizer, state and hooks set up from the config,
+checkpoints as `torch.save` files, resume with the data stream
+fast-forwarded, a SIGTERM handler that checkpoints at the next step
+boundary, and metrics fetched one step late.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List
+import logging
+import math
+import os
+import signal
+from typing import Any, Dict, List, Optional
 
 import torch
 
+from efg_tpu_torch.data.builder import build_dataloader, build_dataset
+from efg_tpu_torch.data.prefetcher import DevicePrefetcher
+from efg_tpu_torch.engine.hooks import (
+    AugFadeHook,
+    HookBase,
+    IterTimer,
+    LRSchedulerHook,
+    PeriodicCheckpoint,
+    PeriodicWriter,
+    attach,
+)
 from efg_tpu_torch.engine.train_state import ModelDef, TrainState
-from efg_tpu_torch.solver.optimizers import global_norm
+from efg_tpu_torch.models.centerpoint import resolve_device
+from efg_tpu_torch.solver.optimizers import build_optimizer, global_norm
+from efg_tpu_torch.solver.schedulers import build_scheduler
+from efg_tpu_torch.utils import distributed as comm
+from efg_tpu_torch.utils.events import CommonMetricPrinter, EventStorage, JSONWriter
+from efg_tpu_torch.utils.logger import LOGGER_NAME
+from efg_tpu_torch.utils.registry import Registry
+
+logger = logging.getLogger(LOGGER_NAME)
+TRAINERS = Registry("trainers")
 
 
 def init_state(model_def: ModelDef, tx) -> TrainState:
@@ -66,3 +93,252 @@ def eval_step(model_def: ModelDef, batch: Dict[str, Any]):
     if model_def.predict_fn is None:
         return preds
     return model_def.predict_fn(preds, batch)
+
+
+def _not_ported(what: str, item: int) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to efg_tpu_torch yet (ROADMAP queue 1 item {item})")
+
+
+@TRAINERS.register()
+class DefaultTrainer:
+    """efg_tpu's `DefaultTrainer` on one device. `build_model(config,
+    device=, generator=)` returns the ModelDef; its initial weights are
+    drawn from a torch.Generator seeded by `misc.seed` (0 when unset),
+    as efg_tpu initialises from `jax.random.key(seed)`."""
+
+    def __init__(self, config, build_model, device="cuda"):
+        self.config = config
+        self.device = resolve_device(device)
+        self._refuse_unported()
+        self.generator = torch.Generator().manual_seed(
+            max(0, int(config.misc.get("seed", 0) or 0)))
+        self.model_def: ModelDef = build_model(config, device=self.device,
+                                               generator=self.generator)
+
+        self.setup_data()
+        self.setup_optimizer()
+        self.setup_state()
+        self.setup_hooks()
+
+        self.start_iter = 0
+        self.iter = 0
+        self._preempted = False
+
+    def _refuse_unported(self):
+        """Raise on a request this port cannot serve yet, before any set-up."""
+        cfg = self.config.trainer
+        if cfg.get("evaluators"):
+            raise _not_ported(f"trainer.evaluators={list(cfg.evaluators)} (evaluation; "
+                              "train with `trainer.evaluators=`)", 1)
+        if cfg.get("profiler"):
+            raise _not_ported("trainer.profiler (ProfilerHook)", 3)
+        if cfg.get("tensorboard", False):
+            raise _not_ported("trainer.tensorboard (TensorboardWriter)", 4)
+        mesh = dict(self.config.get("mesh") or {})
+        shape = dict(zip(mesh.get("axes", []), mesh.get("shape", [])))
+        if int(shape.get("model", 1)) > 1:
+            raise _not_ported("mesh: a `model` axis wider than 1 (tensor parallelism)", 7)
+        if int(shape.get("data", -1)) not in (-1, 1):
+            raise _not_ported("mesh: a `data` axis over several devices (data parallelism)", 2)
+
+    # ------------------------------------------------------------------ data
+    def setup_data(self):
+        cfg = self.config
+        self.dataset = build_dataset(cfg)
+        self.dataloader = build_dataloader(cfg, self.dataset, train=cfg.task == "train")
+        self._data_iter = None
+
+        # epoch → iteration conversion
+        sched = cfg.solver.lr_scheduler
+        bs = int(cfg.dataloader.batch_size)
+        global_bs = bs * comm.get_world_size()
+        self.iters_per_epoch = max(1, len(self.dataset) // global_bs)
+        if sched.get("max_iters") or 0:
+            self.max_iters = int(sched.max_iters)
+        elif sched.get("max_epochs") or 0:
+            self.max_iters = int(sched.max_epochs * self.iters_per_epoch)
+        else:
+            self.max_iters = 1
+        sched["max_iters"] = self.max_iters
+
+    # ----------------------------------------------------------------- model
+    def setup_optimizer(self):
+        cfg = self.config.solver
+        sched_cfg = dict(cfg.lr_scheduler)
+        sched_cfg["lr"] = cfg.optimizer.lr
+        self.lr_schedule, self.momentum_schedule = build_scheduler(sched_cfg)
+        self.tx = build_optimizer(cfg.optimizer, self.lr_schedule, self.momentum_schedule,
+                                  grad_clip_cfg=cfg.get("grad_clipper"))
+
+    def setup_state(self):
+        self.state: TrainState = init_state(self.model_def, self.tx)
+        n_params = sum(p.numel() for p in self.state.module.parameters())
+        logger.info(f"Model parameters: {n_params / 1e6:.2f}M on {self.device}")
+
+    # ----------------------------------------------------------------- hooks
+    def setup_hooks(self):
+        cfg = self.config.trainer
+        out_dir = self.output_dir
+        writers = []
+        if comm.is_main_process():
+            writers.append(CommonMetricPrinter(self.max_iters, window_size=int(cfg.window_size)))
+            writers.append(JSONWriter(os.path.join(out_dir, "metrics.json"), int(cfg.window_size)))
+        ckpt_period = cfg.get("checkpoint_iter") or None
+        if ckpt_period is None and cfg.get("checkpoint_epoch"):
+            ckpt_period = int(cfg.checkpoint_epoch * self.iters_per_epoch)
+        if ckpt_period is None:
+            ckpt_period = int(cfg.get("checkpoint_period", 10000))
+        hooks: List[Optional[HookBase]] = [
+            IterTimer(),
+            LRSchedulerHook(self.lr_schedule),
+            AugFadeHook(float(cfg.fade), self.max_iters) if cfg.get("fade") else None,
+            PeriodicWriter(writers, period=int(cfg.log_interval)) if writers else None,
+            PeriodicCheckpoint(ckpt_period) if comm.is_main_process() else None,
+        ]
+        self.hooks = attach(self, hooks)
+
+    @property
+    def output_dir(self) -> str:
+        d = self.config.trainer.output_dir
+        os.makedirs(d, exist_ok=True)
+        return d
+
+    # ------------------------------------------------------------ checkpoint
+    def save_checkpoint(self, name: str) -> str:
+        """`torch.save` of the module's state_dict (parameters and BN
+        statistics), the AdamW state by parameter name, and the step, to
+        `<output_dir>/<name>`. The file is written under a temporary name
+        and renamed, so a half-written checkpoint is never resumed."""
+        path = os.path.join(self.output_dir, name)
+        names = [n for n, _ in self.state.module.named_parameters()]
+        opt = self.state.opt_state
+        tmp = os.path.join(self.output_dir, f".{name}.{os.getpid()}.tmp")
+        torch.save({
+            "model": self.state.module.state_dict(),
+            "optimizer": {"count": opt.count, "mu": dict(zip(names, opt.mu)),
+                          "nu": dict(zip(names, opt.nu))},
+            "step": self.state.step,
+        }, tmp)
+        os.replace(tmp, path)
+        logger.info(f"Saved checkpoint to {path}")
+        return path
+
+    def resume_or_load(self, resume: bool = True):
+        """Resume from the newest `model_*` checkpoint of output_dir, or
+        load the checkpoint named by `model.weights`. The data stream is
+        fast-forwarded to the restored step: the loader discards the first
+        `step` batches of sampler indices, and per-item seeding makes the
+        rest of the stream equal to an uninterrupted run's."""
+        out = self.output_dir
+        ckpts = sorted(f for f in os.listdir(out)
+                       if f.startswith("model_") and os.path.isfile(os.path.join(out, f)))
+        path = None
+        if resume and ckpts:
+            path = os.path.join(out, ckpts[-1])
+        elif self.config.model.get("weights"):
+            path = str(self.config.model.weights)
+            if "://" in path or path.endswith((".pth", ".pkl")):
+                raise _not_ported(f"model.weights={path!r} (weight import)", 6)
+        if not path:
+            return
+        ckpt = torch.load(path, map_location=self.device, weights_only=True)
+        module, opt = self.state.module, self.state.opt_state
+        module.load_state_dict(ckpt["model"])
+        with torch.no_grad():
+            for i, (n, _) in enumerate(module.named_parameters()):
+                opt.mu[i].copy_(ckpt["optimizer"]["mu"][n])
+                opt.nu[i].copy_(ckpt["optimizer"]["nu"][n])
+        opt.count = int(ckpt["optimizer"]["count"])
+        self.state.step = int(ckpt["step"])
+        self.start_iter = self.iter = self.state.step
+        self.dataloader.start_batch = self.start_iter
+        logger.info(f"Restored checkpoint {path} at step {self.start_iter}")
+
+    # ----------------------------------------------------------------- train
+    def _install_preemption_handler(self):
+        """SIGTERM sets a flag; the loop saves a step checkpoint at the next
+        step boundary and stops, so a `--resume` relaunch continues the same
+        run. Returns the previous handler, or None when not installable
+        (outside the main thread)."""
+        self._preempted = False
+
+        def _on_term(signum, frame):
+            self._preempted = True
+
+        try:
+            return signal.signal(signal.SIGTERM, _on_term)
+        except ValueError:  # not in the main thread
+            return None
+
+    def _fetch(self, metrics: Dict[str, torch.Tensor]):
+        """Start the metrics' copy to the host: on the card a non_blocking
+        copy into pinned memory behind this step's work, so that reading
+        them a step later waits for this step only."""
+        keys = list(metrics)
+        if self.device.type != "cuda":
+            return keys, metrics, None
+        vals = torch.stack([metrics[k].detach().float().reshape(()) for k in keys])
+        host = torch.empty(vals.shape, dtype=vals.dtype, pin_memory=True)
+        host.copy_(vals, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return keys, host, done
+
+    def train(self):
+        logger.info(f"Starting training: {self.max_iters} iters "
+                    f"({self.iters_per_epoch} it/epoch) on {self.device}")
+        prev_handler = self._install_preemption_handler()
+        with EventStorage(self.iter) as self.storage:
+            for h in self.hooks:
+                h.before_train()
+            self._data_iter = DevicePrefetcher(iter(self.dataloader), device=self.device)
+            pending = None  # (iter, fetched metrics): read one step late
+            while self.iter < self.max_iters:
+                for h in self.hooks:
+                    h.before_step()
+                device_batch = next(self._data_iter)
+                metrics = train_step(self.model_def, self.tx, self.state, device_batch)
+                if pending is not None:
+                    self._write_metrics(*pending)
+                pending = (self.iter, self._fetch(metrics))
+                self.storage.iter = self.iter
+                for h in self.hooks:
+                    h.after_step()
+                self.iter += 1
+                self.storage.step()
+                if self._preempted:
+                    logger.warning(
+                        f"SIGTERM: saving preemption checkpoint at iter {self.iter} and exiting")
+                    self.save_checkpoint(f"model_{self.iter:07d}")
+                    break
+            self._data_iter.close()
+            if pending is not None:
+                self._write_metrics(*pending)
+            for h in self.hooks:
+                h.after_train()
+        if prev_handler is not None:
+            signal.signal(signal.SIGTERM, prev_handler)
+
+    def _write_metrics(self, it: int, fetched):
+        keys, vals, done = fetched
+        if done is None:
+            host = {k: float(vals[k]) for k in keys}
+        else:
+            done.synchronize()
+            host = dict(zip(keys, vals.tolist()))
+        loss = host.get("loss", 0.0)
+        if not math.isfinite(loss):
+            raise FloatingPointError(
+                f"Loss became infinite or NaN at iteration={it}! metrics={host}"
+            )
+        cur = self.storage.iter
+        self.storage.iter = it
+        self.storage.put_scalars(**host)
+        self.storage.iter = cur
+
+
+def build_trainer(config, build_model, device="cuda"):
+    """The trainer `trainer.type` names (DefaultTrainer by default)."""
+    kind = config.trainer.get("type", "DefaultTrainer")
+    return TRAINERS.get(kind)(config, build_model, device=device)

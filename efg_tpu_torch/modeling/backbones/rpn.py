@@ -10,7 +10,7 @@ convs in efg_tpu, not Pallas kernels.
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -22,13 +22,16 @@ from efg_tpu_torch.modeling.common.norms import BatchNorm
 class Conv2d(nn.Module):
     """Conv holding f32 weight [O, I, kh, kw] (torch layout) and computing
     in `dtype` (None: f32). Padding is symmetric like flax's integer
-    padding. Init matches flax's variance_scaling(1/3, fan_in, uniform)."""
+    padding. Init matches flax's variance_scaling(1/3, fan_in, uniform),
+    drawn from `generator` (None: torch's global RNG)."""
 
     def __init__(self, cin: int, cout: int, kernel: int, *, stride: int = 1,
-                 padding: int = 0, bias: bool = False, dtype=torch.bfloat16):
+                 padding: int = 0, bias: bool = False, dtype=torch.bfloat16,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         bound = 1.0 / math.sqrt(cin * kernel * kernel)
-        self.weight = nn.Parameter(torch.empty(cout, cin, kernel, kernel).uniform_(-bound, bound))
+        self.weight = nn.Parameter(torch.empty(cout, cin, kernel, kernel)
+                                   .uniform_(-bound, bound, generator=generator))
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
         self.stride, self.padding, self.dtype = stride, padding, dtype
 
@@ -43,10 +46,12 @@ class ConvTranspose2d(nn.Module):
     f32); weight in torch's [I, O, kh, kw] layout (the weight mapper flips
     flax's kernel)."""
 
-    def __init__(self, cin: int, cout: int, stride: int, dtype=torch.bfloat16):
+    def __init__(self, cin: int, cout: int, stride: int, dtype=torch.bfloat16,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         bound = 1.0 / math.sqrt(cin * stride * stride)
-        self.weight = nn.Parameter(torch.empty(cin, cout, stride, stride).uniform_(-bound, bound))
+        self.weight = nn.Parameter(torch.empty(cin, cout, stride, stride)
+                                   .uniform_(-bound, bound, generator=generator))
         self.stride, self.dtype = stride, dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -56,9 +61,10 @@ class ConvTranspose2d(nn.Module):
 
 class _ConvBNReLU(nn.Module):
     def __init__(self, cin: int, features: int, stride: int = 1,
-                 bn_momentum: float = 0.9, bn_eps: float = 1e-5):
+                 bn_momentum: float = 0.9, bn_eps: float = 1e-5,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
-        self.Conv_0 = Conv2d(cin, features, 3, stride=stride, padding=1)
+        self.Conv_0 = Conv2d(cin, features, 3, stride=stride, padding=1, generator=generator)
         self.BatchNorm_0 = BatchNorm(features, bn_momentum, bn_eps)
 
     def forward(self, x):
@@ -72,14 +78,15 @@ class RPN(nn.Module):
                  ds_num_filters: Sequence[int] = (128, 256),
                  us_layer_strides: Sequence[int] = (1, 2),
                  us_num_filters: Sequence[int] = (256, 256),
-                 bn_momentum: float = 0.9, bn_eps: float = 1e-5):
+                 bn_momentum: float = 0.9, bn_eps: float = 1e-5,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         if not len(layer_nums) == len(ds_layer_strides) == len(ds_num_filters):
             raise ValueError("layer_nums, ds_layer_strides and ds_num_filters differ in length")
         self.layer_nums = tuple(layer_nums)
         self.upsample_start = len(layer_nums) - len(us_layer_strides)
         self.num_channels = sum(us_num_filters)
-        bn_kw = dict(bn_momentum=bn_momentum, bn_eps=bn_eps)
+        bn_kw = dict(bn_momentum=bn_momentum, bn_eps=bn_eps, generator=generator)
         cin = in_channels
         for i, n_layers in enumerate(layer_nums):
             nf = ds_num_filters[i]
@@ -92,10 +99,12 @@ class RPN(nn.Module):
                 stride = us_layer_strides[ui]
                 uf = us_num_filters[ui]
                 if stride > 1:
-                    setattr(self, f"deblock{ui}_deconv", ConvTranspose2d(nf, uf, stride))
+                    setattr(self, f"deblock{ui}_deconv", ConvTranspose2d(nf, uf, stride,
+                                                                       generator=generator))
                 else:
                     s = int(round(1 / stride))
-                    setattr(self, f"deblock{ui}_conv", Conv2d(nf, uf, s, stride=s))
+                    setattr(self, f"deblock{ui}_conv", Conv2d(nf, uf, s, stride=s,
+                                                                generator=generator))
                 setattr(self, f"deblock{ui}_bn", BatchNorm(uf, bn_momentum, bn_eps))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

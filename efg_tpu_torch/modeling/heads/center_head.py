@@ -9,7 +9,7 @@ for the whole batch at once (efg_tpu vmaps a per-sample function).
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -25,7 +25,8 @@ class SepHead(nn.Module):
     (num_conv − 1) bf16 conv + BN + ReLU layers, then an f32 3×3 conv."""
 
     def __init__(self, in_channels: int, heads: Dict[str, Tuple[int, int]],
-                 head_conv: int = 64, final_kernel: int = 3, init_bias: float = -2.19):
+                 head_conv: int = 64, final_kernel: int = 3, init_bias: float = -2.19,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         self.heads = dict(heads)
         pad = final_kernel // 2
@@ -33,10 +34,12 @@ class SepHead(nn.Module):
             cin = in_channels
             for i in range(num_conv - 1):
                 setattr(self, f"{name}_conv{i}",
-                        Conv2d(cin, head_conv, final_kernel, padding=pad, bias=True))
+                        Conv2d(cin, head_conv, final_kernel, padding=pad, bias=True,
+                               generator=generator))
                 setattr(self, f"{name}_bn{i}", BatchNorm(head_conv))
                 cin = head_conv
-            final = Conv2d(cin, classes, final_kernel, padding=pad, bias=True, dtype=None)
+            final = Conv2d(cin, classes, final_kernel, padding=pad, bias=True, dtype=None,
+                           generator=generator)
             if name == "hm":
                 nn.init.constant_(final.bias, init_bias)
             setattr(self, f"{name}_final", final)
@@ -58,14 +61,17 @@ class CenterHead(nn.Module):
 
     def __init__(self, in_channels: int, tasks: Sequence[Dict[str, Any]],
                  common_heads: Dict[str, Tuple[int, int]], share_conv_channel: int = 64,
-                 num_hm_conv: int = 2, init_bias: float = -2.19):
+                 num_hm_conv: int = 2, init_bias: float = -2.19,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
-        self.shared_conv = Conv2d(in_channels, share_conv_channel, 3, padding=1, bias=True)
+        self.shared_conv = Conv2d(in_channels, share_conv_channel, 3, padding=1, bias=True,
+                                  generator=generator)
         self.shared_bn = BatchNorm(share_conv_channel)
         for t, task in enumerate(tasks):
             heads = dict(common_heads)
             heads["hm"] = (int(task["num_classes"]), num_hm_conv)
-            setattr(self, f"task{t}", SepHead(share_conv_channel, heads, init_bias=init_bias))
+            setattr(self, f"task{t}", SepHead(share_conv_channel, heads, init_bias=init_bias,
+                                                    generator=generator))
         self.num_tasks = len(tasks)
 
     def forward(self, x: torch.Tensor) -> List[Dict[str, torch.Tensor]]:

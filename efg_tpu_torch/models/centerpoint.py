@@ -11,7 +11,7 @@ updates: efg_tpu's `train=True, mutable=["batch_stats"]`) and serves in
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -40,7 +40,9 @@ def resolve_device(device) -> torch.device:
 
 class VoxelNet(nn.Module):
     """CenterPoint with the SpMiddleResNetFHD sparse trunk (Waymo flagship).
-    Parameters are created on `device` (default: the card)."""
+    Parameters are created on `device` (default: the card); their initial
+    values are drawn on the CPU from `generator` (None: torch's global
+    RNG)."""
 
     def __init__(
         self,
@@ -56,6 +58,7 @@ class VoxelNet(nn.Module):
         neck_cfg: Any = (),
         act_dtype: str = "",
         device="cuda",
+        generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
         device = resolve_device(device)
@@ -68,9 +71,11 @@ class VoxelNet(nn.Module):
             grid_size=grid_size(pc_range, voxel_size),
             stage_caps=tuple(stage_caps),
             act_dtype=act_dtype,
+            generator=generator,
         )
-        self.neck = RPN(self.backbone.num_bev_channels, **dict(neck_cfg))
-        self.head = CenterHead(self.neck.num_channels, tasks, dict(common_heads))
+        self.neck = RPN(self.backbone.num_bev_channels, **dict(neck_cfg), generator=generator)
+        self.head = CenterHead(self.neck.num_channels, tasks, dict(common_heads),
+                               generator=generator)
         self.to(device)
 
     def forward(self, points: torch.Tensor, points_mask: torch.Tensor) -> List[Dict[str, torch.Tensor]]:

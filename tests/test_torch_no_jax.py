@@ -49,10 +49,17 @@ def test_importing_every_port_module_loads_no_jax():
     code = """
 import json, pkgutil, importlib, sys
 import efg_tpu_torch
+import importlib.util, pathlib
 names = [m.name for m in pkgutil.walk_packages(efg_tpu_torch.__path__, "efg_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-print(json.dumps({"modules": names, "loaded": sorted(sys.modules)}))
+# the experiments' net.py files are loaded by file path, as the CLI does
+root = pathlib.Path(efg_tpu_torch.__file__).parent
+nets = sorted(str(p.relative_to(root)) for p in (root / "playground").rglob("net.py"))
+for i, rel in enumerate(nets):
+    spec = importlib.util.spec_from_file_location(f"experiment_net_{i}", root / rel)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+print(json.dumps({"modules": names, "nets": nets, "loaded": sorted(sys.modules)}))
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(ROOT)
@@ -60,8 +67,12 @@ print(json.dumps({"modules": names, "loaded": sorted(sys.modules)}))
                          text=True, timeout=300, check=True)
     res = json.loads(out.stdout.strip().splitlines()[-1])
     for name in ("models.centerpoint", "ops.cuda.sparse_kernels", "ops.gaussian",
-                 "solver.optimizers", "solver.schedulers", "engine.trainer"):
+                 "solver.optimizers", "solver.schedulers", "engine.trainer", "engine.hooks",
+                 "config.config", "data.builder", "data.prefetcher", "data.datasets.synthetic",
+                 "data.processors.extend_3d", "data.samplers.dataset_sampler", "cli.main",
+                 "utils.events", "utils.logger"):
         assert f"efg_tpu_torch.{name}" in res["modules"], name
+    assert "playground/detection.3d/synthetic/centerpoint.synth.voxelnet/net.py" in res["nets"]
     assert [m for m in res["loaded"] if _forbidden(m)] == []
 
 
