@@ -96,6 +96,18 @@ either. Phases (each prints JSON lines; any failure exits 1):
              train's): the loop's iteration time (metrics.json), its step
              time (CUDA events) and data time (host), beside phase train's
              bare step and peak memory.
+12. eval   — evaluation through the same CLI in process: the synthetic
+             experiment as written, its WaymoDetEvaluator on (30
+             iterations, EvalHook after iteration 15, the evaluation after
+             training, a torch.profiler window of iterations 5-6 whose
+             trace must name the `__global__` kernels of rank_flags.cu and
+             gather_gemm.cu; launches 30 × phase train's + the eval
+             batches × (8, 21)); task=val at the flagship's width (16
+             frames of 160k points, bs 4, fresh weights: per batch the eval
+             step by CUDA events, the data and evaluator time on the host,
+             val frames/s; launches 4 × (8, 21)); the GT boxes of those
+             frames as predictions through both metric cores (AP = APH =
+             1.0 at L1 and L2).
 
 The second-to-last line lists every kernel as JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", ...}}.
@@ -207,6 +219,15 @@ ENGINE_FLAGSHIP = [
     f"model.act_dtype={FLAGSHIP['act_dtype']}",
 ]
 ENGINE_FLAGSHIP_ITERS = 8
+# phase eval: the experiment as written through the CLI, evaluator on,
+# EvalHook after half an epoch (iteration 15 of 30) and a profiler window
+EVAL_RUN = ["trainer.eval_period=0.5", "trainer.profiler={start_iter: 5, num_iters: 2}",
+            "trainer.log_interval=1", "trainer.window_size=1"]
+# task=val at the flagship's width: phase engine's flagship overrides with
+# the experiment's evaluator, the val split's PadPoints at 160k points and
+# 16 frames (4 batches of 4), on fresh weights
+EVAL_FLAGSHIP = [o for o in ENGINE_FLAGSHIP if not o.startswith("trainer.evaluators")] + [
+    f"dataset.processors.val[1].PadPoints.num_points={N_POINTS}", "dataset.num_frames=16"]
 
 
 def emit(obj) -> None:
@@ -1954,6 +1975,271 @@ def phase_engine(card: str, bare_step_ms, device="cuda", small=()):
         shutil.rmtree(cache, ignore_errors=True)
 
 
+class EvalProbe:
+    """Wraps, for one CLI run, what `DefaultTrainer.evaluate` runs: each
+    `evaluate` call (trainer iteration, results, host seconds), each
+    `eval_step` (CUDA-event milliseconds, from its first launch to its last
+    kernel), each eval batch's host seconds in the val loader's `next`, and
+    the host seconds of `WaymoDetEvaluator.process` (per batch) and
+    `evaluate`. Training loaders (drop_last) are not timed."""
+
+    def __init__(self):
+        self.evaluations, self.step_events = [], []
+        self.data_s, self.process_s, self.evaluator_s, self.batches = [], [], [], []
+
+    def __enter__(self):
+        import torch
+
+        from efg_tpu_torch.data import builder as DB
+        from efg_tpu_torch.engine import trainer as T
+        from efg_tpu_torch.evaluator.waymo_evaluator import WaymoDetEvaluator as W
+
+        self._orig = (T.eval_step, T.DefaultTrainer.evaluate, DB.DataLoader.__iter__, W.process,
+                      W.evaluate)
+        step0, evaluate0, iter0, process0, wevaluate0 = self._orig
+        probe = self
+
+        def step(*args):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = step0(*args)
+            b.record()
+            probe.step_events.append((a, b))
+            return out
+
+        def evaluate(trainer, evaluators=None):
+            t0 = time.perf_counter()
+            res = evaluate0(trainer, evaluators)
+            probe.evaluations.append((trainer.iter, res, time.perf_counter() - t0))
+            return res
+
+        def iter_(loader):
+            it = iter0(loader)
+            if loader.drop_last:
+                yield from it
+                return
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
+                probe.data_s.append(time.perf_counter() - t0)
+                yield batch
+
+        def process(ev, inputs, outputs):
+            t0 = time.perf_counter()
+            process0(ev, inputs, outputs)
+            probe.process_s.append(time.perf_counter() - t0)
+            probe.batches.append(inputs)
+
+        def wevaluate(ev):
+            t0 = time.perf_counter()
+            res = wevaluate0(ev)
+            probe.evaluator_s.append(time.perf_counter() - t0)
+            return res
+
+        (T.eval_step, T.DefaultTrainer.evaluate, DB.DataLoader.__iter__, W.process,
+         W.evaluate) = step, evaluate, iter_, process, wevaluate
+        return self
+
+    def __exit__(self, *exc):
+        from efg_tpu_torch.data import builder as DB
+        from efg_tpu_torch.engine import trainer as T
+        from efg_tpu_torch.evaluator.waymo_evaluator import WaymoDetEvaluator as W
+
+        (T.eval_step, T.DefaultTrainer.evaluate, DB.DataLoader.__iter__, W.process,
+         W.evaluate) = self._orig
+        return False
+
+    def step_ms(self):
+        return [a.elapsed_time(b) for a, b in self.step_events]
+
+
+def _cli_eval_run(argv, device):
+    """One in-process CLI run of the experiment with the launch counts
+    reset before it; returns (launch counts, probe)."""
+    from efg_tpu_torch.cli import main as cli
+    from efg_tpu_torch.ops.cuda import sparse_kernels as K
+
+    K.reset_launches()
+    with EvalProbe() as probe:
+        rc = cli.main(["--config", os.path.join(HERE, ENGINE_CONFIG), "--device", device, *argv])
+    counts = dict(K.launches)
+    if rc != 0:
+        raise AssertionError(f"eval: the CLI returned {rc} for {argv}")
+    return counts, probe
+
+
+def _check_waymo_results(label, res, classes):
+    want = {f"waymo/{c}/{lvl}/{m}" for c in classes for lvl in ("L1", "L2")
+            for m in ("AP", "APH")} | {"waymo/mAPH/L2"}
+    if set(res) != want:
+        raise AssertionError(f"eval {label}: result keys {sorted(res)}, expected {sorted(want)}")
+    bad = {k: v for k, v in res.items() if not np.isfinite(v)}
+    if bad:
+        raise AssertionError(f"eval {label}: non-finite results {bad}")
+
+
+def _global_kernels(*sources) -> list:
+    """Names of the `__global__` functions defined in csrc sources."""
+    names = []
+    for src in sources:
+        with open(os.path.join(HERE, "efg_tpu_torch", "csrc", src)) as f:
+            names += re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(",
+                                f.read())
+    return names
+
+
+def _perfect_predictions(batches, k=300):
+    """Each frame's GT boxes as the eval step's fixed-shape outputs: box3d
+    [B, k, 9], scores 0.9, labels the GT classes, valid the GT rows."""
+    box3d, scores, labels, valid = [], [], [], []
+    for inputs in batches:
+        for anno in inputs["annotations"]:
+            g = np.asarray(anno["gt_boxes"], np.float32)
+            n = len(g)
+            b = np.zeros((k, 9), np.float32)
+            b[:n] = g
+            box3d.append(b)
+            scores.append(np.where(np.arange(k) < n, 0.9, 0.0).astype(np.float32))
+            labels.append(np.pad(np.asarray(anno["labels"], np.int32), (0, k - n)))
+            valid.append(np.arange(k) < n)
+    return dict(box3d=np.stack(box3d), scores=np.stack(scores), labels=np.stack(labels),
+                valid=np.stack(valid))
+
+
+def phase_eval(card: str, device="cuda", small=()):
+    """Evaluation through the port's CLI in process, output under a
+    temporary EFG_CACHE_DIR:
+    (a) the synthetic experiment as written (its WaymoDetEvaluator on),
+        30 iterations with `trainer.eval_period=0.5`: EvalHook evaluates
+        once (iteration 15) and the CLI once after training; every result
+        is a finite `waymo/*` value; launches = 30 × phase train's per
+        step + the eval batches × (8, 21); the profiler's trace of
+        iterations 5-6 names the `__global__` kernels of rank_flags.cu and
+        gather_gemm.cu;
+    (b) task=val at the flagship's width (16 frames of 160k points, bs 4,
+        fresh weights): per batch the eval step (CUDA events), the data
+        time and the evaluator's time (host), val frames/s over the whole
+        `evaluate`; launches = 4 × (8, 21);
+    (c) the GT boxes of (b)'s frames fed as predictions, moved through the
+        card as the eval step's outputs are: AP = APH = 1.0 at L1 and L2
+        for every class that has GT, with both metric cores.
+    `small` overrides shrink every run for a rehearsal on the CPU."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from efg_tpu_torch.cli.main import experiment_relpath
+    from efg_tpu_torch.config import Configuration
+    from efg_tpu_torch.engine.trainer import _to_numpy
+    from efg_tpu_torch.evaluator.waymo_evaluator import WaymoDetEvaluator
+
+    cache = tempfile.mkdtemp(prefix="chip_smoke_eval_")
+    old_cache = os.environ.get("EFG_CACHE_DIR")
+    try:
+        # (a) the experiment as written, evaluating during and after training
+        os.environ["EFG_CACHE_DIR"] = os.path.join(cache, "experiment")
+        argv = ["task=train", *EVAL_RUN, *small]
+        cfg = Configuration(config_file=os.path.join(HERE, ENGINE_CONFIG), opts=argv).get_config()
+        iters = int(cfg.solver.lr_scheduler.max_iters)
+        bs = int(cfg.dataloader.batch_size)
+        period = int(float(cfg.trainer.eval_period) * (int(cfg.dataset.num_frames) // bs))
+        per_eval = -(-int(cfg.dataset.num_frames) // bs)
+        prof = dict(cfg.trainer.profiler)
+        counts, probe = _cli_eval_run(argv, device)
+        eval_iters = [it for it in range(iters - 1) if (it + 1) % period == 0] + [iters]
+        n_eval = len(probe.step_events)
+        expected = {k: iters * TRAIN_LAUNCHES[k] + n_eval * SERVE_LAUNCHES[k] for k in counts}
+        out_dir = os.path.join(cache, "experiment", "EFG_torch", experiment_relpath(ENGINE_CONFIG))
+        trace = os.path.join(out_dir, "profile",
+                             f"trace_{prof['start_iter']}_{prof['start_iter'] + prof['num_iters']}.json")
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+        hand = {"rank_flags.cu": _global_kernels("rank_flags.cu"),
+                "gather_gemm.cu": _global_kernels("gather_gemm.cu", "gather_gemm_core.cuh")}
+        named = {src: sorted({g for g in names for k in kernels if g in k})
+                 for src, names in hand.items()}
+        emit({"phase": "eval", "part": "experiment", "card": card, "iterations": iters,
+              "eval_period_iters": period, "evaluated_at_iter": [it for it, _, _ in probe.evaluations],
+              "evaluated_at_iter_expected": eval_iters, "eval_batches": n_eval,
+              "results": [res for _, res, _ in probe.evaluations],
+              "evaluate_s": [s for _, _, s in probe.evaluations],
+              "eval_step_ms_cuda_events_median": float(np.median(probe.step_ms())),
+              "launches": counts, "launches_expected": expected,
+              "trace": os.path.basename(trace), "trace_kernel_names": len(kernels),
+              "trace_names_hand_kernels": named})
+        if [it for it, _, _ in probe.evaluations] != eval_iters:
+            raise AssertionError(f"eval: evaluated at {[it for it, _, _ in probe.evaluations]}, "
+                                 f"expected {eval_iters}")
+        if n_eval != per_eval * len(eval_iters):
+            raise AssertionError(f"eval: {n_eval} eval batches, expected {per_eval} × "
+                                 f"{len(eval_iters)}")
+        for it, res, _ in probe.evaluations:
+            _check_waymo_results(f"experiment at iteration {it}", res, list(cfg.dataset.classes))
+        if counts != expected:
+            raise AssertionError(f"eval: launches {counts}, expected {expected}")
+        if device == "cuda" and not all(named.values()):
+            raise AssertionError(f"eval: the profiler trace names {named} of the hand kernels "
+                                 f"{hand} among {len(kernels)} kernels")
+
+        # (b) task=val at the flagship's width
+        os.environ["EFG_CACHE_DIR"] = os.path.join(cache, "flagship")
+        argv = ["task=val", *EVAL_FLAGSHIP, *small]
+        cfg = Configuration(config_file=os.path.join(HERE, ENGINE_CONFIG), opts=argv).get_config()
+        counts, probe = _cli_eval_run(argv, device)
+        frames = int(cfg.dataset.num_frames)
+        n_batches = -(-frames // int(cfg.dataloader.batch_size))
+        expected = {k: n_batches * SERVE_LAUNCHES[k] for k in counts}
+        (_, res, evaluate_s), = probe.evaluations
+        step_ms = probe.step_ms()
+        emit({"phase": "eval", "part": "flagship_val", "card": card,
+              "batch_size": int(cfg.dataloader.batch_size), "points_per_cloud": N_POINTS,
+              "frames": frames, "weights": "fresh (misc.seed)",
+              "batches": [{"eval_step_ms_cuda_events": m, "data_ms": 1e3 * d,
+                           "evaluator_process_ms": 1e3 * p}
+                          for m, d, p in zip(step_ms, probe.data_s, probe.process_s)],
+              "evaluator_evaluate_ms": 1e3 * sum(probe.evaluator_s),
+              "evaluate_s": evaluate_s, "val_frames_per_s": frames / evaluate_s,
+              "results": res, "launches": counts, "launches_expected": expected})
+        if len(step_ms) != n_batches:
+            raise AssertionError(f"eval flagship: {len(step_ms)} eval steps, expected {n_batches}")
+        _check_waymo_results("flagship", res, list(cfg.dataset.classes))
+        if counts != expected:
+            raise AssertionError(f"eval flagship: launches {counts}, expected {expected}")
+
+        # (c) perfect predictions through the evaluators
+        outputs = {k: torch.from_numpy(v).to(device) for k, v in
+                   _perfect_predictions(probe.batches).items()}
+        outputs = _to_numpy(outputs)
+        inputs = {"annotations": [a for b in probe.batches for a in b["annotations"]]}
+        has_gt = sorted({cfg.dataset.classes[int(c) - 1] for a in inputs["annotations"]
+                         for c in a["labels"]})
+        perfect = {}
+        for core in ("official", "greedy"):
+            cfg["trainer"]["waymo_metric"] = core
+            ev = WaymoDetEvaluator(cfg, None)
+            ev.process(inputs, outputs)
+            perfect[core] = ev.evaluate()
+        emit({"phase": "eval", "part": "perfect_predictions", "card": card,
+              "frames": len(inputs["annotations"]), "classes_with_gt": has_gt,
+              "results": perfect})
+        for core, r in perfect.items():
+            off = {k: r[k] for c in has_gt for lvl in ("L1", "L2") for m in ("AP", "APH")
+                   for k in [f"waymo/{c}/{lvl}/{m}"] if not abs(r[k] - 1.0) <= 1e-6}
+            if off or not has_gt:
+                raise AssertionError(f"eval perfect ({core}): not 1.0: {off}, classes {has_gt}")
+    finally:
+        if old_cache is None:
+            os.environ.pop("EFG_CACHE_DIR", None)
+        else:
+            os.environ["EFG_CACHE_DIR"] = old_cache
+        shutil.rmtree(cache, ignore_errors=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -1991,6 +2277,7 @@ def main() -> int:
         phase_train_profile(md, card)
         phase_train_check()
         phase_engine(card, bare_step_ms)
+        phase_eval(card)
         # a rank kernel's row is the training step's (its forward rulebooks
         # and the inverse ones); the serving forward's is in the kernels line
         train["rank_flags"]["launches_serve"] = serve["rank_flags"]["launches"]

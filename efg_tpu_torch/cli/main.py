@@ -1,15 +1,18 @@
-"""`efg_run_torch`: the port's training entry point (port of `cli/main.py`).
+"""`efg_run_torch`: the port's entry point (port of `cli/main.py`).
 
     python -m efg_tpu_torch.cli.main --config <experiment>/config.yaml \\
-        [--resume] [--device cpu] task=train <dotlist overrides>
+        [--resume] [--device cpu] task=train|val|test <dotlist overrides>
 
 The config is read as efg_run reads it (default.yaml ← config.yaml ←
 overrides). The experiment's `build_model` comes from the port's counterpart of
 its `net.py`, `efg_tpu_torch/playground/<experiment path>/net.py`, loaded
 by file path. Output goes to `$EFG_CACHE_DIR/EFG_torch/<experiment path>`
 (default cache `~/.efg_tpu/cache`), apart from efg_run's `EFG/` tree, with
-a `log_torch` link in the experiment directory. Training runs on the card
-unless `--device cpu` is given.
+a `log_torch` link in the experiment directory. `task=train` trains, then
+evaluates with the config's `trainer.evaluators` unless the run was
+preempted; `task=val|test` loads the newest checkpoint of the output
+directory (or `model.weights`) and evaluates. Both run on the card unless
+`--device cpu` is given.
 """
 
 from __future__ import annotations
@@ -85,7 +88,7 @@ def main(argv=None) -> int:
     if args.num_machines > 1 or args.dist_url:
         raise NotImplementedError(
             "multi-process training (DDP) is not ported to efg_tpu_torch yet "
-            "(ROADMAP queue 1 item 2)")
+            "(ROADMAP queue 1 item 1)")
 
     import efg_tpu_torch.data  # noqa: F401  (registrations)
     from efg_tpu_torch.config import Configuration
@@ -98,11 +101,7 @@ def main(argv=None) -> int:
     config = Configuration(config_file=args.config, opts=list(args.opts)).get_config()
     if args.task:
         config["task"] = args.task
-    if config.task in ("val", "test"):
-        raise NotImplementedError(
-            f"task={config.task}: evaluation is not ported to efg_tpu_torch yet "
-            "(ROADMAP queue 1 item 1)")
-    if config.task != "train":
+    if config.task not in ("train", "val", "test"):
         raise ValueError(f"Unknown task {config.task}")
     device = resolve_device(args.device)
 
@@ -116,8 +115,16 @@ def main(argv=None) -> int:
 
     net = load_experiment_module(args.config)
     trainer = build_trainer(config, net.build_model, device=device)
-    trainer.resume_or_load(resume=args.resume)
-    trainer.train()
+    if config.task == "train":
+        trainer.resume_or_load(resume=args.resume)
+        trainer.train()
+        if trainer._preempted:
+            return 0  # preemption checkpoint saved; a --resume relaunch continues
+        if config.trainer.get("evaluators"):
+            trainer.evaluate()
+    else:
+        trainer.resume_or_load(resume=True)
+        trainer.evaluate()
     return 0
 
 

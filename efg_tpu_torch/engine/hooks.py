@@ -2,14 +2,16 @@
 `efg_tpu/engine/hooks.py`).
 
 As in efg_tpu, the backward, the clip and the optimizer update belong to
-the step (`engine/trainer.py` `train_step`), not to a hook. efg_tpu's
-`EvalHook` and `ProfilerHook` are not ported yet; the trainer refuses a
-config that asks for them (ROADMAP queue 1).
+the step (`engine/trainer.py` `train_step`), not to a hook. `EvalHook`
+runs the trainer's evaluation every `period` iterations; `ProfilerHook`
+traces a window of iterations with `torch.profiler` where efg_tpu uses
+`jax.profiler`.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import time
 import weakref
 from typing import List, Optional
@@ -129,6 +131,20 @@ class PeriodicCheckpoint(HookBase):
         self.trainer.save_checkpoint("model_final")
 
 
+class EvalHook(HookBase):
+    """Evaluate after every `period`-th iteration but the last one (the
+    CLI evaluates after training)."""
+
+    def __init__(self, period: int, eval_fn):
+        self._period = int(period)
+        self._eval_fn = eval_fn
+
+    def after_step(self):
+        it = get_event_storage().iter
+        if self._period > 0 and (it + 1) % self._period == 0 and it != self.trainer.max_iters - 1:
+            self._eval_fn()
+
+
 class AugFadeHook(HookBase):
     """Drop the leading data processor (GT-database sampling) for the last
     `fade` fraction of training, and restart the prefetcher on the new
@@ -151,6 +167,48 @@ class AugFadeHook(HookBase):
             logging.getLogger(LOGGER_NAME).info(
                 f"Aug fade at iter {t.iter}: dropped leading processor"
             )
+
+
+class ProfilerHook(HookBase):
+    """A `torch.profiler` trace of iterations [`start_iter`, `start_iter +
+    num_iters`): host activity, and the device's kernels and copies when
+    the trainer runs on the card. The Chrome trace is written to
+    `<out_dir>/profile/trace_{start}_{stop}.json` when the window closes,
+    or after training if it ends inside the window."""
+
+    def __init__(self, out_dir: str, start_iter: int = 10, num_iters: int = 5):
+        self._dir = os.path.join(out_dir, "profile")
+        self._start = int(start_iter)
+        self._stop = int(start_iter) + max(1, int(num_iters))
+        self._prof = None
+        self.trace_path: Optional[str] = None
+
+    def before_step(self):
+        if self._prof is None and self.trainer.iter == self._start:
+            from torch.profiler import ProfilerActivity, profile
+
+            activities = [ProfilerActivity.CPU]
+            if self.trainer.device.type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            self._prof = profile(activities=activities)
+            self._prof.start()
+
+    def _finish(self):
+        if self._prof is None:
+            return
+        self._prof.stop()
+        os.makedirs(self._dir, exist_ok=True)
+        self.trace_path = os.path.join(self._dir, f"trace_{self._start}_{self._stop}.json")
+        self._prof.export_chrome_trace(self.trace_path)
+        self._prof = None
+        logging.getLogger(LOGGER_NAME).info(f"Profiler trace written to {self.trace_path}")
+
+    def after_step(self):
+        if self._prof is not None and self.trainer.iter + 1 >= self._stop:
+            self._finish()
+
+    def after_train(self):
+        self._finish()
 
 
 def attach(trainer, hooks: List[Optional[HookBase]]) -> List[HookBase]:

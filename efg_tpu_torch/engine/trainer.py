@@ -5,7 +5,8 @@ efg_tpu jits its steps; here they run eagerly. `DefaultTrainer` is
 efg_tpu's loop: data, optimizer, state and hooks set up from the config,
 checkpoints as `torch.save` files, resume with the data stream
 fast-forwarded, a SIGTERM handler that checkpoints at the next step
-boundary, and metrics fetched one step late.
+boundary, metrics fetched one step late, and `evaluate`: the eval step
+over the val split, its outputs fed to the config's evaluators.
 """
 
 from __future__ import annotations
@@ -16,20 +17,24 @@ import os
 import signal
 from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from efg_tpu_torch.data.builder import build_dataloader, build_dataset
 from efg_tpu_torch.data.prefetcher import DevicePrefetcher
 from efg_tpu_torch.engine.hooks import (
     AugFadeHook,
+    EvalHook,
     HookBase,
     IterTimer,
     LRSchedulerHook,
     PeriodicCheckpoint,
     PeriodicWriter,
+    ProfilerHook,
     attach,
 )
 from efg_tpu_torch.engine.train_state import ModelDef, TrainState
+from efg_tpu_torch.evaluator.build import build_evaluators, check_ported, evaluator_names
 from efg_tpu_torch.models.centerpoint import resolve_device
 from efg_tpu_torch.solver.optimizers import build_optimizer, global_norm
 from efg_tpu_torch.solver.schedulers import build_scheduler
@@ -128,19 +133,15 @@ class DefaultTrainer:
     def _refuse_unported(self):
         """Raise on a request this port cannot serve yet, before any set-up."""
         cfg = self.config.trainer
-        if cfg.get("evaluators"):
-            raise _not_ported(f"trainer.evaluators={list(cfg.evaluators)} (evaluation; "
-                              "train with `trainer.evaluators=`)", 1)
-        if cfg.get("profiler"):
-            raise _not_ported("trainer.profiler (ProfilerHook)", 3)
+        check_ported(evaluator_names(self.config))
         if cfg.get("tensorboard", False):
-            raise _not_ported("trainer.tensorboard (TensorboardWriter)", 4)
+            raise _not_ported("trainer.tensorboard (TensorboardWriter)", 2)
         mesh = dict(self.config.get("mesh") or {})
         shape = dict(zip(mesh.get("axes", []), mesh.get("shape", [])))
         if int(shape.get("model", 1)) > 1:
-            raise _not_ported("mesh: a `model` axis wider than 1 (tensor parallelism)", 7)
+            raise _not_ported("mesh: a `model` axis wider than 1 (tensor parallelism)", 5)
         if int(shape.get("data", -1)) not in (-1, 1):
-            raise _not_ported("mesh: a `data` axis over several devices (data parallelism)", 2)
+            raise _not_ported("mesh: a `data` axis over several devices (data parallelism)", 1)
 
     # ------------------------------------------------------------------ data
     def setup_data(self):
@@ -189,12 +190,22 @@ class DefaultTrainer:
             ckpt_period = int(cfg.checkpoint_epoch * self.iters_per_epoch)
         if ckpt_period is None:
             ckpt_period = int(cfg.get("checkpoint_period", 10000))
+        prof = cfg.get("profiler")  # e.g. {start_iter: 10, num_iters: 5} or true
+        if prof is True:
+            prof = {}
+        elif not isinstance(prof, dict):
+            prof = None  # absent / false / null: no profiling
+        eval_period = cfg.get("eval_period")
         hooks: List[Optional[HookBase]] = [
             IterTimer(),
             LRSchedulerHook(self.lr_schedule),
+            ProfilerHook(out_dir, int(prof.get("start_iter", 10)), int(prof.get("num_iters", 5)))
+            if prof is not None and comm.is_main_process() else None,
             AugFadeHook(float(cfg.fade), self.max_iters) if cfg.get("fade") else None,
             PeriodicWriter(writers, period=int(cfg.log_interval)) if writers else None,
             PeriodicCheckpoint(ckpt_period) if comm.is_main_process() else None,
+            EvalHook(int(eval_period * self.iters_per_epoch), self.evaluate)
+            if eval_period and cfg.get("evaluators") else None,
         ]
         self.hooks = attach(self, hooks)
 
@@ -239,7 +250,7 @@ class DefaultTrainer:
         elif self.config.model.get("weights"):
             path = str(self.config.model.weights)
             if "://" in path or path.endswith((".pth", ".pkl")):
-                raise _not_ported(f"model.weights={path!r} (weight import)", 6)
+                raise _not_ported(f"model.weights={path!r} (weight import)", 4)
         if not path:
             return
         ckpt = torch.load(path, map_location=self.device, weights_only=True)
@@ -336,6 +347,50 @@ class DefaultTrainer:
         self.storage.iter = it
         self.storage.put_scalars(**host)
         self.storage.iter = cur
+
+    # ------------------------------------------------------------------ eval
+    def evaluate(self, evaluators=None):
+        """The eval step over the val split (a copy of the config with task
+        `val`, read in order), each batch's outputs moved to host numpy and
+        fed with the host batch to the evaluators (the config's when none
+        are given); returns their merged results. efg_tpu pads a batch to
+        its mesh's data axis; on one device there is nothing to pad."""
+        cfg = self.config
+        eval_cfg = type(cfg)(dict(cfg))
+        eval_cfg["task"] = "val"
+        dataset = build_dataset(eval_cfg)
+        loader = build_dataloader(eval_cfg, dataset, train=False)
+        evaluators = evaluators or build_evaluators(cfg, dataset)
+        for ev in evaluators:
+            ev.reset()
+        n_batches = len(loader)
+        for i, batch in enumerate(loader):
+            device_batch = {k: torch.from_numpy(v).to(self.device) if isinstance(v, np.ndarray)
+                            else v for k, v in batch.items()}
+            outputs = _to_numpy(eval_step(self.model_def, device_batch))
+            for ev in evaluators:
+                ev.process(batch, outputs)
+            if (i + 1) % 50 == 0:
+                logger.info(f"Inference {i + 1}/{n_batches}")
+        results = {}
+        for ev in evaluators:
+            r = ev.evaluate()
+            if r:
+                results.update(r)
+        if comm.is_main_process():
+            logger.info(f"Evaluation results: {results}")
+        return results
+
+
+def _to_numpy(tree):
+    """Tensors of a dict / list / tuple tree → host numpy arrays."""
+    if isinstance(tree, torch.Tensor):
+        return tree.cpu().numpy()
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_numpy(v) for v in tree)
+    return tree
 
 
 def build_trainer(config, build_model, device="cuda"):

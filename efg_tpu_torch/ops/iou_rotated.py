@@ -104,3 +104,19 @@ def iou_bev(boxes_a: torch.Tensor, boxes_b: torch.Tensor, eps: float = 1e-7) -> 
     area_a = boxes_a[:, 3] * boxes_a[:, 4]
     area_b = boxes_b[:, 3] * boxes_b[:, 4]
     return inter / torch.clamp(area_a[:, None] + area_b[None, :] - inter, min=eps)
+
+
+def iou_3d(boxes_a: torch.Tensor, boxes_b: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
+    """Pairwise rotated 3D IoU [N, M]: BEV polygon ∩ × z-overlap
+    (reference `boxes_iou3d_gpu`, `iou3d_nms.cpp`)."""
+    inter_bev = intersection_area_bev(boxes_a, boxes_b)
+    za0 = boxes_a[:, 2] - boxes_a[:, 5] / 2
+    za1 = boxes_a[:, 2] + boxes_a[:, 5] / 2
+    zb0 = boxes_b[:, 2] - boxes_b[:, 5] / 2
+    zb1 = boxes_b[:, 2] + boxes_b[:, 5] / 2
+    zi = torch.clamp(torch.minimum(za1[:, None], zb1[None, :])
+                     - torch.maximum(za0[:, None], zb0[None, :]), min=0)
+    vol_i = inter_bev * zi
+    vol_a = boxes_a[:, 3] * boxes_a[:, 4] * boxes_a[:, 5]
+    vol_b = boxes_b[:, 3] * boxes_b[:, 4] * boxes_b[:, 5]
+    return vol_i / torch.clamp(vol_a[:, None] + vol_b[None, :] - vol_i, min=eps)

@@ -5,6 +5,8 @@ size 1 and this process is its main process."""
 
 from __future__ import annotations
 
+from typing import Any, List
+
 
 def get_world_size() -> int:
     return 1
@@ -16,3 +18,8 @@ def get_rank() -> int:
 
 def is_main_process() -> bool:
     return get_rank() == 0
+
+
+def all_gather(obj: Any) -> List[Any]:
+    """Every process's `obj`, in rank order: `[obj]` in a world of one."""
+    return [obj]

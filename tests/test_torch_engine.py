@@ -1,11 +1,12 @@
-"""The port's training entry point on the CPU: events and hooks, the
-trainer loop against `train_step` driven by hand, checkpoints, resume
-continuity bit for bit, SIGTERM preemption, the requests that are not
-ported yet, and the initial weights' generator.
+"""The port's entry point on the CPU: events and hooks, the trainer loop
+against `train_step` driven by hand, checkpoints, resume continuity bit
+for bit, SIGTERM preemption, evaluation after training and `task=val`
+from a checkpoint, `EvalHook` and `ProfilerHook`, the requests that are
+not ported yet, and the initial weights' generator.
 
 Runs the synthetic experiment with the golden's small overrides (2048
-points, max_voxels 2048, small stage caps, no evaluators), so the trunk
-runs at full width on few voxels."""
+points, max_voxels 2048, small stage caps; no evaluators where a test
+trains only), so the trunk runs at full width on few voxels."""
 
 import json
 import os
@@ -13,6 +14,7 @@ import signal
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -20,6 +22,8 @@ import pytest
 import torch
 
 import efg_tpu_torch.data  # noqa: F401  (registrations)
+from efg_tpu.engine.hooks import EvalHook as JEvalHook
+from efg_tpu.evaluator.waymo_evaluator import WaymoDetEvaluator as JWaymoDetEvaluator
 from efg_tpu.utils.events import EventStorage as JEventStorage
 from efg_tpu.utils.events import JSONWriter as JJSONWriter
 from efg_tpu_torch.cli import main as cli
@@ -27,6 +31,7 @@ from efg_tpu_torch.config import Configuration
 from efg_tpu_torch.data.builder import build_dataloader, build_dataset
 from efg_tpu_torch.data.prefetcher import DevicePrefetcher
 from efg_tpu_torch.engine import hooks as H
+from efg_tpu_torch.engine import trainer as T
 from efg_tpu_torch.engine.trainer import DefaultTrainer, init_state, train_step
 from efg_tpu_torch.models.centerpoint import VoxelNet
 from efg_tpu_torch.solver.optimizers import build_optimizer
@@ -42,6 +47,10 @@ SMALL = ["trainer.evaluators=", "dataset.points_per_frame=2048",
          "dataset.processors.train[5].PadPoints.num_points=2048", "model.max_voxels=2048",
          "model.stage_caps=[1536,1024,768,768]", "trainer.log_interval=1",
          "trainer.window_size=1"]
+# the experiment as written, evaluator included, at SMALL's size with a
+# val split of 4 frames (2 batches)
+EVAL_SMALL = [o for o in SMALL if not o.startswith("trainer.evaluators")] + [
+    "dataset.processors.val[1].PadPoints.num_points=2048", "dataset.num_frames=4"]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -305,8 +314,8 @@ def test_sigterm_preemption_checkpoint_and_resume(tmp_path):
 # ------------------------------------------------------ not ported: raises
 
 @pytest.mark.parametrize("opts, match", [
-    (["trainer.evaluators=[WaymoDetEvaluator]"], "trainer.evaluators"),
-    (["trainer.profiler=true"], "ProfilerHook"),
+    (["trainer.evaluators=[COCOEvaluator]"], "trainer.evaluators"),
+    (["mesh.shape=[2,1]"], "data parallelism"),
     (["trainer.tensorboard=true"], "TensorboardWriter"),
     (["mesh.shape=[1,2]"], "tensor parallelism"),
 ])
@@ -318,10 +327,10 @@ def test_unported_requests_raise(tmp_path, opts, match):
 def test_cli_refusals(tmp_path, monkeypatch):
     monkeypatch.setenv("EFG_CACHE_DIR", str(tmp_path))
     base = ["--config", CONFIG, "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="WaymoDetEvaluator"):
-        cli.main(base + ["task=train"])  # the experiment as written names an evaluator
-    with pytest.raises(NotImplementedError, match="task=val"):
-        cli.main(base + ["task=val", "trainer.evaluators="])
+    with pytest.raises(NotImplementedError, match="COCOEvaluator is not ported.*item 10"):
+        cli.main(base + ["task=val", "trainer.evaluators=[COCOEvaluator]"])
+    with pytest.raises(ValueError, match="Unknown task"):
+        cli.main(base + ["task=predict"])
     with pytest.raises(NotImplementedError, match="DDP"):
         cli.main(base + ["--num-machines", "2", "task=train"])
     other = ROOT / "playground/detection.3d/waymo/center_point/centerpoint.waymo.voxelnet.4f.36e/config.yaml"
@@ -333,6 +342,101 @@ def test_cli_refusals(tmp_path, monkeypatch):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main(["--config", CONFIG, "task=train", *SMALL])
+
+
+# -------------------------------------------------------------- evaluation
+
+def _capture_evaluations(monkeypatch):
+    """Every `DefaultTrainer.evaluate` call's (trainer iteration, results)."""
+    calls = []
+    evaluate = T.DefaultTrainer.evaluate
+
+    def wrapped(self, evaluators=None):
+        res = evaluate(self, evaluators)
+        calls.append((self.iter, self.state.step, res))
+        return res
+
+    monkeypatch.setattr(T.DefaultTrainer, "evaluate", wrapped)
+    return calls
+
+
+def test_cli_train_evaluates_then_val_from_checkpoint(tmp_path, monkeypatch):
+    """The experiment's config.yaml as written names WaymoDetEvaluator: the
+    CLI trains, then evaluates (efg_tpu's result keys); `task=val` restores
+    model_final and evaluates the same weights on the same frames to the
+    same results."""
+    monkeypatch.setenv("EFG_CACHE_DIR", str(tmp_path))
+    calls = _capture_evaluations(monkeypatch)
+    base = ["--config", CONFIG, "--device", "cpu"]
+    assert cli.main(base + ["task=train", *EVAL_SMALL, "solver.lr_scheduler.max_iters=2"]) == 0
+    assert cli.main(base + ["task=val", *EVAL_SMALL]) == 0
+    assert sorted(os.listdir(_out(tmp_path))) == ["log.txt.rank0", "metrics.json", "model_final"]
+    (_, step_train, after_train), (_, step_val, val) = calls
+    assert step_train == step_val == 2
+    cfg = Configuration(config_file=CONFIG, opts=EVAL_SMALL).get_config()
+    assert list(cfg.trainer.evaluators) == ["WaymoDetEvaluator"]
+    with warnings.catch_warnings():  # efg_tpu's nanmean over no frames
+        warnings.simplefilter("ignore", RuntimeWarning)
+        assert set(after_train) == set(JWaymoDetEvaluator(cfg, None).evaluate())
+    assert len(after_train) == 3 * 2 * 2 + 1
+    assert all(np.isfinite(v) for v in after_train.values())
+    assert val == after_train
+    with open(_out(tmp_path) / "log.txt.rank0") as f:
+        log = f.read()
+    assert log.count("Waymo eval over 4 frames") == 2
+    assert log.count("Evaluation results: {'waymo/VEHICLE/L1/AP'") == 2
+
+
+@pytest.mark.parametrize("max_iters, period", [(30, 16), (30, 15), (7, 1), (8, 4), (5, 0)])
+def test_eval_hook_fires_as_efg_tpu(max_iters, period):
+    """The iterations after which EvalHook evaluates: efg_tpu's rule."""
+    fired = []
+    for Hook, Storage in ((JEvalHook, JEventStorage), (H.EvalHook, EventStorage)):
+        class Trainer:
+            pass
+
+        t = Trainer()
+        t.max_iters = max_iters
+        its = []
+        hook = Hook(period, lambda: its.append(storage.iter))
+        hook.trainer = t
+        with Storage(0) as storage:
+            for it in range(max_iters):
+                storage.iter = it
+                hook.after_step()
+        fired.append(its)
+    assert fired[0] == fired[1]
+    assert fired[1] == [it for it in range(max_iters - 1) if period and (it + 1) % period == 0]
+
+
+def test_eval_and_profiler_hooks_in_the_loop(tmp_path, monkeypatch):
+    """trainer.eval_period and trainer.profiler add ProfilerHook and EvalHook
+    in efg_tpu's order; the loop evaluates after iteration period − 1
+    (period = eval_period × iterations per epoch) and not after the last;
+    the profiler writes a Chrome trace of its window on the CPU."""
+    calls = []  # evaluate() itself: test_cli_train_evaluates_then_val_from_checkpoint
+    monkeypatch.setattr(T.DefaultTrainer, "evaluate",
+                        lambda self, evaluators=None: calls.append((self.iter, self.state.step)))
+    t = _trainer(tmp_path, [*EVAL_SMALL, "trainer.evaluators=[WaymoDetEvaluator]",
+                            "solver.lr_scheduler.max_iters=4",
+                            "trainer.eval_period=1.0", "trainer.checkpoint_period=100",
+                            "trainer.profiler={start_iter: 1, num_iters: 1}"])
+    assert [type(h).__name__ for h in t.hooks] == [
+        "IterTimer", "LRSchedulerHook", "ProfilerHook", "PeriodicWriter", "PeriodicCheckpoint",
+        "EvalHook"]
+    assert t.iters_per_epoch == 2 and t.hooks[-1]._period == 2
+    t.train()
+    assert calls == [(1, 2)]
+    prof = t.hooks[2]
+    assert prof.trace_path == str(tmp_path / "profile" / "trace_1_2.json")
+    with open(prof.trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    assert any(n.startswith("aten::") for n in names)
+    assert not any(e.get("cat") == "kernel" for e in events)  # no device on the CPU
+    for prof_opt, window in (("true", (10, 15)), ("{start_iter: 3}", (3, 8))):
+        hook = _trainer(tmp_path, [f"trainer.profiler={prof_opt}"]).hooks[2]
+        assert isinstance(hook, H.ProfilerHook) and (hook._start, hook._stop) == window
 
 
 # ------------------------------------------------------- initial weights

@@ -70,7 +70,9 @@ print(json.dumps({"modules": names, "nets": nets, "loaded": sorted(sys.modules)}
                  "solver.optimizers", "solver.schedulers", "engine.trainer", "engine.hooks",
                  "config.config", "data.builder", "data.prefetcher", "data.datasets.synthetic",
                  "data.processors.extend_3d", "data.samplers.dataset_sampler", "cli.main",
-                 "utils.events", "utils.logger"):
+                 "utils.events", "utils.logger", "evaluator.build", "evaluator.evaluator",
+                 "evaluator.det3d_metrics", "evaluator.waymo_official",
+                 "evaluator.waymo_evaluator", "utils.distributed", "ops.iou_rotated"):
         assert f"efg_tpu_torch.{name}" in res["modules"], name
     assert "playground/detection.3d/synthetic/centerpoint.synth.voxelnet/net.py" in res["nets"]
     assert [m for m in res["loaded"] if _forbidden(m)] == []
