@@ -108,6 +108,22 @@ either. Phases (each prints JSON lines; any failure exits 1):
              val frames/s; launches 4 × (8, 21)); the GT boxes of those
              frames as predictions through both metric cores (AP = APH =
              1.0 at L1 and L2).
+13. detr   — ConQueR / Voxel-DETR serving at bench.py's widths (Waymo grid
+             1504×1504×40, 120k voxels, stage caps 80k/60k/30k/15k,
+             SparseResNet-18 with res4 at 256 channels, FPN p3, hidden 256,
+             8 heads, 3 + 3 layers, FFN 1024, 1000 queries, top-300
+             predict), weights from a seed, 160k-point clouds: the eval step
+             at bs 1 and 2 (CUDA events, stage by stage, peak memory,
+             launches per forward: rank 11, gather-GEMM 13 and 5 at 256);
+             every gather-GEMM and rank call of a bs=2 forward against its
+             plain version on the card (the 256-wide calls: their own
+             kernel row); a small ConQueR on the card against the CPU
+             (voxels and rulebooks equal, outputs within 3e-2 of range,
+             top-k sets equal outside the tie band); one forward each under
+             EFG_SPARSE_G3 and EFG_RANK_IMPL=seq4 against the default
+             (rulebooks equal, outputs within 3e-2, launches counted);
+             task=val of the synthetic ConQueR experiment through the CLI
+             (finite waymo/* results, launches = batches × per forward).
 
 The second-to-last line lists every kernel as JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", ...}}.
@@ -171,9 +187,10 @@ MAX_GT = 500  # the flagship's dataset.max_gt
 TRAIN_STEPS = 3  # timed, after one warm-up step
 # launches per serving forward and per training step (21 sparse convs; 4
 # of them strided, each with an inverse rulebook when trained; every conv's
-# cout is a multiple of 16, so dW always comes from the stacked taps)
+# cout is a multiple of 16, so dW always comes from the stacked taps; no
+# width is 256, and the switched kernels are off)
 NO_VARIANTS = {"rank_flags_seq4": 0, "rank_flags_hostwin": 0, "gather_gemm_g3": 0,
-               "gather_gemm_g3_stacked": 0}
+               "gather_gemm_g3_stacked": 0, "gather_gemm_256": 0}
 SERVE_LAUNCHES = {"rank_flags": 8, "gather_gemm": 21, "gather_gemm_stacked": 0, "gather_dw": 0,
                   **NO_VARIANTS}
 TRAIN_LAUNCHES = {"rank_flags": 12, "gather_gemm": 21, "gather_gemm_stacked": 21, "gather_dw": 0,
@@ -230,6 +247,40 @@ EVAL_FLAGSHIP = [o for o in ENGINE_FLAGSHIP if not o.startswith("trainer.evaluat
     f"dataset.processors.val[1].PadPoints.num_points={N_POINTS}", "dataset.num_frames=16"]
 
 
+# phase detr: ConQueR / Voxel-DETR serving at bench.py's widths (its
+# bench_conquer: the Waymo grid 1504×1504×40, 120k voxels, stage caps
+# 80k/60k/30k/15k per sample, SparseResNet-18 to res4 at 256 channels, FPN
+# p3, hidden 256, 8 heads, 3 encoder + 3 decoder layers, FFN 1024, 1000
+# queries), weights from DETR_SEED, 160k-point LiDAR-like clouds
+DETR = dict(pc_range=(-75.2, -75.2, -2.0, 75.2, 75.2, 4.0), voxel_size=(0.1, 0.1, 0.15),
+            max_voxels=120000, resnet_caps=(80000, 60000, 30000, 15000), depth=18,
+            out_features=("res2", "res3", "res4"), fpn_levels=("p3",), hidden_dim=256,
+            num_head=8, enc_layers=3, dec_layers=3, dim_feedforward=1024, num_queries=1000,
+            num_classes=3)
+DETR_SEED = 3
+DETR_BATCHES = ((1, 301), (1, 302), (2, 303), (2, 304))  # (batch size, cloud seed)
+# launches per ConQueR forward: 11 rulebooks (the stem's strided conv and
+# SubM set, res2-res4's, the three (3,1,1) out convs) and 18 sparse convs,
+# 5 of them at 256 channels (res4's strided conv C128·O256, its three SubM
+# convs and its out conv at C256·O256)
+DETR_SERVE_LAUNCHES = {**SERVE_LAUNCHES, "rank_flags": 11, "gather_gemm": 13,
+                       "gather_gemm_256": 5}
+# under EFG_SPARSE_G3 the gate admits the stem's three convs, res2's four,
+# res3's strided conv (cin 64) and res2's out conv: 9 of the 13
+DETR_G3_LAUNCHES = {**DETR_SERVE_LAUNCHES, "gather_gemm": 4, "gather_gemm_g3": 9}
+DETR_SEQ4_LAUNCHES = {**DETR_SERVE_LAUNCHES, "rank_flags": 0, "rank_flags_seq4": 11}
+DETR_256_LABELS = ("res4.down", "res4.b0_conv2", "res4.b1.conv1", "res4.b1.conv2", "res4_out")
+# the card against the CPU: a small ConQueR (±12.8 m, hidden 64) on 20k points
+DETR_SMALL = dict(DETR, pc_range=(-12.8, -12.8, -2.0, 12.8, 12.8, 4.0), max_voxels=8192,
+                  resnet_caps=(8192, 4096, 2048, 2048), hidden_dim=64, num_head=4, enc_layers=1,
+                  dec_layers=2, dim_feedforward=128, num_queries=64)
+# bf16 sparse convs: another summation order flips some bf16 roundings, and
+# the flips compound through 18 convs, the window ops and the decoder
+# (phase check's tolerance on the same trunk)
+DETR_TOL = 3e-2
+DETR_CONFIG = "playground/detection.3d/synthetic/conquer.synth.res18/config.yaml"
+
+
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
@@ -265,8 +316,9 @@ def lidar_frames(n_points: int, bsz: int, seed: int, pc: float = 70.0, max_gt: i
 
 def seeded_weights(model, seed: int) -> None:
     """Fill every parameter and BN statistic from one torch.Generator:
-    He-uniform kernels, small biases, BN scale ≈ 1 and running stats near
-    (0, 1), so activations stay O(1) through the trunk."""
+    He-uniform kernels, Linear weights of variance 1/fan_in, small biases,
+    norm scales ≈ 1 and running stats near (0, 1), so activations stay O(1)
+    through the trunk."""
     import torch
 
     g = torch.Generator().manual_seed(seed)
@@ -277,7 +329,10 @@ def seeded_weights(model, seed: int) -> None:
     with torch.no_grad():
         for name, t in model.state_dict().items():
             leaf = name.rsplit(".", 1)[-1]
-            if leaf == "weight" and t.dim() >= 3:
+            if leaf == "weight" and t.dim() == 2:  # Linear [out, in]: variance 1/fan_in
+                b = (3.0 / t.shape[1]) ** 0.5
+                new = uni(t.shape, -b, b)
+            elif leaf == "weight" and t.dim() >= 3:
                 # sparse [K, Cin, Cout]: fan_in K·Cin; dense OIHW: I·kh·kw; ConvT IOhw: I·kh·kw·(1/s²)
                 fan_in = t.shape[0] * t.shape[1] if t.dim() == 3 else t[0].numel()
                 if "deconv" in name:
@@ -911,6 +966,8 @@ GEMM_EDGE_CASES = {
        for i, v in enumerate((1, GEMM_TM - 1, GEMM_TM, GEMM_TM + 1, 3 * GEMM_TM + 5))},
     **{f"width_{c}x{o}": functools.partial(_gemm_case, 40 + 4 * i + j, 200, c, o)
        for i, c in enumerate((16, 32, 64, 128)) for j, o in enumerate((16, 32, 64, 128))},
+    "width_128x256": functools.partial(_gemm_case, 56, 200, 128, 256),
+    "width_256x256": functools.partial(_gemm_case, 57, 200, 256, 256),
     "pairs_1": functools.partial(_gemm_case, 60, 300, 16, 16, n_pairs=1),
     "pairs_18": functools.partial(_gemm_case, 61, 300, 64, 32, n_pairs=18, v_in=150),
     "pairs_18_c16": functools.partial(_gemm_case, 68, 300, 16, 16, n_pairs=18),
@@ -1138,9 +1195,11 @@ def _gemm_agrees(name, out, ref_out, st=None, ref_st=None):
 
 
 def gemm_edge_cases():
-    """GEMM_EDGE_CASES on the card through both entries of gather_gemm.cu,
-    and of gather_gemm_g3.cu where efg_tpu's g3 gate admits the case, each
-    against the plain versions; returns a row per case."""
+    """GEMM_EDGE_CASES on the card through both entries of gather_gemm.cu
+    (the forward alone above 128 channels, where the stacked entry must
+    refuse the call), and of gather_gemm_g3.cu where efg_tpu's g3 gate
+    admits the case, each against the plain versions; returns a row per
+    case."""
     import torch
 
     from efg_tpu_torch.ops.cuda import sparse_kernels as K
@@ -1159,14 +1218,27 @@ def gemm_edge_cases():
         for kernel, g3 in (("gather_gemm", False), ("gather_gemm_g3", True)):
             if g3 and not admitted:
                 continue
+            wide = max(f.shape[1], w.shape[1]) > K.TAPS_CHANNELS
             with switches(K, g3=g3):
                 out = K.fused_gather_gemm(f, p, w)
-                st_out, st = K.gather_gemm_stacked(f, p, w)
+                if wide:
+                    try:
+                        K.gather_gemm_stacked(f, p, w)
+                    except ValueError:
+                        st_out = None
+                    else:
+                        raise AssertionError(f"{kernel}_stacked took case {name}")
+                else:
+                    st_out, st = K.gather_gemm_stacked(f, p, w)
             torch.cuda.synchronize()
             err, scale = _gemm_agrees(f"{kernel} case {name}", out, ref_out)
-            err_st, _ = _gemm_agrees(f"{kernel}_stacked case {name}", st_out, ref_out, st, ref_st)
-            row[kernel] = {"max_abs_err": err, "max_abs_err_stacked": err_st,
-                           "taps_bit_exact": True}
+            row[kernel] = {"max_abs_err": err}
+            if st_out is not None:
+                err_st, _ = _gemm_agrees(f"{kernel}_stacked case {name}", st_out, ref_out, st,
+                                         ref_st)
+                row[kernel].update(max_abs_err_stacked=err_st, taps_bit_exact=True)
+            else:
+                row[kernel]["stacked"] = "refused above 128 channels"
             row["max_ref"] = scale
         rows.append(row)
     return rows
@@ -2056,7 +2128,7 @@ class EvalProbe:
         return [a.elapsed_time(b) for a, b in self.step_events]
 
 
-def _cli_eval_run(argv, device):
+def _cli_eval_run(argv, device, config=ENGINE_CONFIG):
     """One in-process CLI run of the experiment with the launch counts
     reset before it; returns (launch counts, probe)."""
     from efg_tpu_torch.cli import main as cli
@@ -2064,7 +2136,7 @@ def _cli_eval_run(argv, device):
 
     K.reset_launches()
     with EvalProbe() as probe:
-        rc = cli.main(["--config", os.path.join(HERE, ENGINE_CONFIG), "--device", device, *argv])
+        rc = cli.main(["--config", os.path.join(HERE, config), "--device", device, *argv])
     counts = dict(K.launches)
     if rc != 0:
         raise AssertionError(f"eval: the CLI returned {rc} for {argv}")
@@ -2240,6 +2312,312 @@ def phase_eval(card: str, device="cuda", small=()):
         shutil.rmtree(cache, ignore_errors=True)
 
 
+class StageEvents:
+    """CUDA events recorded on the stream before and after each stage of
+    one Voxel-DETR forward (the sparse trunk, FPN, each encoder layer, the
+    proposal head, the decoder), by module hooks, so the forward itself
+    runs unchanged. `ms(start, end)` gives each stage's milliseconds and
+    the rest between them ("voxelize_vfe" before the trunk; "input_proj"
+    from the FPN to the first encoder layer; "topk" from the proposal head
+    to the decoder; "predict" after it)."""
+
+    def __init__(self, detr):
+        self.parts = ["backbone", "fpn"] + [f"enc{i}" for i in range(detr.enc_layers)] + [
+            "proposal_head", "decoder"]
+        self.modules = [getattr(detr, p) for p in self.parts]
+        self.events = []
+
+    def _record(self, name):
+        import torch
+
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        self.events.append((name, e))
+
+    def __enter__(self):
+        self.hooks = []
+        for name, m in zip(self.parts, self.modules):
+            self.hooks.append(m.register_forward_pre_hook(
+                lambda *_, n=name: self._record(n + ":start")))
+            self.hooks.append(m.register_forward_hook(lambda *_, n=name: self._record(n + ":end")))
+        return self
+
+    def __exit__(self, *exc):
+        for h in self.hooks:
+            h.remove()
+        return False
+
+    def ms(self, start, end) -> dict:
+        gaps = {"backbone": "voxelize_vfe", "enc0": "input_proj", "decoder": "topk"}
+        out, prev = {}, start
+        for name, e in self.events:
+            part, edge = name.split(":")
+            if edge == "start":
+                if part in gaps:
+                    out[gaps[part]] = prev.elapsed_time(e)
+                begin = e
+            else:
+                out[part] = begin.elapsed_time(e)
+            prev = e
+        out["predict"] = prev.elapsed_time(end)
+        return out
+
+
+def make_detr(kw, device, seed=DETR_SEED):
+    """ConQueR's serving ModelDef (the port's make_model_def) for widths
+    `kw`, every parameter and BN statistic drawn by `seeded_weights` from
+    `seed` on the CPU, then moved to `device`."""
+    import torch
+
+    from efg_tpu_torch.models import conquer as CQ
+
+    cfg = dict(pc_range=kw["pc_range"], voxel_size=kw["voxel_size"], contrastive={"dim": 256})
+    md = CQ.make_model_def(kw, cfg, device="cpu")
+    seeded_weights(md.module, seed)
+    md.module.to(torch.device(device))
+    return md
+
+
+def detr_batch(bsz: int, seed: int, device="cuda", n_points: int = N_POINTS, pc: float = 70.0):
+    import torch
+
+    pts = torch.from_numpy(lidar_frames(n_points, bsz, seed, pc=pc)["points"]).to(device)
+    return dict(points=pts, points_mask=torch.ones(pts.shape[:2], dtype=torch.bool, device=device))
+
+
+def _detr_forward(md, batch):
+    """The module's raw outputs (the eval step without predict)."""
+    import torch
+
+    md.module.eval()
+    with torch.inference_mode():
+        return md.module(**md.apply_args(batch))
+
+
+def _detr_agrees(label, got, want, tol=DETR_TOL):
+    """Two ConQueR forwards on the same inputs: the proposal logits and
+    boxes within `tol` of their range; the top-k sets equal outside the tie
+    band (twice the largest proposal-score difference: random weights leave
+    scores within 1e-7 of each other, whose order either run may take); the
+    decoder's logits and boxes within `tol`, slot by slot in cell order (the
+    decoder is equivariant in its slots) for every sample whose top-k set is
+    the other's. Returns the readings."""
+    import torch
+
+    def rel(a, b):
+        return float((a.float().cpu() - b.float().cpu()).abs().max()
+                     / max(float(b.float().abs().max()), 1.0))
+
+    out = {k: rel(got[k], want[k]) for k in ("enc_logits", "enc_boxes")}
+    pg, pw = (torch.sigmoid(x["enc_logits"][..., 0].double().cpu()) for x in (got, want))
+    band = 2 * float((pg - pw).abs().max())
+    k = want["topk_idx"].shape[1]
+    same, outside_band = [], True
+    for b in range(pw.shape[0]):
+        s = torch.sort(pw[b], descending=True).values
+        gi, wi = (set(x["topk_idx"][b].cpu().tolist()) for x in (got, want))
+        sure_in = set(torch.nonzero(pw[b] > s[k - 1] + band).flatten().tolist())
+        sure_out = set(torch.nonzero(pw[b] < s[k] - band).flatten().tolist())
+        outside_band &= sure_in <= gi and not (sure_out & gi)
+        if gi == wi:
+            same.append(b)
+    for key in ("dec_logits", "dec_boxes"):
+        worst = 0.0
+        for b in same:
+            og, ow = (torch.argsort(x["topk_idx"][b].cpu()) for x in (got, want))
+            worst = max(worst, rel(got[key][:, b].cpu()[:, og], want[key][:, b].cpu()[:, ow]))
+        out[key] = worst
+    out.update(topk_band=band, topk_sets_equal_outside_band=outside_band,
+               samples_with_equal_topk=same,
+               topk_equal=torch.equal(got["topk_idx"].cpu(), want["topk_idx"].cpu()))
+    bad = {k_: v for k_, v in out.items() if isinstance(v, float) and k_ != "topk_band"
+           and not v <= tol}
+    if bad or not outside_band or not same:
+        raise AssertionError(f"detr {label}: {out} (tolerance {tol})")
+    return out
+
+
+def phase_detr(card: str, device="cuda", kw=DETR, n_points=N_POINTS):
+    """ConQueR / Voxel-DETR serving on the card (DETR: bench.py's widths):
+    (a) the eval step on DETR_BATCHES (bs 1 and 2, two requests each) by
+        CUDA events and the host clock, its stages (`StageEvents`), peak
+        memory, launches per forward held to DETR_SERVE_LAUNCHES (rank 11,
+        gather-GEMM 13 + 5 at 256);
+    (b) the last request again with every gather-GEMM and rank call
+        captured, each against its plain version on the card, with times,
+        device times and bounds; the 5 calls at 256 channels are their own
+        kernel row;
+    (c) a small ConQueR on the card against the same weights on the CPU
+        (plain versions): voxels and every rulebook equal, the outputs
+        within DETR_TOL;
+    (d) one bs=1 forward under EFG_SPARSE_G3 and one under
+        EFG_RANK_IMPL=seq4: their rulebooks equal to the default forward's,
+        outputs within DETR_TOL of it, launches as counted;
+    (e) task=val of the synthetic ConQueR experiment through the CLI: its
+        WaymoDetEvaluator's results finite, launches = batches × (a)'s.
+    Returns the kernels-line row of the 256-wide calls. A rehearsal on the
+    CPU (`device="cpu"`, smaller `kw` and `n_points`, torch.cuda.Event
+    swapped for a host-clock stand-in, the DETR_* launch counts zeroed)
+    runs (a), (d) and (e)."""
+    import torch
+
+    from efg_tpu_torch.engine.trainer import eval_step
+    from efg_tpu_torch.ops.cuda import sparse_kernels as K
+
+    on_card = device == "cuda"
+    md = make_detr(kw, device)
+    n_params = sum(p.numel() for p in md.module.parameters())
+    for i, (bsz, seed) in enumerate(DETR_BATCHES):
+        batch = detr_batch(bsz, seed, device, n_points)
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        with StageEvents(md.module.detr) as stages:
+            out = eval_step(md, batch)
+        end.record()
+        if on_card:
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        counts = dict(K.launches)
+        finite = all(bool(torch.isfinite(v.float()).all()) for v in out.values())
+        emit({"phase": "detr", "part": "serve", "batch": i, "batch_size": bsz,
+              "points_per_cloud": n_points, "parameters": n_params,
+              "latency_ms_cuda_events": start.elapsed_time(end), "latency_ms_host": wall_ms,
+              "first_request": i == 0, "finite": finite, "launches": counts,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30 if on_card else None,
+              "stage_ms_cuda_events": stages.ms(start, end)})
+        top = min(300, kw["num_queries"] * kw["num_classes"])
+        if not (finite and out["box3d"].shape == (bsz, top, 7)):
+            raise AssertionError(f"detr batch {i}: non-finite or misshapen outputs")
+        if counts != DETR_SERVE_LAUNCHES:
+            raise AssertionError(f"detr batch {i}: launches {counts}, expected {DETR_SERVE_LAUNCHES}")
+
+    if on_card:  # (b) the last request again, its kernel calls captured
+        with Capture(K) as capture:
+            eval_step(md, batch)
+        row = phase_detr_kernels(capture, counts, card)
+        del capture
+        phase_detr_check()
+    else:
+        row = None
+
+    # (d) the switched kernels on one bs=1 request
+    batch = detr_batch(*DETR_BATCHES[0], device, n_points)
+    switched = {}
+    for name, switch, want in (("default", {}, DETR_SERVE_LAUNCHES),
+                               ("g3", {"g3": True}, DETR_G3_LAUNCHES),
+                               ("seq4", {"rank_impl": "seq4"}, DETR_SEQ4_LAUNCHES)):
+        K.reset_launches()
+        with switches(K, **switch), RuleCapture(K) as rules:
+            out = _detr_forward(md, batch)
+        got = dict(K.launches)
+        if got != want:
+            raise AssertionError(f"detr {name}: launches {got}, expected {want}")
+        switched[name] = ([c[3] for c in rules.calls], out, got)
+    rb0, out0, _ = switched.pop("default")
+    for name, (rb, out, got) in switched.items():
+        rb_equal = len(rb) == len(rb0) and all(torch.equal(a, b_) for a, b_ in zip(rb, rb0))
+        readings = _detr_agrees(f"{name} vs default", out, out0)
+        emit({"phase": "detr", "part": "variants", "switch": name, "launches": got,
+              "rulebooks_equal_to_default": rb_equal, **readings, "tolerance": DETR_TOL})
+        if not rb_equal:
+            raise AssertionError(f"detr {name}: rulebooks differ from the default forward's")
+    del switched, md
+
+    # (e) task=val of the synthetic experiment through the CLI
+    import shutil
+    import tempfile
+
+    from efg_tpu_torch.config import Configuration
+
+    cache = tempfile.mkdtemp(prefix="chip_smoke_detr_")
+    old_cache = os.environ.get("EFG_CACHE_DIR")
+    try:
+        os.environ["EFG_CACHE_DIR"] = cache
+        argv = ["task=val"]
+        cfg = Configuration(config_file=os.path.join(HERE, DETR_CONFIG), opts=argv).get_config()
+        counts, probe = _cli_eval_run(argv, device, DETR_CONFIG)
+        n_batches = -(-int(cfg.dataset.num_frames) // int(cfg.dataloader.batch_size))
+        expected = {k: n_batches * DETR_SERVE_LAUNCHES[k] for k in counts}
+        (_, res, evaluate_s), = probe.evaluations
+        emit({"phase": "detr", "part": "cli_val", "card": card, "config": DETR_CONFIG,
+              "frames": int(cfg.dataset.num_frames), "batches": n_batches,
+              "eval_step_ms_cuda_events": probe.step_ms(), "evaluate_s": evaluate_s,
+              "results": res, "launches": counts, "launches_expected": expected})
+        _check_waymo_results("detr cli", res, list(cfg.dataset.classes))
+        if counts != expected:
+            raise AssertionError(f"detr cli: launches {counts}, expected {expected}")
+    finally:
+        if old_cache is None:
+            os.environ.pop("EFG_CACHE_DIR", None)
+        else:
+            os.environ["EFG_CACHE_DIR"] = old_cache
+        shutil.rmtree(cache, ignore_errors=True)
+    return row
+
+
+def phase_detr_kernels(capture, counts, card: str):
+    """(b) of phase detr: every captured gather-GEMM and rank call of one
+    bs=2 forward through its kernel and its plain version on the card;
+    returns the kernels-line row of the 5 calls at 256 channels."""
+    wide = [j for j, (f, _, w) in enumerate(capture.gemm) if max(f.shape[1], w.shape[1]) > 128]
+    if len(wide) != len(DETR_256_LABELS):
+        raise AssertionError(f"detr: {len(wide)} gather-GEMM calls at 256 channels, expected 5")
+    labels = iter(DETR_256_LABELS)
+    gemm_rows = [_gemm_row(next(labels) if j in wide else f"call{j}", *call)[0]
+                 for j, call in enumerate(capture.gemm)]
+    rank_rows = [_rank_row(f"call{j}", *call) for j, call in enumerate(capture.rank)]
+    rows_256 = [gemm_rows[j] for j in wide]
+    row = kernel_row("gather_gemm_256", "gather_gemm.cu", 259, counts["gather_gemm_256"], rows_256,
+                     tolerance="1e-3 * max|ref|", card=card,
+                     per="sum over the 5 calls at 256 channels of one bs=2 ConQueR forward")
+    emit({"phase": "detr", "part": "kernels", "summary": row,
+          "gemm_256": [{k: r[k] for k in ("label", "C", "O", "V_in", "V_out", "taps_found", "ms",
+                                          "device_ms", "bound_ms", "bytes_ms", "ops_ms",
+                                          "plain_ms", "max_abs_err")}
+                       for r in rows_256],
+          "gemm_calls": gemm_rows, "rank_calls": rank_rows,
+          "gemm_le128_ms": sum(r["ms"] for j, r in enumerate(gemm_rows) if j not in wide),
+          "gemm_le128_device_ms": sum(r["device_ms"] for j, r in enumerate(gemm_rows)
+                                      if j not in wide),
+          "rank_ms": sum(r["ms"] for r in rank_rows),
+          "rank_device_ms": sum(r["device_ms"] for r in rank_rows)})
+    return row
+
+
+def phase_detr_check():
+    """(c) of phase detr: a small ConQueR on the card against the same
+    weights on the CPU (plain versions)."""
+    import torch
+
+    from efg_tpu_torch.modeling.readers.voxel_reader import dynamic_mean_vfe
+    from efg_tpu_torch.ops.cuda import sparse_kernels as K
+
+    small_md = {dev: make_detr(DETR_SMALL, dev) for dev in ("cpu", "cuda")}
+    runs = {}
+    for dev, m in small_md.items():
+        b = detr_batch(2, 305, dev, n_points=20000, pc=12.0)
+        vox = dynamic_mean_vfe(b["points"], b["points_mask"], pc_range=DETR_SMALL["pc_range"],
+                               voxel_size=DETR_SMALL["voxel_size"],
+                               max_voxels=DETR_SMALL["max_voxels"], num_input_features=5)
+        with RuleCapture(K) as rules:
+            out = _detr_forward(m, b)
+        runs[dev] = (vox, [c[3].cpu() for c in rules.calls], out)
+    (vox_c, rb_c, out_c), (vox_g, rb_g, out_g) = runs["cpu"], runs["cuda"]
+    vox_equal = all(torch.equal(a.cpu(), b_.cpu()) for a, b_ in zip(vox_c[1:], vox_g[1:]))
+    rb_equal = len(rb_c) == len(rb_g) == 11 and all(torch.equal(a, b_) for a, b_ in zip(rb_c, rb_g))
+    readings = _detr_agrees("card vs CPU", out_g, out_c)
+    emit({"phase": "detr", "part": "check", "voxels_equal": vox_equal,
+          "rulebooks_equal": rb_equal, "rulebooks": len(rb_g), **readings,
+          "tolerance": DETR_TOL})
+    if not (vox_equal and rb_equal):
+        raise AssertionError(f"detr check: voxels equal {vox_equal}, rulebooks equal {rb_equal}")
+
+
 def main() -> int:
     try:
         import torch
@@ -2278,6 +2656,7 @@ def main() -> int:
         phase_train_check()
         phase_engine(card, bare_step_ms)
         phase_eval(card)
+        detr = phase_detr(card)
         # a rank kernel's row is the training step's (its forward rulebooks
         # and the inverse ones); the serving forward's is in the kernels line
         train["rank_flags"]["launches_serve"] = serve["rank_flags"]["launches"]
@@ -2287,7 +2666,7 @@ def main() -> int:
             variants[name]["launches"] = counts[name]  # phase variants' path
         for name in ("rank_flags_seq4", "rank_flags_hostwin"):
             variants[name]["launches_serve"] = serve_counts[name]
-        kernels = [train["rank_flags"], serve["gather_gemm"], train["gather_gemm_stacked"],
+        kernels = [train["rank_flags"], serve["gather_gemm"], detr, train["gather_gemm_stacked"],
                    train["gather_dw"], *variants.values()]
     except Exception:  # report every phase failure and exit non-zero
         traceback.print_exc()

@@ -100,9 +100,13 @@ def _resolve_env(expr: str) -> str:
 
 
 def _resolve_device_count(_: str) -> int:
-    import torch
+    """The devices this run uses: one process on one device (the card, or
+    the CPU under `--device cpu`) until data parallelism is ported (ROADMAP
+    queue 1 item 1), as efg_tpu's `jax.local_device_count()` reads 1 on
+    one device."""
+    from efg_tpu_torch.utils import distributed as comm
 
-    return torch.cuda.device_count()
+    return comm.get_world_size()
 
 
 _RESOLVERS = {

@@ -13,7 +13,9 @@
 // A tap whose flag is 0 contributes nothing and its row is never read (pos
 // may equal V_in); a set flag whose row falls outside [0, V_in) is treated
 // as 0 as well, so no load leaves the feature array.
-// C and O are each one of 16, 32, 64, 128.
+// C and O are each one of 16, 32, 64, 128, 256 in the forward entry, and
+// of 16, 32, 64, 128 in the stacked entry (256-channel taps for the
+// backward: ROADMAP queue 2).
 //
 // Stacked variant: besides `out` it writes the flag-masked tap rows it
 // gathers, stacked [V_out, P·3·C] bf16 with
@@ -38,7 +40,8 @@
 // - The K loop runs over steps. C ≤ 32: a step is a whole pair, its three
 //   taps side by side (K = 3·C = 48 or 96), so that each step's product
 //   covers the next gather. C = 64: one tap (K = 64). C = 128: one tap's
-//   half (K = 64). A step stages the A tile [TM, K] (each row's tap rows,
+//   half (K = 64); C = 256, a tap's quarter (K = 64: twelve steps a pair).
+//   A step stages the A tile [TM, K] (each row's tap rows,
 //   16-byte cp.async with the zero-fill form, src-size 0, where the flag is
 //   off or the row lies outside [0, V_in): no branch and no load) and its
 //   [K, O] weight block (contiguous in W) in one slot of a ring in dynamic
@@ -93,6 +96,16 @@
 // - The output is written once from the accumulators (float2 per thread,
 //   whole 32-byte sectors; the wgmma fragment repeats the mma.sync one per
 //   warp), the ragged last tile masked by row.
+// - O = 256 (ConQueR's res4: the strided conv into it at C = 128 and its
+//   SubM convs and (3,1,1) out conv at C = 256) runs as two blocks a tile,
+//   side by side over O (the grid's y): each owns 128 columns of W and of
+//   out (row stride 256) and is the O = 128 block in everything else. One
+//   block holding all 256 columns would need 128 accumulators a thread for
+//   the m64n256 fragment, past the 128 registers that two blocks an SM
+//   allow; the split keeps the O = 128 plan's registers and ring (two
+//   blocks an SM) and pays for it by gathering each tile's taps twice,
+//   once per half (those bytes come from L2 for the second half when the
+//   two blocks run together, which the grid's order does not promise).
 //
 // The block itself (rulebook, masks, step list, ring, products, stacked
 // writes, epilogue) is gather_gemm_core.cuh, shared with gather_gemm_g3.cu;
@@ -103,13 +116,17 @@
 // list (+ 1024 to align a wgmma ring). At P = 9 (P = 18 adds 4 680-4 860):
 // C16·O16 54 616, C16·O32 59 224, C32·O16 67 160, C32·O32 73 304, C32·O64
 // 85 592, C64·O32 75 424, C64·O64 79 520, C64·O128 104 096, C128·O64
-// 79 628, C128·O128 104 204. Registers (≤ 128 by the launch bound of two
-// blocks an SM), forward / stacked, as `ptxas -v` prints them in
-// chip_smoke.py's `device` line: C16·O16 56 / 80, C16·O32 72 / 112,
-// C32·O16 58 / 90, C32·O32 77 / 96, C32·O64 101 / 114, C64·O32 80 / 96,
-// C64·O64 83 / 114, C64·O128 124 / 128, C128·O64 83 / 96, C128·O128
-// 123 / 125; no spills, but for the forward at C16·O128 (8 bytes), which
-// no flagship conv runs.
+// 79 628, C128·O128 104 204; at 256 (forward), C128·O256 104 204 and
+// C256·O256 104 420 (a block of an O = 256 plan is the O = 128 plan's;
+// C256·O16-O128 are the C128 plans with 12 steps a pair, + 216 bytes).
+// Registers (≤ 128 by the launch bound of two blocks an SM), forward /
+// stacked, as `ptxas -v` prints them in chip_smoke.py's `device` line:
+// C16·O16 56 / 80, C16·O32 72 / 112, C32·O16 58 / 90, C32·O32 77 / 96,
+// C32·O64 101 / 114, C64·O32 80 / 96, C64·O64 83 / 114, C64·O128 124 /
+// 128, C128·O64 83 / 96, C128·O128 123 / 125; forward at 256: C128·O256,
+// C256·O256, C256·O128 and C64·O256 124, C256·O64 83, C256·O32 75,
+// C256·O16 55, C32·O256 128; no spills, but for the forward at C16·O128
+// and C16·O256 (8 bytes), which no model conv runs.
 
 #include "gather_gemm_core.cuh"
 
@@ -129,6 +146,7 @@ struct Plan {
   static constexpr int STAGES = C == 32 ? 2 : 3;  // ring slots (see the note)
   static constexpr int MIN_BLOCKS = 2;           // launch bound: ≤ 128 registers
   static constexpr bool PERSIST = false;         // a block per tile
+  static constexpr int OSPLIT = O > 128 ? 2 : 1;  // blocks a tile, side by side over O
   static_assert(C < 64 || KS == 64, "a wgmma step is one 128-byte swizzle span");
 };
 
@@ -139,10 +157,13 @@ int dispatch(int device, int c, int o, const Args& a, void* stream) {
   if (a.v_out == 0) return cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
   switch (c) {
-    case 16: return launch_o<16, EMIT>(o, a, s);
-    case 32: return launch_o<32, EMIT>(o, a, s);
-    case 64: return launch_o<64, EMIT>(o, a, s);
-    case 128: return launch_o<128, EMIT>(o, a, s);
+    case 16: return launch_o<16, EMIT, !EMIT>(o, a, s);
+    case 32: return launch_o<32, EMIT, !EMIT>(o, a, s);
+    case 64: return launch_o<64, EMIT, !EMIT>(o, a, s);
+    case 128: return launch_o<128, EMIT, !EMIT>(o, a, s);
+    case 256:
+      if constexpr (!EMIT) return launch_o<256, EMIT, true>(o, a, s);
+      return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
 }

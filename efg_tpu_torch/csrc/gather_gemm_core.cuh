@@ -31,7 +31,9 @@
 // flag among its taps is skipped (its stacked columns written as zeros).
 // Products: wgmma.m64nOk16 from 128-byte-swizzled tiles where C, O ≥ 64
 // (a step's K is 64 there, one swizzle span), mma.sync + ldmatrix
-// otherwise.
+// otherwise. A plan with OSPLIT > 1 splits O over that many blocks of a
+// tile (the grid's y): each owns O / OSPLIT ≤ 128 columns of W and out
+// and gathers the tile's taps itself (the forward at O = 256).
 //
 // Everything here lives in an anonymous namespace: each source is its own
 // translation unit and shared library, and its Plan is its own.
@@ -51,7 +53,8 @@ constexpr int kPad = 8;  // row padding (16 bytes) of the staged bf16 tiles (mma
 // The step plan of the including source: TM (output rows per block), PAIRS
 // (pairs per step), TAPS (taps of each pair per step, 3 or 1), KC (channels
 // of a tap per step), STAGES (ring slots), MIN_BLOCKS (the launch bound),
-// PERSIST (persistent blocks that prefetch the next tile's rulebook).
+// PERSIST (persistent blocks that prefetch the next tile's rulebook),
+// OSPLIT (blocks side by side over O, the grid's y).
 template <int C, int O, bool EMIT>
 struct Plan;
 
@@ -67,19 +70,21 @@ struct Layout {
   static constexpr int SPP = 3 / TAPS * CHUNKS;   // steps per group of PAIRS pairs
   static constexpr int KS = PAIRS * TAPS * KC;    // K of one step
   static constexpr int STAGES = P::STAGES;
-  // wgmma (two warpgroups, 64 rows each, all O columns) where C, O ≥ 64
-  static constexpr bool WG = C >= 64 && O >= 64;
+  static constexpr int OSPLIT = P::OSPLIT;
+  static constexpr int ON = O / OSPLIT;           // output columns of one block
+  // wgmma (two warpgroups, 64 rows each, all the block's columns) where C, ON ≥ 64
+  static constexpr bool WG = C >= 64 && ON >= 64;
   // mma.sync tiles are padded rows; wgmma tiles are 128-byte rows (K = 64),
   // swizzled
   static constexpr int LDA = WG ? KS : KS + kPad;
-  static constexpr int LDW = WG ? O : O + kPad;
+  static constexpr int LDW = WG ? ON : ON + kPad;
   static constexpr int A_ELEMS = TM * LDA;
   static constexpr int STAGE_ELEMS = A_ELEMS + KS * LDW;
   static constexpr int RING_BYTES = STAGES * STAGE_ELEMS * 2;
-  static constexpr int WN = WG || O == 16 ? 1 : 2;  // warp grid (wgmma: a warp's 16 rows)
+  static constexpr int WN = WG || ON == 16 ? 1 : 2;  // warp grid (wgmma: a warp's 16 rows)
   static constexpr int WM = kWarps / WN;
   static constexpr int WTM = TM / WM;             // warp tile
-  static constexpr int WTN = O / WN;
+  static constexpr int WTN = ON / WN;
   static constexpr int MT = WTM / 16;             // m16 tiles per warp
   static constexpr int NT = WTN / 8;              // n8 tiles per warp
   static_assert(NT % 2 == 0, "B fragments load two n8 tiles at a time");
@@ -89,6 +94,8 @@ struct Layout {
   static_assert(PAIRS == 1 || (TAPS == 3 && KC == C), "a group step takes whole pairs");
   static_assert(!WG || (KS == 64 && TM == 128),
                 "wgmma: K of one 128-byte swizzle span, two warpgroups of 64 rows");
+  static_assert(O % OSPLIT == 0 && ON <= 128, "a block's columns are at most one m64n128");
+  static_assert(!EMIT || OSPLIT == 1, "one block a tile writes the tile's stacked taps");
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -233,13 +240,14 @@ __device__ __forceinline__ int a_offset(int r, int vc) {
   }
 }
 
-// start the cp.async copies of step e into ring slot `slot`; W rows at and
-// past w_rows (a group's missing pairs) are zero-filled
+// start the cp.async copies of step e into ring slot `slot` (W's columns
+// [col0, col0 + ON)); W rows at and past w_rows (a group's missing pairs)
+// are zero-filled
 template <int C, int O, bool EMIT>
 __device__ __forceinline__ void load_step(int e, __nv_bfloat16* slot, const int* s_pk,
                                           const __nv_bfloat16* __restrict__ feat,
                                           const __nv_bfloat16* __restrict__ w, int v_in,
-                                          int w_rows) {
+                                          int w_rows, int col0) {
   using L = Layout<C, O, EMIT>;
   const Step<C, O, EMIT> st(e);
   constexpr int KV = L::KC / 8;         // 16-byte pieces of one tap
@@ -257,9 +265,9 @@ __device__ __forceinline__ void load_step(int e, __nv_bfloat16* slot, const int*
     const __nv_bfloat16* g = on ? feat + (size_t)src * C + st.ch * L::KC + cv * 8 : feat;
     cp_async16(a0 + a_offset<C, O, EMIT>(r, vc), g, on ? 16 : 0);
   }
-  constexpr int WV = O / 8;
+  constexpr int WV = L::ON / 8;
   const int row0 = st.col();
-  const __nv_bfloat16* wsrc = w + (size_t)row0 * O;
+  const __nv_bfloat16* wsrc = w + (size_t)row0 * O + col0;
   const uint32_t w0 = a0 + L::A_ELEMS * 2;
   for (int i = threadIdx.x; i < L::KS * WV; i += kThreads) {
     const int k = i / WV, vc = i % WV;
@@ -335,7 +343,7 @@ __device__ __forceinline__ void step_products(float (&acc)[Layout<C, O, EMIT>::M
     for (int kk = 0; kk < L::KS; kk += 16) {
       const uint64_t da = wgmma_desc(a_wg + kk * 2, 16, 1024);
       const uint64_t db = wgmma_desc(w_base + (kk / 8) * 1024, L::KS * 128, 1024);
-      wgmma_k16<O>(acc, da, db);
+      wgmma_k16<L::ON>(acc, da, db);
     }
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
@@ -361,14 +369,14 @@ __device__ __forceinline__ void step_products(float (&acc)[Layout<C, O, EMIT>::M
   }
 }
 
-// The accumulators to out: row lane/4 [+8], columns 2·(lane%4) + {0, 1} of
-// each n8 tile (the wgmma fragment repeats the mma.sync one), whole 32-byte
-// sectors, the ragged last tile masked by row.
+// The accumulators to out: row lane/4 [+8], columns col0 + 2·(lane%4) + {0, 1}
+// of each n8 tile (the wgmma fragment repeats the mma.sync one), whole
+// 32-byte sectors, the ragged last tile masked by row.
 template <int C, int O, bool EMIT>
 __device__ __forceinline__ void store_out(const float (&acc)[Layout<C, O, EMIT>::MT *
                                                              Layout<C, O, EMIT>::NT * 4],
                                           float* __restrict__ out, int row0, int rows,
-                                          int warp_row, int warp_col) {
+                                          int warp_row, int warp_col, int col0) {
   using L = Layout<C, O, EMIT>;
   const int lane = threadIdx.x & 31;
 #pragma unroll
@@ -376,7 +384,7 @@ __device__ __forceinline__ void store_out(const float (&acc)[Layout<C, O, EMIT>:
     const int r = warp_row + mt * 16 + (lane >> 2);
 #pragma unroll
     for (int nt = 0; nt < L::NT; ++nt) {
-      const int c = warp_col + nt * 8 + (lane & 3) * 2;
+      const int c = col0 + warp_col + nt * 8 + (lane & 3) * 2;
       const float* d = acc + (mt * L::NT + nt) * 4;
       if (r < rows) {
         *reinterpret_cast<float2*>(out + (size_t)(row0 + r) * O + c) = make_float2(d[0], d[1]);
@@ -391,14 +399,16 @@ __device__ __forceinline__ void store_out(const float (&acc)[Layout<C, O, EMIT>:
 
 // The tile's products (its accumulators zeroed here) over the ring of its
 // steps that run, and with EMIT its stacked taps, zeros included; then its
-// rows of out. Every copy the tile issued has landed when it returns.
+// rows of out, columns [col0, col0 + ON). Every copy the tile issued has
+// landed when it returns.
 template <int C, int O, bool EMIT>
 __device__ __forceinline__ void run_tile(const TileSmem& t, __nv_bfloat16* ring,
                                          const __nv_bfloat16* __restrict__ feat,
                                          const __nv_bfloat16* __restrict__ w,
                                          float* __restrict__ out,
                                          __nv_bfloat16* __restrict__ stacked, int v_in,
-                                         int n_pairs, int n_all, int row0, int rows) {
+                                         int n_pairs, int n_all, int row0, int rows,
+                                         int col0) {
   using L = Layout<C, O, EMIT>;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const size_t lds = (size_t)n_pairs * 3 * C;  // stacked row length
@@ -425,7 +435,10 @@ __device__ __forceinline__ void run_tile(const TileSmem& t, __nv_bfloat16* ring,
 
 #pragma unroll
   for (int s = 0; s < L::STAGES - 1; ++s) {
-    if (s < n) load_step<C, O, EMIT>(t.steps[s], ring + s * L::STAGE_ELEMS, t.pk, feat, w, v_in, w_rows);
+    if (s < n) {
+      load_step<C, O, EMIT>(t.steps[s], ring + s * L::STAGE_ELEMS, t.pk, feat, w, v_in, w_rows,
+                            col0);
+    }
     cp_async_commit();
   }
 
@@ -442,7 +455,7 @@ __device__ __forceinline__ void run_tile(const TileSmem& t, __nv_bfloat16* ring,
       const int nx = i + L::STAGES - 1;
       if (nx < n) {
         load_step<C, O, EMIT>(t.steps[nx], ring + (nx % L::STAGES) * L::STAGE_ELEMS, t.pk, feat, w,
-                        v_in, w_rows);
+                              v_in, w_rows, col0);
       }
       cp_async_commit();
     }
@@ -460,7 +473,7 @@ __device__ __forceinline__ void run_tile(const TileSmem& t, __nv_bfloat16* ring,
     step_products<C, O, EMIT>(acc, sA, warp_row, warp_col);
   }
   cp_async_wait<0>();
-  store_out<C, O, EMIT>(acc, out, row0, rows, warp_row, warp_col);
+  store_out<C, O, EMIT>(acc, out, row0, rows, warp_row, warp_col, col0);
 }
 
 // One block per tile of TM output rows: the tile's rulebook entries loaded
@@ -499,7 +512,7 @@ gather_gemm_kernel(const __nv_bfloat16* __restrict__ feat, const int* __restrict
   list_steps<C, O, EMIT>(t, n_all);
   __syncthreads();
   run_tile<C, O, EMIT>(t, reinterpret_cast<__nv_bfloat16*>(smem), feat, w, out, stacked, v_in,
-                       n_pairs, n_all, row0, rows);
+                       n_pairs, n_all, row0, rows, blockIdx.y * L::ON);
 }
 
 // 4-byte async copy; src_bytes 0 fills the destination with zeros and reads nothing
@@ -561,7 +574,7 @@ gather_gemm_persistent_kernel(const __nv_bfloat16* __restrict__ feat,
     list_steps<C, O, EMIT>(t, n_all);
     __syncthreads();
     run_tile<C, O, EMIT>(t, reinterpret_cast<__nv_bfloat16*>(smem), feat, w, out, stacked, v_in,
-                         n_pairs, n_all, row0, rows);
+                         n_pairs, n_all, row0, rows, blockIdx.y * L::ON);
   }
   cp_async_wait<0>();
 }
@@ -588,7 +601,8 @@ size_t smem_bytes(int n_pairs) {
 }
 
 // A block per tile, or (Plan::PERSIST) as many persistent blocks as the
-// card holds at once, each taking every gridDim.x-th tile.
+// card holds at once, each taking every gridDim.x-th tile; OSPLIT blocks
+// side by side (the grid's y) over O.
 template <int C, int O, bool EMIT>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   using L = Layout<C, O, EMIT>;
@@ -626,19 +640,23 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
     }
     blocks = tiles < resident ? tiles : resident;
   }
-  kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
+  kernel<<<dim3((unsigned)blocks, L::OSPLIT), kThreads, smem, stream>>>(
       (const __nv_bfloat16*)a.feat, (const int*)a.packed, (const __nv_bfloat16*)a.w,
       (float*)a.out, (__nv_bfloat16*)a.stacked, a.v_in, a.v_out, a.n_pairs);
   return cudaGetLastError();
 }
 
-template <int C, bool EMIT>
+// O of 16-128, and of 256 where the source's plans take it (WIDE)
+template <int C, bool EMIT, bool WIDE = false>
 cudaError_t launch_o(int o, const Args& a, cudaStream_t s) {
   switch (o) {
     case 16: return launch<C, 16, EMIT>(a, s);
     case 32: return launch<C, 32, EMIT>(a, s);
     case 64: return launch<C, 64, EMIT>(a, s);
     case 128: return launch<C, 128, EMIT>(a, s);
+    case 256:
+      if constexpr (WIDE) return launch<C, 256, EMIT>(a, s);
+      return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
 }

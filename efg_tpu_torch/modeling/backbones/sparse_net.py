@@ -62,12 +62,17 @@ class SparseConvDown(nn.Module):
 
 
 class _BNReLU(nn.Module):
-    def __init__(self, features: int, dtype: Optional[torch.dtype] = None):
+    """MaskedBatchNorm (flax path `<name>/bn`), then ReLU unless `relu` is
+    False."""
+
+    def __init__(self, features: int, dtype: Optional[torch.dtype] = None, relu: bool = True):
         super().__init__()
         self.bn = MaskedBatchNorm(features, dtype=dtype)
+        self.relu = relu
 
     def forward(self, st: sp.SparseTensor) -> sp.SparseTensor:
-        return st.replace_features(torch.relu(self.bn(st.features, st.valid)))
+        f = self.bn(st.features, st.valid)
+        return st.replace_features(torch.relu(f) if self.relu else f)
 
 
 class SparseBasicBlock(nn.Module):

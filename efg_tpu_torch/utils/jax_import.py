@@ -11,7 +11,12 @@ flax path is its torch module path:
 - transposed-conv kernels HWIO → torch's [I, O, kh, kw] with a spatial
   flip: flax's ConvTranspose does not flip its kernel and torch's does;
 - BatchNorm scale / bias / mean / var → weight / bias / running_mean /
-  running_var.
+  running_var;
+- Dense kernels [in, out] → Linear weights [out, in]; the projections of
+  a `MultiHeadDotProductAttention`, whose query / key / value kernels are
+  [C, NH, hd] (bias [NH, hd]) and whose out kernel is [NH, hd, C], fold
+  their head axes into the Linear's;
+- LayerNorm and GroupNorm scale / bias → weight / bias.
 
 The mapping is strict: every flax leaf is used once and every torch
 parameter and buffer is filled once, with its own shape; anything else
@@ -29,6 +34,7 @@ from torch import nn
 from efg_tpu_torch.modeling.backbones.rpn import Conv2d, ConvTranspose2d
 from efg_tpu_torch.modeling.backbones.sparse_net import SparseConvDown, SubMConv
 from efg_tpu_torch.modeling.common.norms import BatchNorm, MaskedBatchNorm
+from efg_tpu_torch.models.voxel_detr import MultiHeadDotProductAttention
 
 
 def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()):
@@ -64,10 +70,35 @@ def flax_to_state_dict(module: nn.Module, variables: Mapping[str, Any]) -> Dict[
             raise KeyError(f"{key} filled twice")
         sd[key] = value
 
+    def take_shaped(path, leaf, shape):
+        value = take("params", path + (leaf,))
+        if value.shape != tuple(shape):
+            raise ValueError(f"flax params/{'/'.join(path + (leaf,))}: shape {value.shape}, "
+                             f"expected {tuple(shape)}")
+        return value
+
+    heads = {}  # Linear module name → the head split of its MHA's kernels
+    for name, mod in module.named_modules():
+        if isinstance(mod, MultiHeadDotProductAttention):
+            d = mod.query.in_features
+            nh = mod.num_heads
+            for proj in ("query", "key", "value"):
+                heads[f"{name}.{proj}"] = ((d, nh, d // nh), (nh, d // nh))
+            heads[f"{name}.out"] = ((nh, d // nh, d), (d,))
+
     for name, mod in module.named_modules():
         path = tuple(name.split(".")) if name else ()
         pre = f"{name}." if name else ""
-        if isinstance(mod, (SubMConv, SparseConvDown)):
+        if isinstance(mod, nn.Linear):
+            k_shape, b_shape = heads.get(name, ((mod.in_features, mod.out_features),
+                                                (mod.out_features,)))
+            k = take_shaped(path, "kernel", k_shape)
+            put(pre + "weight", k.reshape(mod.in_features, mod.out_features).T)
+            put(pre + "bias", take_shaped(path, "bias", b_shape).reshape(-1))
+        elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):
+            put(pre + "weight", take("params", path + ("scale",)))
+            put(pre + "bias", take("params", path + ("bias",)))
+        elif isinstance(mod, (SubMConv, SparseConvDown)):
             put(pre + "weight", take("params", path + ("kernel",)))
             if getattr(mod, "bias", None) is not None:
                 put(pre + "bias", take("params", path + ("bias",)))

@@ -120,12 +120,20 @@ def test_env_interpolation_with_default(monkeypatch):
 
 
 def test_device_count_resolver_reads_torch(monkeypatch):
+    """`${device_count:}` counts the devices the run uses: 1, whatever
+    torch.cuda.device_count() says (0 on the CPU), as efg_tpu's
+    `jax.local_device_count()` reads 1 on one CPU device (the tests' conftest
+    forces 8 host devices, so it is not called here)."""
     import torch
 
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 3)
     cfg = {"n": "${device_count:}"}
     resolve_interpolations(cfg)
-    assert cfg["n"] == 3
+    assert cfg["n"] == 1
+    for count in (0, 3):
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: count)
+        cfg = {"n": "${device_count:}"}
+        resolve_interpolations(cfg)
+        assert cfg["n"] == 1
 
 
 def test_dotlist_overrides():

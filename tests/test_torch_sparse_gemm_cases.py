@@ -4,13 +4,17 @@ The plain versions of `fused_gather_gemm` and `gather_gemm_stacked`
 (efg_tpu_torch.ops.cuda.sparse_kernels) against efg_tpu's Pallas
 `fused_gather_gemm` (emit_stacked) in interpret mode, on small cases that
 plant what the Hopper kernel `csrc/gather_gemm.cu` has to get right: V_out
-around its 128-row tile, every (C, O) it takes, P of 1, 7, 9 and 18, tiles and
+around its 128-row tile, every (C, O) ≤ 128 it takes and the forward's
+C128·O256 and C256·O256 (ConQueR's res4), P of 1, 7, 9 and 18, tiles and
 calls without a flag, a lone tap, set flags on rows outside [0, V_in), and
 pos = V_in. A numpy model of the kernel's block schedule (tiles of 128 rows,
-steps of a pair or a tap, steps that no row of a tile needs skipped) is
-held on the same cases and on the trunk's rulebooks: every set flag whose
-row is in range is read by exactly one step that runs, no such step is
-skipped, and the steps that run give the plain version's result.
+steps of a pair, a tap or a tap's 64-channel part, steps that no row of a
+tile needs skipped, O = 256 split over two blocks of 128 columns) is held
+on the same cases and on the trunk's rulebooks: every set flag whose row
+is in range is read by exactly one step that runs in each column block, no
+such step is skipped, every output column is written by one block, and the
+steps that run give the plain version's result. The stacked and dW
+entries stop at 128 channels and say so.
 chip_smoke.py keeps its own copy of the cases (GEMM_EDGE_CASES) and runs
 them through both entries of the kernel on the card."""
 
@@ -103,6 +107,8 @@ GEMM_CASES = {
        for i, v in enumerate((1, GEMM_TM - 1, GEMM_TM, GEMM_TM + 1, 3 * GEMM_TM + 5))},
     **{f"width_{c}x{o}": functools.partial(_gemm_case, 40 + 4 * i + j, 200, c, o)
        for i, c in enumerate((16, 32, 64, 128)) for j, o in enumerate((16, 32, 64, 128))},
+    "width_128x256": functools.partial(_gemm_case, 56, 200, 128, 256),
+    "width_256x256": functools.partial(_gemm_case, 57, 200, 256, 256),
     "pairs_1": functools.partial(_gemm_case, 60, 300, 16, 16, n_pairs=1),
     "pairs_18": functools.partial(_gemm_case, 61, 300, 64, 32, n_pairs=18, v_in=150),
     "pairs_18_c16": functools.partial(_gemm_case, 68, 300, 16, 16, n_pairs=18),
@@ -118,6 +124,12 @@ GEMM_CASES = {
 }
 
 
+def wide(name):
+    """Whether a case is wider than the stacked and dW entries take."""
+    feats, _, w = GEMM_CASES[name]()
+    return max(feats.shape[1], w.shape[1]) > K.TAPS_CHANNELS
+
+
 def _close(got, want):
     want = np.asarray(want, np.float32)
     np.testing.assert_allclose(np.asarray(got, np.float32), want, rtol=0,
@@ -130,7 +142,9 @@ def test_plain_matches_pallas_on_case(name):
     emit_stacked (its [P·3·C, vt] buffer transposed): taps bit for bit, out
     at 1e-4·max|ref| (both sum exact bf16 products in f32; only the order
     differs). The Pallas grid takes pairs in groups of three, so P = 1 is
-    padded there with flag-off pairs and zero weights, which add nothing."""
+    padded there with flag-off pairs and zero weights, which add nothing.
+    At 256 channels the stacked wrapper refuses the call, so its plain
+    version is held alone."""
     feats, packed, w = GEMM_CASES[name]()
     n_pairs, v_out = packed.shape
     c, o = feats.shape[1], w.shape[1]
@@ -142,7 +156,8 @@ def test_plain_matches_pallas_on_case(name):
     want_st = np.asarray(want_st, np.float32)[:n_pairs * 3 * c, :v_out].T
     f, p, wt = torch.from_numpy(feats), torch.from_numpy(packed), torch.from_numpy(w)
     K.reset_launches()
-    got_out, got_st = K.gather_gemm_stacked(f, p, wt)
+    stacked = K.gather_gemm_stacked_plain if wide(name) else K.gather_gemm_stacked
+    got_out, got_st = stacked(f, p, wt)
     got_fwd = K.fused_gather_gemm(f, p, wt)
     assert got_st.dtype == torch.bfloat16 and got_st.shape == (v_out, n_pairs * 3 * c)
     np.testing.assert_array_equal(got_st.float().numpy(), want_st)
@@ -196,8 +211,15 @@ def test_model_follows_the_kernel_source():
     src = (ROOT / "efg_tpu_torch" / "csrc" / "gather_gemm.cu").read_text()
     assert int(re.search(r"constexpr int kTM = (\d+);", src).group(1)) == GEMM_TM
     for line in ("TAPS = C <= 32 ? 3 : 1;", "KC = C < 64 ? C : 64;", "CHUNKS = C / KC;",
-                 "SPP = 3 / TAPS * CHUNKS;", "KS = TAPS * KC;"):
+                 "SPP = 3 / TAPS * CHUNKS;", "KS = TAPS * KC;", "OSPLIT = O > 128 ? 2 : 1;"):
         assert f"static constexpr int {line}" in src, line
+    assert step_plan(256) == (1, 64, 4, 12) and column_blocks(256) == (2, 128)
+
+
+def column_blocks(o):
+    """(blocks a tile, columns of each) of gather_gemm.cu at width O."""
+    split = 2 if o > 128 else 1
+    return split, o // split
 
 
 def step_plan(c):
@@ -240,35 +262,43 @@ def _tap_rows(packed, v_in):
 def check_schedule(feats, packed, w):
     """Hold the model on one call (inputs rounded to bf16, as the plain
     version rounds them; the model sums in f64); returns (steps run, steps
-    in all)."""
+    in all), counted over every block (a tile × a column block)."""
     v_in, c = feats.shape
     n_pairs, v_out = packed.shape
+    o = w.shape[1]
     taps, kc, _, _ = step_plan(c)
+    _, width = column_blocks(o)
     feats, w = (torch.from_numpy(a).to(torch.bfloat16).double().numpy() for a in (feats, w))
     rows, live = _tap_rows(packed, v_in)
-    out = np.zeros((v_out, w.shape[1]), np.float64)
+    out = np.zeros((v_out, o), np.float64)
+    written = np.zeros((v_out, o), np.int32)
     wk = w.reshape(n_pairs, 3, c, -1).astype(np.float64)
     ran = total = 0
     for row0, steps in block_schedule(packed, c):
         r1 = min(row0 + GEMM_TM, v_out)
-        cover = np.zeros((n_pairs, 3, c), np.int32)  # reads of each (pair, tap, channel)
-        every = np.zeros((n_pairs, 3, c), np.int32)  # and of every step, run or not
-        for p, t0, ch, runs in steps:
-            sl = (p, slice(t0, t0 + taps), slice(ch * kc, ch * kc + kc))
-            every[sl] += 1
-            total += 1
-            if not runs:
-                assert not live[p, row0:r1, t0:t0 + taps].any(), "a step with a live tap skipped"
-                continue
-            ran += 1
-            cover[sl] += 1
-            for t in range(t0, t0 + taps):  # the step's product, as the kernel forms it
-                on = live[p, row0:r1, t]
-                a = np.where(on[:, None], feats[np.clip(rows[p, row0:r1, t], 0, v_in - 1)], 0)
-                out[row0:r1] += a[:, ch * kc:ch * kc + kc] @ wk[p, t, ch * kc:ch * kc + kc]
-        assert (every == 1).all(), "the steps do not partition the stacked row"
-        need = live[:, row0:r1].any(axis=1)  # [P, 3]: taps some row of the tile reads
-        assert (cover[need] == 1).all(), "a live tap read not exactly once"
+        for col0 in range(0, o, width):  # the blocks of one tile, side by side over O
+            cols = slice(col0, col0 + width)
+            cover = np.zeros((n_pairs, 3, c), np.int32)  # reads of each (pair, tap, channel)
+            every = np.zeros((n_pairs, 3, c), np.int32)  # and of every step, run or not
+            for p, t0, ch, runs in steps:
+                sl = (p, slice(t0, t0 + taps), slice(ch * kc, ch * kc + kc))
+                every[sl] += 1
+                total += 1
+                if not runs:
+                    assert not live[p, row0:r1, t0:t0 + taps].any(), "a step with a live tap skipped"
+                    continue
+                ran += 1
+                cover[sl] += 1
+                for t in range(t0, t0 + taps):  # the step's product, as the kernel forms it
+                    on = live[p, row0:r1, t]
+                    a = np.where(on[:, None], feats[np.clip(rows[p, row0:r1, t], 0, v_in - 1)], 0)
+                    out[row0:r1, cols] += (a[:, ch * kc:ch * kc + kc]
+                                           @ wk[p, t, ch * kc:ch * kc + kc, cols])
+            written[row0:r1, cols] += 1
+            assert (every == 1).all(), "the steps do not partition the stacked row"
+            need = live[:, row0:r1].any(axis=1)  # [P, 3]: taps some row of the tile reads
+            assert (cover[need] == 1).all(), "a live tap read not exactly once"
+    assert (written == 1).all(), "an output element not written by exactly one block"
     ref = K.gather_gemm_plain(torch.from_numpy(feats).double(), torch.from_numpy(packed),
                               torch.from_numpy(w).double()).numpy()
     np.testing.assert_allclose(out, ref, rtol=0, atol=1e-5 * max(np.abs(ref).max(initial=0), 1))
@@ -284,10 +314,27 @@ def test_block_schedule_on_case(name):
         assert ran == 0
     if name == "middle_only":  # 3 of 27 taps, two 64-channel halves each
         assert (ran, total) == (2 * 3 * -(-300 // GEMM_TM), 54 * -(-300 // GEMM_TM))
+    if name == "width_256x256":  # 12 steps a pair, each tile twice (two column blocks)
+        assert total == 2 * 9 * 12 * -(-200 // GEMM_TM)
+
+
+@pytest.mark.parametrize("entry", ["gather_gemm_stacked", "fused_gather_dw"])
+@pytest.mark.parametrize("c,o", [(256, 256), (128, 256), (256, 64)])
+def test_taps_entries_refuse_256(entry, c, o):
+    """The stacked and dW entries take C, O ≤ 128 (their 256-channel
+    kernels are ROADMAP queue 2) on either device; the forward takes 256."""
+    rs = np.random.RandomState(c + o)
+    f = torch.from_numpy(rs.randn(40, c).astype(np.float32))
+    p = torch.zeros(9, 40, dtype=torch.int32)
+    second = torch.zeros(27 * c, o) if entry == "gather_gemm_stacked" else torch.zeros(40, o)
+    with pytest.raises(ValueError, match=r"at most 128 channels.*ROADMAP queue 2 item 1"):
+        getattr(K, entry)(f, p, second)
+    assert K.fused_gather_gemm(f, p, torch.zeros(27 * c, o)).shape == (40, o)
 
 
 @pytest.mark.parametrize("kind,c", [("subm", 16), ("subm", 64), ("strided", 128),
-                                    ("strided_311", 128), ("inverse", 32), ("inverse", 128)])
+                                    ("strided_311", 128), ("inverse", 32), ("inverse", 128),
+                                    ("subm", 256), ("strided_311", 256)])
 def test_block_schedule_on_rulebooks(kind, c):
     """The model on the rulebooks the port builds for a trunk's convs: SubM,
     a (3,3,3) stride-2 conv, the (3,1,1) conv (two dummy pairs in each group
