@@ -26,10 +26,10 @@ either. Phases (each prints JSON lines; any failure exits 1):
              each rank and gather-GEMM call is also captured in CUDA graphs
              for its device time and its kernel count (one), the rank calls
              beside torch.searchsorted's. The gather-GEMM's hazard cases
-             GEMM_EDGE_CASES run through both entries of gather_gemm.cu,
-             and of gather_gemm_g3.cu where its gate admits them, against
-             the plain versions (out within 1e-3·max|ref|, stacked taps bit
-             for bit).
+             GEMM_EDGE_CASES (every width up to 256) run through both
+             entries of gather_gemm.cu, and of gather_gemm_g3.cu where its
+             gate admits them, against the plain versions (out within
+             1e-3·max|ref|, stacked taps bit for bit).
 4. breakdown — one bs=4 step stage by stage (voxelize + VFE, sparse trunk,
              RPN, head, decode, post-processing, and the NMS IoU matrix and
              greedy loop), CUDA-event medians.
@@ -124,6 +124,22 @@ either. Phases (each prints JSON lines; any failure exits 1):
              (rulebooks equal, outputs within 3e-2, launches counted);
              task=val of the synthetic ConQueR experiment through the CLI
              (finite waymo/* results, launches = batches × per forward).
+14. detr_train — ConQueR trains at bench.py's widths with its loss and
+             solver (CDN dn_number 3, the Hungarian matcher on the host, the
+             momentum GT decoder, query contrast; clip 10 + AdamW 1e-3), bs 2
+             of 160k-point clouds with 161 GT boxes a frame: a warm-up and 3
+             timed steps (CUDA events; frames/s, peak memory, the matcher's
+             host ms, launches a step: rank 18, gather-GEMM 13 + 5 at 256,
+             stacked 12 + 5 at 256, dW 0); every stacked gather of one step
+             against its plain version on the card (taps bit for bit, out
+             within 1e-3·max|ref|; the 5 at 256 channels are the kernels
+             line's `gather_gemm_stacked_256` row, beside the dense f32 dW
+             after them); a small ConQueR one step on the card against the
+             CPU from the same weights and noise (assignments equal up to
+             ties, loss parts within 5e-2, step-1 gradients by direction,
+             the EMA decoder exact); task=train of the synthetic ConQueR
+             experiment through the CLI (20 iterations, finite losses,
+             launches = 20 × per step, the EMA state in model_final).
 
 The second-to-last line lists every kernel as JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", ...}}.
@@ -190,7 +206,7 @@ TRAIN_STEPS = 3  # timed, after one warm-up step
 # cout is a multiple of 16, so dW always comes from the stacked taps; no
 # width is 256, and the switched kernels are off)
 NO_VARIANTS = {"rank_flags_seq4": 0, "rank_flags_hostwin": 0, "gather_gemm_g3": 0,
-               "gather_gemm_g3_stacked": 0, "gather_gemm_256": 0}
+               "gather_gemm_g3_stacked": 0, "gather_gemm_256": 0, "gather_gemm_stacked_256": 0}
 SERVE_LAUNCHES = {"rank_flags": 8, "gather_gemm": 21, "gather_gemm_stacked": 0, "gather_dw": 0,
                   **NO_VARIANTS}
 TRAIN_LAUNCHES = {"rank_flags": 12, "gather_gemm": 21, "gather_gemm_stacked": 21, "gather_dw": 0,
@@ -279,6 +295,29 @@ DETR_SMALL = dict(DETR, pc_range=(-12.8, -12.8, -2.0, 12.8, 12.8, 4.0), max_voxe
 # (phase check's tolerance on the same trunk)
 DETR_TOL = 3e-2
 DETR_CONFIG = "playground/detection.3d/synthetic/conquer.synth.res18/config.yaml"
+
+# phase detr_train: bench.py bench_conquer's loss and solver (:129-138):
+# CDN with dn_number 3, the Hungarian matcher, the momentum GT decoder and
+# query contrast; clip 10 + AdamW 1e-3 (optax's defaults: betas (0.9,
+# 0.999), eps 1e-8, weight decay 1e-4); bs 2 of the flagship's 160k-point
+# clouds with 161 GT boxes a frame (max_gt 256, as __graft_entry__._batch)
+DETR_TRAIN_CFG = dict(
+    loss_weights={"class": 1.0, "bbox": 4.0, "giou": 2.0, "rad": 4.0},
+    dn=dict(enabled=True, dn_number=3, dn_box_noise_scale=0.4, dn_label_noise_ratio=0.5),
+    contrastive=dict(mom=0.999, dim=256, eqco=1000, tau=0.7, loss_coeff=0.2))
+DETR_TRAIN_BATCH = (2, 311)  # (batch size, cloud seed)
+DETR_TRAIN_MAX_GT = 256
+DETR_TRAIN_STEPS = 3  # timed, after one warm-up step
+# launches per ConQueR training step: the forward's (11 rulebooks, 13 + 5
+# gather-GEMMs), 7 inverse rulebooks (the strided convs whose output gets
+# a gradient: all but res2's out conv, which FPN p3 does not read) and a
+# stacked gather per conv backward: 17 (res2_out has none), 5 of them at
+# 256 channels (res4 `down` over its inverse rulebook at C256·O128; its
+# three SubM convs and its out conv at C256·O256). No dW kernel: every
+# cout is a multiple of 16.
+DETR_TRAIN_LAUNCHES = {**DETR_SERVE_LAUNCHES, "rank_flags": 18, "gather_gemm_stacked": 12,
+                       "gather_gemm_stacked_256": 5}
+DETR_TRAIN_ITERS = 20  # the synthetic experiment's max_iters
 
 
 def emit(obj) -> None:
@@ -1196,10 +1235,10 @@ def _gemm_agrees(name, out, ref_out, st=None, ref_st=None):
 
 def gemm_edge_cases():
     """GEMM_EDGE_CASES on the card through both entries of gather_gemm.cu
-    (the forward alone above 128 channels, where the stacked entry must
-    refuse the call), and of gather_gemm_g3.cu where efg_tpu's g3 gate
-    admits the case, each against the plain versions; returns a row per
-    case."""
+    (the 256-wide cases too: the stacked entry's two blocks a tile over O,
+    of which the first writes the taps), and of gather_gemm_g3.cu where
+    efg_tpu's g3 gate admits the case, each against the plain versions;
+    returns a row per case."""
     import torch
 
     from efg_tpu_torch.ops.cuda import sparse_kernels as K
@@ -1218,27 +1257,14 @@ def gemm_edge_cases():
         for kernel, g3 in (("gather_gemm", False), ("gather_gemm_g3", True)):
             if g3 and not admitted:
                 continue
-            wide = max(f.shape[1], w.shape[1]) > K.TAPS_CHANNELS
             with switches(K, g3=g3):
                 out = K.fused_gather_gemm(f, p, w)
-                if wide:
-                    try:
-                        K.gather_gemm_stacked(f, p, w)
-                    except ValueError:
-                        st_out = None
-                    else:
-                        raise AssertionError(f"{kernel}_stacked took case {name}")
-                else:
-                    st_out, st = K.gather_gemm_stacked(f, p, w)
+                st_out, st = K.gather_gemm_stacked(f, p, w)
             torch.cuda.synchronize()
             err, scale = _gemm_agrees(f"{kernel} case {name}", out, ref_out)
-            row[kernel] = {"max_abs_err": err}
-            if st_out is not None:
-                err_st, _ = _gemm_agrees(f"{kernel}_stacked case {name}", st_out, ref_out, st,
-                                         ref_st)
-                row[kernel].update(max_abs_err_stacked=err_st, taps_bit_exact=True)
-            else:
-                row[kernel]["stacked"] = "refused above 128 channels"
+            err_st, _ = _gemm_agrees(f"{kernel}_stacked case {name}", st_out, ref_out, st, ref_st)
+            row[kernel] = {"max_abs_err": err, "max_abs_err_stacked": err_st,
+                           "taps_bit_exact": True}
             row["max_ref"] = scale
         rows.append(row)
     return rows
@@ -1834,10 +1860,10 @@ class LoopProbe:
         self._orig = (T.train_step, P.DevicePrefetcher.__next__)
         step0, next0 = self._orig
 
-        def step(*args):
+        def step(*args, **kwargs):
             a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             a.record()
-            out = step0(*args)
+            out = step0(*args, **kwargs)
             b.record()
             self.step_events.append((a, b))
             return out
@@ -2071,10 +2097,10 @@ class EvalProbe:
         step0, evaluate0, iter0, process0, wevaluate0 = self._orig
         probe = self
 
-        def step(*args):
+        def step(*args, **kwargs):
             a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             a.record()
-            out = step0(*args)
+            out = step0(*args, **kwargs)
             b.record()
             probe.step_events.append((a, b))
             return out
@@ -2618,6 +2644,423 @@ def phase_detr_check():
         raise AssertionError(f"detr check: voxels equal {vox_equal}, rulebooks equal {rb_equal}")
 
 
+def make_detr_train(kw, device, seed=DETR_SEED):
+    """ConQueR's training ModelDef (custom loss, EMA decoder) for widths
+    `kw` with DETR_TRAIN_CFG, weights as `make_detr`'s."""
+    import torch
+
+    from efg_tpu_torch.models import conquer as CQ
+
+    cfg = dict(DETR_TRAIN_CFG, pc_range=kw["pc_range"], voxel_size=kw["voxel_size"])
+    md = CQ.make_model_def(kw, cfg, device="cpu")
+    seeded_weights(md.module, seed)
+    md.module.to(torch.device(device))
+    return md, cfg
+
+
+def detr_train_batch(bsz: int, seed: int, device="cuda", n_points: int = N_POINTS,
+                     pc: float = 70.0, max_gt: int = DETR_TRAIN_MAX_GT) -> dict:
+    import torch
+
+    frames = lidar_frames(n_points, bsz, seed, pc=pc, max_gt=max_gt)
+    batch = {k: torch.from_numpy(v).to(device) for k, v in frames.items()}
+    batch["points_mask"] = torch.ones(batch["points"].shape[:2], dtype=torch.bool, device=device)
+    return batch
+
+
+def detr_solver():
+    from efg_tpu_torch.solver.optimizers import AdamW
+
+    return AdamW(lr_schedule=lambda k: 1e-3, weight_decay=1e-4, betas=(0.9, 0.999), eps=1e-8,
+                 max_norm=10.0)
+
+
+class MatcherProbe:
+    """Wraps voxel_detr's matcher: the host milliseconds of every solve
+    (the costs' copy to the host, scipy, the copy back) and, with `record`,
+    its inputs and assignment."""
+
+    def __init__(self, record: bool = False):
+        self.record = record
+        self.ms, self.calls = [], []
+
+    def __enter__(self):
+        from efg_tpu_torch.models import voxel_detr as VD
+
+        self._orig = VD.hungarian_match
+
+        def match(cost, gt_mask):
+            t0 = time.perf_counter()
+            out = self._orig(cost, gt_mask)
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            if self.record:
+                self.calls.append((cost.detach().float().cpu(), gt_mask.cpu(), out.cpu()))
+            return out
+
+        VD.hungarian_match = match
+        return self
+
+    def __exit__(self, *exc):
+        from efg_tpu_torch.models import voxel_detr as VD
+
+        VD.hungarian_match = self._orig
+        return False
+
+
+class StackedCapture:
+    """Records every stacked gather-GEMM call of a backward (its inputs)
+    and the features of the dense dW product after it (`stacked_weight_grad`,
+    one a stacked call, in the same order)."""
+
+    def __init__(self, K):
+        self.K = K
+        self.stacked, self.dw_features = [], []
+
+    def __enter__(self):
+        K = self.K
+        self._orig = (K.gather_gemm_stacked, K.stacked_weight_grad)
+        st0, dw0 = self._orig
+
+        def stacked(features, packed, weights):
+            self.stacked.append((features.clone(), packed.clone(), weights.clone()))
+            return st0(features, packed, weights)
+
+        def dw(st, features):
+            self.dw_features.append(features.clone())
+            return dw0(st, features)
+
+        K.gather_gemm_stacked, K.stacked_weight_grad = stacked, dw
+        return self
+
+    def __exit__(self, *exc):
+        self.K.gather_gemm_stacked, self.K.stacked_weight_grad = self._orig
+        return False
+
+
+def phase_detr_train(card: str, device="cuda", kw=DETR, n_points=N_POINTS):
+    """ConQueR / Voxel-DETR training on the card (DETR: bench.py's widths;
+    DETR_TRAIN_CFG: its loss and solver):
+    (a) a warm-up step and DETR_TRAIN_STEPS timed steps at bs 2 through
+        `train_step` (CUDA events): frames/s, peak memory, the matcher's
+        host ms a step, launches a step held to DETR_TRAIN_LAUNCHES; then
+        one step timed part by part (forward with the matcher, losses and
+        momentum decoder; backward; optimizer; EMA update);
+    (b) one more step with its stacked gathers captured, each rerun through
+        the kernel and its plain version (taps bit for bit, out within
+        1e-3·max|ref|), with times, device times and bounds; the 5 at 256
+        channels are the kernels line's `gather_gemm_stacked_256` row,
+        beside the dense f32 dW after them (the library part of the route);
+    (c) a small ConQueR trains one step on the card and on the CPU from the
+        same weights, batch and denoising noise (`phase_detr_train_check`);
+    (d) the synthetic ConQueR experiment through the CLI, task=train, its
+        20 iterations (`phase_detr_cli_train`).
+    Returns the kernels-line row. A rehearsal on the CPU (`device="cpu"`,
+    smaller `kw` and `n_points`, torch.cuda.Event swapped for a host-clock
+    stand-in, DETR_TRAIN_LAUNCHES zeroed) runs (a) and (d)."""
+    import torch
+
+    from efg_tpu_torch.engine.trainer import apply_grads, init_state, step_generator, train_step
+    from efg_tpu_torch.ops.cuda import sparse_kernels as K
+
+    on_card = device == "cuda"
+    md, _ = make_detr_train(kw, device)
+    tx = detr_solver()
+    state = init_state(md, tx)
+    batch = detr_train_batch(*DETR_TRAIN_BATCH, device, n_points)
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    timed_ms, counts = [], None
+    for i in range(DETR_TRAIN_STEPS + 1):
+        K.reset_launches()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with MatcherProbe() as matcher:
+            start.record()
+            metrics = train_step(md, tx, state, batch, seed=SEED)
+            end.record()
+            if on_card:
+                torch.cuda.synchronize()
+        counts = dict(K.launches)
+        ms = start.elapsed_time(end)
+        if i > 0:
+            timed_ms.append(ms)
+        vals = {k: float(v) for k, v in metrics.items()}
+        emit({"phase": "detr_train", "part": "step", "step": i,
+              "kind": "warm-up" if i == 0 else "timed", "batch_size": DETR_TRAIN_BATCH[0],
+              "points_per_cloud": n_points,
+              "gt_boxes_per_frame": int(batch["gt_mask"][0].sum()),
+              "step_ms_cuda_events": ms,
+              "train_frames_per_s": DETR_TRAIN_BATCH[0] / ms * 1e3,
+              "matcher_host_ms": sum(matcher.ms), "matcher_solves": len(matcher.ms),
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30 if on_card else None,
+              "losses": vals, "launches": counts, "card": card})
+        if not all(np.isfinite(v) for v in vals.values()):
+            raise AssertionError(f"detr_train step {i}: non-finite losses {vals}")
+        if counts != DETR_TRAIN_LAUNCHES:
+            raise AssertionError(f"detr_train step {i}: launches {counts}, "
+                                 f"expected {DETR_TRAIN_LAUNCHES}")
+    emit({"phase": "detr_train", "part": "summary", "batch_size": DETR_TRAIN_BATCH[0],
+          "timed_step_ms": timed_ms, "median_step_ms": float(np.median(timed_ms)),
+          "train_frames_per_s": DETR_TRAIN_BATCH[0] / float(np.median(timed_ms)) * 1e3,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30 if on_card else None,
+          "launches_per_step": counts, "card": card})
+
+    # one more step, split into the parts train_step runs
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    module = state.module
+    for q in module.parameters():
+        q.grad = None
+    with MatcherProbe() as matcher:
+        ev[0].record()
+        _, losses = md.custom_loss(module, state.ema, batch,
+                                   step_generator(SEED, state.step, batch["points"].device))
+        ev[1].record()
+    losses["loss"].backward()
+    ev[2].record()
+    apply_grads(tx, state)
+    ev[3].record()
+    md.ema_update(state.ema, module)
+    ev[4].record()
+    if on_card:
+        torch.cuda.synchronize()
+    parts = ("forward_matcher_losses", "backward", "optimizer", "ema_update")
+    emit({"phase": "detr_train", "part": "breakdown", "batch_size": DETR_TRAIN_BATCH[0],
+          "part_ms_cuda_events": {n: ev[j].elapsed_time(ev[j + 1]) for j, n in enumerate(parts)},
+          "matcher_host_ms": sum(matcher.ms), "step_ms": ev[0].elapsed_time(ev[4]),
+          "loss": float(losses["loss"].detach()), "card": card})
+
+    row = None
+    if on_card:  # (b) one more step, its stacked gathers captured
+        with StackedCapture(K) as capture:
+            train_step(md, tx, state, batch, seed=SEED)
+        del md, state, tx, batch
+        row = phase_detr_train_kernels(capture, counts, card)
+        del capture
+        torch.cuda.empty_cache()
+        phase_detr_train_check()
+    phase_detr_cli_train(card, device)
+    return row
+
+
+def phase_detr_train_kernels(capture, counts, card: str):
+    """(b) of phase detr_train: every stacked gather of one step through the
+    kernel and its plain version on the card; the 256-wide ones also
+    through the dense f32 dW product after them. Returns the kernels-line
+    row of the 256-wide calls."""
+    import torch
+
+    from efg_tpu_torch.ops.cuda import sparse_kernels as K
+
+    n_wide = DETR_TRAIN_LAUNCHES["gather_gemm_stacked_256"]
+    calls = capture.stacked
+    if len(calls) != len(capture.dw_features) or len(calls) != (
+            n_wide + DETR_TRAIN_LAUNCHES["gather_gemm_stacked"]):
+        raise AssertionError(f"detr_train: {len(calls)} stacked calls and "
+                             f"{len(capture.dw_features)} dense dW products captured")
+    rows, rows_256 = [], []
+    for j, ((g, packed, w), feats) in enumerate(zip(calls, capture.dw_features)):
+        label = f"stacked{j} C{g.shape[1]}xO{w.shape[1]} P{packed.shape[0]}"
+        row, st = _gemm_row(label, g, packed, w, emit=True)
+        if max(g.shape[1], w.shape[1]) == 256:
+            dw = functools.partial(K.stacked_weight_grad, st, feats)
+            row["library_ms"] = timed(dw)
+            row["library_device_ms"] = graph_device(dw)["device_ms"]
+            rows_256.append(row)
+        rows.append(row)
+        del st
+        torch.cuda.empty_cache()
+    if len(rows_256) != n_wide:
+        raise AssertionError(f"detr_train: {len(rows_256)} stacked calls at 256 channels, "
+                             f"expected {n_wide}")
+    row = kernel_row("gather_gemm_stacked_256", "gather_gemm.cu", 259,
+                     counts["gather_gemm_stacked_256"], rows_256,
+                     tolerance="taps bit-exact, out 1e-3 * max|ref|", card=card,
+                     per="sum over the 5 stacked calls at 256 channels of one bs=2 ConQueR "
+                         "training step",
+                     library_call="torch.matmul(stacked.t().float(), features.float()): the "
+                                  "dense f32 dW after each call (K.stacked_weight_grad)")
+    keys = ("label", "C", "O", "P", "V_in", "V_out", "taps_found", "ms", "device_ms",
+            "bound_ms", "bytes_ms", "ops_ms", "plain_ms", "max_abs_err")
+    emit({"phase": "detr_train", "part": "kernels", "summary": row,
+          "stacked_256": [{k: r[k] for k in keys + ("library_ms", "library_device_ms")}
+                          for r in rows_256],
+          "stacked_le128": [{k: r[k] for k in keys} for r in rows if r not in rows_256],
+          "stacked_le128_ms": sum(r["ms"] for r in rows if r not in rows_256),
+          "stacked_le128_device_ms": sum(r["device_ms"] for r in rows if r not in rows_256)})
+    return row
+
+
+# leaves whose gradient is zero or rounding noise: conv biases before a
+# train-mode BN, the attention key biases (softmax ignores a shift), the
+# biases before a GroupNorm, and res2's out conv and FPN path (p3 reads
+# neither)
+DETR_ZERO_GRAD = re.compile(r"(\.b1\.conv[12]\.bias|input_proj_p3\.bias|output_res3_norm\.bias|"
+                            r"self_attn\.key\.bias|res2_out|_res2|output_res4)")
+DETR_TRAIN_TOL = 5e-2  # relative, the loss parts card vs CPU (bf16 trunk, DETR_TOL's roundings)
+
+
+def phase_detr_train_check():
+    """(c) of phase detr_train: DETR_SMALL trains one step on the card and on
+    the CPU (plain versions) from the same weights, batch and denoising
+    noise: the matcher's assignments (matched cells, through each layer's
+    top-k) equal where the top-k sets are, and otherwise optimal within
+    DETR_TRAIN_TOL under the CPU's costs; each loss part within
+    DETR_TRAIN_TOL; step 1's gradient of every leaf by direction
+    (CHECK_LEAF_TOL, as train_check); on the card the EMA decoder moves as
+    e·mom + p·(1 − mom), bit for bit."""
+    import torch
+
+    from efg_tpu_torch.engine.train_state import ModelDef
+    from efg_tpu_torch.engine.trainer import init_state, train_step
+    from efg_tpu_torch.models import conquer as CQ
+    from efg_tpu_torch.models import voxel_detr as VD
+
+    b, g_max = 2, 64
+    dn = DETR_TRAIN_CFG["dn"]["dn_number"]
+    gen = torch.Generator().manual_seed(SEED)
+    p = 2 * g_max * dn
+    noise = dict(flip=torch.rand((b, p), generator=gen) < 0.25,
+                 rand_lbl=torch.randint(0, 3, (b, p), generator=gen),
+                 sign=torch.randint(0, 2, (b, p, 7), generator=gen).float() * 2 - 1,
+                 rand=torch.rand((b, p, 7), generator=gen))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        md, cfg = make_detr_train(DETR_SMALL, dev)
+        nz = {k: v.to(dev) for k, v in noise.items()}
+        topk = []
+        compute_loss = VD.compute_loss
+
+        def loss_capturing_topk(preds, batch, **kw):
+            topk.append(preds["topk_idx"].cpu())
+            return compute_loss(preds, batch, **kw)
+
+        def custom_loss(mod, ema, batch, generator, cfg=cfg, nz=nz):
+            return CQ.conquer_train_loss(mod, ema, batch, generator, model_cfg=cfg,
+                                         noise_override=nz)
+
+        md2 = ModelDef(md.module, md.apply_args, md.loss_fn, md.predict_fn,
+                       custom_loss=custom_loss, ema_init=md.ema_init, ema_update=md.ema_update)
+        state = init_state(md2, detr_solver())
+        batch = detr_train_batch(b, 305, dev, n_points=20000, pc=12.0, max_gt=g_max)
+        ema_before = {k: v.clone() for k, v in state.ema.items()}
+        VD.compute_loss = loss_capturing_topk
+        try:
+            with MatcherProbe(record=True) as matcher:
+                metrics = train_step(md2, detr_solver(), state, batch, seed=SEED)
+        finally:
+            VD.compute_loss = compute_loss
+        grads = {n: q.grad.float().cpu() for n, q in md.module.named_parameters()
+                 if q.grad is not None}
+        ema_ok = all(torch.equal(e, ema_before[n] * DETR_TRAIN_CFG["contrastive"]["mom"]
+                                 + dict(md.module.detr.decoder.named_parameters())[n]
+                                 * (1.0 - DETR_TRAIN_CFG["contrastive"]["mom"]))
+                     for n, e in state.ema.items())
+        runs[dev] = dict(losses={k: float(v) for k, v in metrics.items()}, grads=grads,
+                         matcher=matcher.calls, topk=topk[0], ema_ok=ema_ok)
+    cpu, card = runs["cpu"], runs["cuda"]
+    (cost_c, mask, a_c), = cpu["matcher"]
+    (_, _, a_g), = card["matcher"]
+    k_layers = a_c.shape[0] // b
+    equal = near = compared = 0
+    worst_gap = 0.0
+    for k in range(k_layers):
+        for s in range(b):
+            i = k * b + s
+            ok = mask[i]
+            cells_c = cpu["topk"][s][a_c[i][ok]]
+            cells_g = card["topk"][s][a_g[i][ok]]
+            if set(cpu["topk"][s].tolist()) != set(card["topk"][s].tolist()):
+                continue
+            compared += 1
+            if torch.equal(cells_c, cells_g):
+                equal += 1
+                continue
+            # the card's matched cells as the CPU's query slots, costed under the CPU's costs
+            slot = {int(c): j for j, c in enumerate(cpu["topk"][s])}
+            a_alt = torch.tensor([slot[int(c)] for c in cells_g])
+            cols = torch.nonzero(ok).flatten()
+            c_cpu = float(cost_c[i][a_c[i][ok], cols].sum())
+            c_alt = float(cost_c[i][a_alt, cols].sum())
+            gap = (c_alt - c_cpu) / max(abs(c_cpu), 1e-6)
+            worst_gap = max(worst_gap, gap)
+            near += gap <= DETR_TRAIN_TOL
+    loss_rel = {k: abs(card["losses"][k] - v) / max(abs(v), 1e-6)
+                for k, v in cpu["losses"].items()}
+    leaf_rel = {n: float((card["grads"][n] - gv).norm() / max(float(gv.norm()), 1e-30))
+                for n, gv in cpu["grads"].items() if not DETR_ZERO_GRAD.search(n)}
+    worst_leaves = sorted(leaf_rel.items(), key=lambda x: -x[1])[:8]
+    emit({"phase": "detr_train", "part": "check", "assignments_compared": compared,
+          "assignments_equal": equal, "assignments_optimal_within_tol": near,
+          "worst_assignment_cost_gap": worst_gap, "loss_rel": loss_rel,
+          "grad_leaves": len(leaf_rel), "grad_worst_rel_l2": worst_leaves,
+          "ema_update_exact": card["ema_ok"], "tolerance": DETR_TRAIN_TOL,
+          "leaf_tolerance": CHECK_LEAF_TOL})
+    bad = [k for k, v in loss_rel.items() if k != "grad_norm" and not v <= DETR_TRAIN_TOL]
+    if not compared or equal + near != compared or bad or not card["ema_ok"] \
+            or set(card["grads"]) != set(cpu["grads"]) \
+            or any(not v <= CHECK_LEAF_TOL for v in leaf_rel.values()):
+        raise AssertionError(f"detr_train check: assignments {equal}+{near}/{compared}, losses "
+                             f"above tolerance {bad}, EMA exact {card['ema_ok']}, leaves "
+                             f"{worst_leaves[:3]}")
+
+
+def phase_detr_cli_train(card: str, device="cuda", small=()):
+    """(d) of phase detr_train: the synthetic ConQueR experiment through the
+    CLI, task=train, its DETR_TRAIN_ITERS iterations (its evaluator off:
+    phase detr evaluates it): records 1-20 with finite losses, launches =
+    20 × DETR_TRAIN_LAUNCHES, model_final holding the EMA decoder."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from efg_tpu_torch.cli import main as cli
+    from efg_tpu_torch.ops.cuda import sparse_kernels as K
+
+    cache = tempfile.mkdtemp(prefix="chip_smoke_detr_train_")
+    old_cache = os.environ.get("EFG_CACHE_DIR")
+    try:
+        os.environ["EFG_CACHE_DIR"] = cache
+        argv = ["task=train", "trainer.evaluators=", "trainer.log_interval=1", *small]
+        K.reset_launches()
+        t0 = time.perf_counter()
+        with LoopProbe() as probe:
+            rc = cli.main(["--config", os.path.join(HERE, DETR_CONFIG), "--device", device,
+                           *argv])
+        wall_s = time.perf_counter() - t0
+        counts = dict(K.launches)
+        out = os.path.join(cache, "EFG_torch", os.path.dirname(DETR_CONFIG).split(
+            "playground/", 1)[1])
+        with open(os.path.join(out, "metrics.json")) as f:
+            records = {int(r["iteration"]): r for r in map(json.loads, f) if "loss" in r}
+        ckpt = torch.load(os.path.join(out, "model_final"), map_location="cpu",
+                          weights_only=True)
+        iters = len(records)
+        expected = _steps_of(DETR_TRAIN_LAUNCHES, DETR_TRAIN_ITERS)
+        finite = all(np.isfinite(r["loss"]) for r in records.values())
+        emit({"phase": "detr_train", "part": "cli_train", "config": DETR_CONFIG, "rc": rc,
+              "iterations": sorted(records), "wall_s": wall_s,
+              "step_ms_cuda_events": probe.step_ms() if device == "cuda" else None,
+              "data_ms": [1e3 * x for x in probe.data_s],
+              "loss_first_last": [records[min(records)]["loss"], records[max(records)]["loss"]],
+              "finite": finite, "checkpoint_ema_leaves": len(ckpt.get("ema", {})),
+              "checkpoint_step": ckpt["step"], "launches": counts,
+              "launches_expected": expected, "card": card})
+        if rc != 0 or sorted(records) != list(range(1, DETR_TRAIN_ITERS + 1)) or not finite:
+            raise AssertionError(f"detr cli train: rc {rc}, records {sorted(records)}, "
+                                 f"finite {finite}")
+        if not ckpt.get("ema") or ckpt["step"] != DETR_TRAIN_ITERS:
+            raise AssertionError("detr cli train: model_final holds no EMA state or a wrong step")
+        if counts != expected:
+            raise AssertionError(f"detr cli train: launches {counts}, expected {expected}")
+    finally:
+        if old_cache is None:
+            os.environ.pop("EFG_CACHE_DIR", None)
+        else:
+            os.environ["EFG_CACHE_DIR"] = old_cache
+        shutil.rmtree(cache, ignore_errors=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -2657,6 +3100,7 @@ def main() -> int:
         phase_engine(card, bare_step_ms)
         phase_eval(card)
         detr = phase_detr(card)
+        detr_train = phase_detr_train(card)
         # a rank kernel's row is the training step's (its forward rulebooks
         # and the inverse ones); the serving forward's is in the kernels line
         train["rank_flags"]["launches_serve"] = serve["rank_flags"]["launches"]
@@ -2667,7 +3111,7 @@ def main() -> int:
         for name in ("rank_flags_seq4", "rank_flags_hostwin"):
             variants[name]["launches_serve"] = serve_counts[name]
         kernels = [train["rank_flags"], serve["gather_gemm"], detr, train["gather_gemm_stacked"],
-                   train["gather_dw"], *variants.values()]
+                   detr_train, train["gather_dw"], *variants.values()]
     except Exception:  # report every phase failure and exit non-zero
         traceback.print_exc()
         return 1

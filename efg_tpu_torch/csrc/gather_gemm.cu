@@ -13,9 +13,7 @@
 // A tap whose flag is 0 contributes nothing and its row is never read (pos
 // may equal V_in); a set flag whose row falls outside [0, V_in) is treated
 // as 0 as well, so no load leaves the feature array.
-// C and O are each one of 16, 32, 64, 128, 256 in the forward entry, and
-// of 16, 32, 64, 128 in the stacked entry (256-channel taps for the
-// backward: ROADMAP queue 2).
+// C and O are each one of 16, 32, 64, 128, 256, in both entries.
 //
 // Stacked variant: besides `out` it writes the flag-masked tap rows it
 // gathers, stacked [V_out, P·3·C] bf16 with
@@ -106,6 +104,12 @@
 //   blocks an SM) and pays for it by gathering each tile's taps twice,
 //   once per half (those bytes come from L2 for the second half when the
 //   two blocks run together, which the grid's order does not promise).
+//   The stacked entry at O = 256 (res4's backward: the d_features gathers
+//   of its SubM convs, C256·O256, and of `down` over the inverse rulebook,
+//   C256·O128) splits the same way; the taps depend on C alone, so the
+//   two blocks stage the same A tiles and the block of y = 0 writes them,
+//   zeros of skipped steps included. At C = 256 and P = 18 a stacked row
+//   is 13 824 elements; offsets into `stacked` are size_t.
 //
 // The block itself (rulebook, masks, step list, ring, products, stacked
 // writes, epilogue) is gather_gemm_core.cuh, shared with gather_gemm_g3.cu;
@@ -116,17 +120,19 @@
 // list (+ 1024 to align a wgmma ring). At P = 9 (P = 18 adds 4 680-4 860):
 // C16·O16 54 616, C16·O32 59 224, C32·O16 67 160, C32·O32 73 304, C32·O64
 // 85 592, C64·O32 75 424, C64·O64 79 520, C64·O128 104 096, C128·O64
-// 79 628, C128·O128 104 204; at 256 (forward), C128·O256 104 204 and
-// C256·O256 104 420 (a block of an O = 256 plan is the O = 128 plan's;
-// C256·O16-O128 are the C128 plans with 12 steps a pair, + 216 bytes).
+// 79 628, C128·O128 104 204; at 256, C128·O256 104 204 and C256·O256
+// 104 420 (a block of an O = 256 plan is the O = 128 plan's; C256·O16-O128
+// are the C128 plans with 12 steps a pair, + 216 bytes), in either entry.
 // Registers (≤ 128 by the launch bound of two blocks an SM), forward /
 // stacked, as `ptxas -v` prints them in chip_smoke.py's `device` line:
-// C16·O16 56 / 80, C16·O32 72 / 112, C32·O16 58 / 90, C32·O32 77 / 96,
-// C32·O64 101 / 114, C64·O32 80 / 96, C64·O64 83 / 114, C64·O128 124 /
-// 128, C128·O64 83 / 96, C128·O128 123 / 125; forward at 256: C128·O256,
-// C256·O256, C256·O128 and C64·O256 124, C256·O64 83, C256·O32 75,
-// C256·O16 55, C32·O256 128; no spills, but for the forward at C16·O128
-// and C16·O256 (8 bytes), which no model conv runs.
+// C16·O16 63 / 80, C16·O32 72 / 112, C16·O64 102 / 118, C32·O16 64 / 88,
+// C32·O32 79 / 96, C32·O64 103 / 114, C64·O16 64 / 108, C64·O32 80 / 96,
+// C64·O64 94 / 106, C64·O128 124 / 128, C128·O16-O64 55-83 / 92-96,
+// C128·O128 124 / 123, C256·O16-O64 55-83 / 92-96, C256·O128 and O256
+// 124 / 123, C128·O256 124 / 123, C64·O256 124 / 128, C32·O128 and O256
+// and C16·O128 and O256 128 / 128. No spills on a model's path; 24 bytes
+// spill in the stacked C32·O128 and C32·O256 and 8 bytes in the forward
+// C16·O128 and C16·O256, which no model conv runs.
 
 #include "gather_gemm_core.cuh"
 
@@ -157,13 +163,11 @@ int dispatch(int device, int c, int o, const Args& a, void* stream) {
   if (a.v_out == 0) return cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
   switch (c) {
-    case 16: return launch_o<16, EMIT, !EMIT>(o, a, s);
-    case 32: return launch_o<32, EMIT, !EMIT>(o, a, s);
-    case 64: return launch_o<64, EMIT, !EMIT>(o, a, s);
-    case 128: return launch_o<128, EMIT, !EMIT>(o, a, s);
-    case 256:
-      if constexpr (!EMIT) return launch_o<256, EMIT, true>(o, a, s);
-      return cudaErrorInvalidValue;
+    case 16: return launch_o<16, EMIT, true>(o, a, s);
+    case 32: return launch_o<32, EMIT, true>(o, a, s);
+    case 64: return launch_o<64, EMIT, true>(o, a, s);
+    case 128: return launch_o<128, EMIT, true>(o, a, s);
+    case 256: return launch_o<256, EMIT, true>(o, a, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -33,7 +33,8 @@
 // (a step's K is 64 there, one swizzle span), mma.sync + ldmatrix
 // otherwise. A plan with OSPLIT > 1 splits O over that many blocks of a
 // tile (the grid's y): each owns O / OSPLIT ≤ 128 columns of W and out
-// and gathers the tile's taps itself (the forward at O = 256).
+// and gathers the tile's taps itself; with EMIT only the block of y = 0
+// writes them to `stacked` (O = 256 in either entry).
 //
 // Everything here lives in an anonymous namespace: each source is its own
 // translation unit and shared library, and its Plan is its own.
@@ -95,7 +96,6 @@ struct Layout {
   static_assert(!WG || (KS == 64 && TM == 128),
                 "wgmma: K of one 128-byte swizzle span, two warpgroups of 64 rows");
   static_assert(O % OSPLIT == 0 && ON <= 128, "a block's columns are at most one m64n128");
-  static_assert(!EMIT || OSPLIT == 1, "one block a tile writes the tile's stacked taps");
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -414,9 +414,13 @@ __device__ __forceinline__ void run_tile(const TileSmem& t, __nv_bfloat16* ring,
   const size_t lds = (size_t)n_pairs * 3 * C;  // stacked row length
   const int w_rows = n_pairs * 3 * C;
   const int n = *t.n;
+  // The taps a tile gathers depend on C alone, so the OSPLIT blocks of a
+  // tile stage the same A tiles: the block of the first columns writes the
+  // tile's stacked taps, the others none.
+  const bool taps = EMIT && blockIdx.y == 0;
 
   constexpr int AV = L::KS / 8;
-  if (EMIT && n < n_all) {  // the skipped steps' columns of stacked are zero
+  if (taps && n < n_all) {  // the skipped steps' columns of stacked are zero
     for (int e = 0; e < n_all; ++e) {
       const Step<C, O, EMIT> st(e);
       if (st.active(t.mask)) continue;
@@ -460,7 +464,7 @@ __device__ __forceinline__ void run_tile(const TileSmem& t, __nv_bfloat16* ring,
       cp_async_commit();
     }
     const __nv_bfloat16* sA = ring + (i % L::STAGES) * L::STAGE_ELEMS;
-    if (EMIT) {
+    if (taps) {
       const int col = Step<C, O, EMIT>(t.steps[i]).col();
       for (int j = tid; j < rows * AV; j += kThreads) {
         const int r = j / AV, vc = j % AV;

@@ -48,18 +48,31 @@ TRAINERS = Registry("trainers")
 
 
 def init_state(model_def: ModelDef, tx) -> TrainState:
-    return TrainState(step=0, module=model_def.module,
-                      opt_state=tx.init(list(model_def.module.parameters())))
+    module = model_def.module
+    return TrainState(step=0, module=module, opt_state=tx.init(list(module.parameters())),
+                      ema=model_def.ema_init(module) if model_def.ema_init else None)
 
 
-def train_forward(model_def: ModelDef, state: TrainState, batch: Dict[str, Any]):
-    """Forward in train mode (batch statistics; the BN running stats update
-    as a side effect), with the parameters' grads cleared first."""
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """The torch.Generator of one training step on `device`, seeded from
+    (seed, step): efg_tpu's `fold_in(key(seed), step)`, so a resumed run
+    draws the noise an uninterrupted one draws."""
+    return torch.Generator(device=device).manual_seed(((seed & 0x7FFFFFFF) << 32) | step)
+
+
+def _train_mode(state: TrainState):
+    """The module in train mode (batch statistics; the BN running stats
+    update as a side effect), its parameters' grads cleared."""
     module = state.module
     module.train()
     for p in module.parameters():
         p.grad = None
-    return module(**model_def.apply_args(batch))
+    return module
+
+
+def train_forward(model_def: ModelDef, state: TrainState, batch: Dict[str, Any]):
+    """Forward in train mode, with the parameters' grads cleared first."""
+    return _train_mode(state)(**model_def.apply_args(batch))
 
 
 def apply_grads(tx, state: TrainState) -> torch.Tensor:
@@ -74,16 +87,26 @@ def apply_grads(tx, state: TrainState) -> torch.Tensor:
     return grad_norm
 
 
-def train_step(model_def: ModelDef, tx, state: TrainState,
-               batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """One training step: `train_forward`, losses, backward, `apply_grads`.
-    Returns the detached losses plus `grad_norm`, the global norm before
-    clipping. Leaves the module in train mode and this step's grads on the
-    parameters."""
-    preds = train_forward(model_def, state, batch)
-    losses = model_def.loss_fn(preds, batch)
+def train_step(model_def: ModelDef, tx, state: TrainState, batch: Dict[str, Any],
+               seed: int = 0) -> Dict[str, torch.Tensor]:
+    """One training step: `train_forward` and `loss_fn`, or the ModelDef's
+    `custom_loss` (module in train mode, grads cleared, the EMA state and
+    the step's generator, `step_generator(seed, state.step)`), then the
+    backward, `apply_grads` and `ema_update`. Returns the detached losses
+    plus `grad_norm`, the global norm before clipping. Leaves the module in
+    train mode and this step's grads on the parameters."""
+    if model_def.custom_loss is not None:
+        module = _train_mode(state)
+        device = next(module.parameters()).device
+        _, losses = model_def.custom_loss(module, state.ema, batch,
+                                          step_generator(seed, state.step, device))
+    else:
+        preds = train_forward(model_def, state, batch)
+        losses = model_def.loss_fn(preds, batch)
     losses["loss"].backward()
     grad_norm = apply_grads(tx, state)
+    if model_def.ema_update is not None and state.ema is not None:
+        model_def.ema_update(state.ema, state.module)
     metrics = {k: v.detach() for k, v in losses.items()}
     metrics["grad_norm"] = grad_norm
     return metrics
@@ -116,8 +139,8 @@ class DefaultTrainer:
         self.config = config
         self.device = resolve_device(device)
         self._refuse_unported()
-        self.generator = torch.Generator().manual_seed(
-            max(0, int(config.misc.get("seed", 0) or 0)))
+        self.seed = max(0, int(config.misc.get("seed", 0) or 0))
+        self.generator = torch.Generator().manual_seed(self.seed)
         self.model_def: ModelDef = build_model(config, device=self.device,
                                                generator=self.generator)
 
@@ -218,8 +241,8 @@ class DefaultTrainer:
     # ------------------------------------------------------------ checkpoint
     def save_checkpoint(self, name: str) -> str:
         """`torch.save` of the module's state_dict (parameters and BN
-        statistics), the AdamW state by parameter name, and the step, to
-        `<output_dir>/<name>`. The file is written under a temporary name
+        statistics), the AdamW state by parameter name, the step, and the
+        EMA state where the model has one, to `<output_dir>/<name>`. The file is written under a temporary name
         and renamed, so a half-written checkpoint is never resumed."""
         path = os.path.join(self.output_dir, name)
         names = [n for n, _ in self.state.module.named_parameters()]
@@ -230,6 +253,7 @@ class DefaultTrainer:
             "optimizer": {"count": opt.count, "mu": dict(zip(names, opt.mu)),
                           "nu": dict(zip(names, opt.nu))},
             "step": self.state.step,
+            **({"ema": self.state.ema} if self.state.ema is not None else {}),
         }, tmp)
         os.replace(tmp, path)
         logger.info(f"Saved checkpoint to {path}")
@@ -261,6 +285,12 @@ class DefaultTrainer:
                 opt.mu[i].copy_(ckpt["optimizer"]["mu"][n])
                 opt.nu[i].copy_(ckpt["optimizer"]["nu"][n])
         opt.count = int(ckpt["optimizer"]["count"])
+        if self.state.ema is not None:
+            if set(ckpt.get("ema", {})) != set(self.state.ema):
+                raise KeyError(f"{path}: its EMA state does not match the model's")
+            with torch.no_grad():
+                for n, e in self.state.ema.items():
+                    e.copy_(ckpt["ema"][n])
         self.state.step = int(ckpt["step"])
         self.start_iter = self.iter = self.state.step
         self.dataloader.start_batch = self.start_iter
@@ -297,9 +327,24 @@ class DefaultTrainer:
         return keys, host, done
 
     def train(self):
+        """The loop, with cuDNN held to deterministic algorithms: its
+        default fp32 weight-gradient algorithms (the heads' final convs)
+        sum in an order that changes from call to call, and a `--resume`
+        run then drifts from the uninterrupted one, where efg_tpu's XLA
+        step repeats bit for bit. The previous setting is restored."""
         logger.info(f"Starting training: {self.max_iters} iters "
                     f"({self.iters_per_epoch} it/epoch) on {self.device}")
         prev_handler = self._install_preemption_handler()
+        prev_deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            self._train_loop()
+        finally:
+            torch.backends.cudnn.deterministic = prev_deterministic
+            if prev_handler is not None:
+                signal.signal(signal.SIGTERM, prev_handler)
+
+    def _train_loop(self):
         with EventStorage(self.iter) as self.storage:
             for h in self.hooks:
                 h.before_train()
@@ -309,7 +354,8 @@ class DefaultTrainer:
                 for h in self.hooks:
                     h.before_step()
                 device_batch = next(self._data_iter)
-                metrics = train_step(self.model_def, self.tx, self.state, device_batch)
+                metrics = train_step(self.model_def, self.tx, self.state, device_batch,
+                                     seed=self.seed)
                 if pending is not None:
                     self._write_metrics(*pending)
                 pending = (self.iter, self._fetch(metrics))
@@ -328,8 +374,6 @@ class DefaultTrainer:
                 self._write_metrics(*pending)
             for h in self.hooks:
                 h.after_train()
-        if prev_handler is not None:
-            signal.signal(signal.SIGTERM, prev_handler)
 
     def _write_metrics(self, it: int, fetched):
         keys, vals, done = fetched

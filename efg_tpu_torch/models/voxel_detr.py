@@ -7,26 +7,29 @@ encoder (window attention anchored at each cell) → one-class proposal head
 → top-k queries → decoder (self-attention + rotated box cross-attention
 around each query's box) → per-layer detection heads. Parameter names are
 the flax modules'; the flax `MultiHeadDotProductAttention` is written out
-as its query / key / value / out projections. The losses and the
-Hungarian matcher of efg_tpu's training path are not ported yet (ROADMAP
-queue 1 item 8).
+as its query / key / value / out projections. Training: the focal + L1 +
+axis-aligned GIoU3D + rad set losses under Hungarian matching
+(`compute_loss`: one host solve for the encoder layer and every decoder
+layer together, `ops/matcher.py`).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from efg_tpu_torch.geometry.box_ops_torch import aligned_giou_3d_pairs, limit_period
 from efg_tpu_torch.modeling.backbones.fpn import FPN, position_embedding_sine
 from efg_tpu_torch.modeling.backbones.rpn import Conv2d
 from efg_tpu_torch.modeling.backbones.sparse_resnet import SparseResNet
 from efg_tpu_torch.modeling.readers.voxel_reader import dynamic_mean_vfe
 from efg_tpu_torch.models.centerpoint import resolve_device
 from efg_tpu_torch.ops import box_attention as BA
+from efg_tpu_torch.ops.matcher import hungarian_match
 from efg_tpu_torch.ops.voxelize import grid_size
 
 # flax's LayerNorm and GroupNorm epsilon (torch's default is 1e-5)
@@ -40,13 +43,26 @@ def inverse_sigmoid(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 class VoxelBoxCoder3D:
     """Boxes normalized to the point-cloud range (reference
-    `modules/box_coder.py`); the port decodes (its `encode` serves the
-    losses, which wait for ROADMAP queue 1 item 8)."""
+    `modules/box_coder.py`)."""
 
     def __init__(self, voxel_size, pc_range, z_normalizer: float = 10.0):
         self.pc_range = np.asarray(pc_range, np.float32)
         self.pc_size = self.pc_range[3:] - self.pc_range[:3]
         self.z = z_normalizer
+
+    def encode(self, gt_boxes9: torch.Tensor) -> torch.Tensor:
+        """[..., 9] raw (x, y, z, dx, dy, dz, vx, vy, yaw) → [..., 7] normalized."""
+        r, s = self.pc_range, self.pc_size
+        rad = limit_period(gt_boxes9[..., 8], offset=0.5, period=2 * np.pi)
+        return torch.stack([
+            (gt_boxes9[..., 0] - float(r[0])) / float(s[0]),
+            (gt_boxes9[..., 1] - float(r[1])) / float(s[1]),
+            (gt_boxes9[..., 2] + self.z) / (2 * self.z),
+            gt_boxes9[..., 3] / float(s[0]),
+            gt_boxes9[..., 4] / float(s[1]),
+            gt_boxes9[..., 5] / (2 * self.z),
+            (rad + np.pi) / (2 * np.pi),
+        ], dim=-1)
 
     def decode(self, boxes7: torch.Tensor) -> torch.Tensor:
         r, s = self.pc_range, self.pc_size
@@ -344,6 +360,11 @@ class VoxelDETR(nn.Module):
                                           generator=generator)
         self.to(device)
 
+    def run_decoder(self, memory_levels, ref, attn_mask=None):
+        """The decoder alone (ConQueR's momentum decoder runs it again, with
+        its EMA weights, on GT proposals)."""
+        return self.decoder(memory_levels, ref, attn_mask=attn_mask)
+
     def encode(self, points, points_mask):
         """points → (src [B, L, C], pos [B, L, C], level shapes): voxels,
         the sparse trunk, FPN, the input projections and position codes."""
@@ -413,6 +434,135 @@ class VoxelDETR(nn.Module):
             dn_boxes=all_boxes[:, :, :pad] if pad else None,
             memory_levels=memory_levels,
         )
+
+
+# ---------------------------------------------------------------------------
+# Losses (reference `losses.py` Det3DLoss + `modules/matcher.py`)
+# ---------------------------------------------------------------------------
+
+
+def _focal_cost_class(prob: torch.Tensor, labels: torch.Tensor, alpha: float = 0.25,
+                      gamma: float = 2.0) -> torch.Tensor:
+    """prob [..., Q, C], labels [..., G] → [..., Q, G] focal class cost."""
+    neg = (1 - alpha) * prob ** gamma * (-torch.log(1 - prob + 1e-8))
+    pos = alpha * (1 - prob) ** gamma * (-torch.log(prob + 1e-8))
+    cost = pos - neg
+    idx = labels.long()[..., None, :].expand(*cost.shape[:-1], labels.shape[-1])
+    return torch.gather(cost, -1, idx)
+
+
+def match_cost(pred_logits, pred_boxes, tgt_boxes, tgt_labels, tgt_mask, mw) -> torch.Tensor:
+    """Cost matrix [..., Q, G] (reference matcher forward): pred_logits
+    [..., Q, C], pred_boxes [..., Q, 7] against tgt_boxes [..., G, 7],
+    tgt_labels and tgt_mask [..., G]; 1e8 at padded GT columns."""
+    prob = torch.sigmoid(pred_logits)
+    cost_class = _focal_cost_class(prob, tgt_labels)
+    pb, tb = pred_boxes[..., :, None, :], tgt_boxes[..., None, :, :]
+    cost_bbox = (pb[..., :6] - tb[..., :6]).abs().sum(-1)
+    cost_rad = (pb[..., 6] - tb[..., 6]).abs()
+    cost_giou = -aligned_giou_3d_pairs(pb, tb)
+    c = (mw["bbox"] * cost_bbox + mw["class"] * cost_class + mw["giou"] * cost_giou
+         + mw["rad"] * cost_rad)
+    return torch.where(tgt_mask[..., None, :].bool(), c, torch.full_like(c, 1e8))
+
+
+def optax_sigmoid_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(logits, min=0) - logits * labels + torch.log1p(torch.exp(-logits.abs()))
+
+
+def sigmoid_focal_loss(logits: torch.Tensor, targets: torch.Tensor, alpha: float = 0.25,
+                       gamma: float = 2.0) -> torch.Tensor:
+    """Elementwise focal loss (reference `efg/modeling/losses/focal_loss.py:5`)."""
+    p = torch.sigmoid(logits)
+    ce = optax_sigmoid_ce(logits, targets)
+    p_t = p * targets + (1 - p) * (1 - targets)
+    loss = ce * ((1 - p_t) ** gamma)
+    if alpha >= 0:
+        loss = (alpha * targets + (1 - alpha) * (1 - targets)) * loss
+    return loss
+
+
+def _take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x [B, L, K] rows idx [B, G] → [B, G, K]."""
+    return torch.gather(x, 1, idx[..., None].expand(*idx.shape, x.shape[-1]))
+
+
+def detr_set_loss(pred_logits, pred_boxes, tgt_boxes, tgt_labels, tgt_mask, num_boxes, mw, *,
+                  full_logits=None, topk_idx=None, assign=None) -> Dict[str, torch.Tensor]:
+    """Focal class loss + L1 + GIoU3D + rad of one layer's [B, Q, ·]
+    predictions under the assignment [B, G] (matched here when None). With
+    `full_logits` [B, L, C] the class loss runs over every position, the
+    matched queries' positions taken through `topk_idx` [B, Q]."""
+    if assign is None:
+        assign = hungarian_match(
+            match_cost(pred_logits, pred_boxes, tgt_boxes, tgt_labels, tgt_mask, mw), tgt_mask)
+    ok = assign >= 0
+    a = torch.where(ok, assign, torch.zeros_like(assign))
+    if full_logits is not None:
+        cls_logits, pos_idx = full_logits, torch.gather(topk_idx, 1, a)
+    else:
+        cls_logits, pos_idx = pred_logits, a
+    b, l, c = cls_logits.shape
+    flat = pos_idx * c + torch.clamp(tgt_labels.long(), 0, c - 1)
+    onehot = cls_logits.new_zeros(b, l * c + 1)
+    onehot.scatter_(1, torch.where(ok, flat, torch.full_like(flat, l * c)), 1.0)
+    onehot = onehot[:, :l * c].reshape(b, l, c)
+    loss_ce = sigmoid_focal_loss(cls_logits, onehot).sum() / num_boxes
+
+    pb = _take_rows(pred_boxes, a)  # [B, G, 7]
+    okf = ok[..., None].to(pred_boxes.dtype)
+    loss_bbox = ((pb[..., :6] - tgt_boxes[..., :6]).abs() * okf).sum() / num_boxes
+    loss_rad = ((pb[..., 6:] - tgt_boxes[..., 6:]).abs() * okf).sum() / num_boxes
+    giou = aligned_giou_3d_pairs(pb, tgt_boxes)  # the diagonal of efg_tpu's matrix
+    loss_giou = ((1 - giou) * ok.to(giou.dtype)).sum() / num_boxes
+    return {"loss_ce": mw["class"] * loss_ce, "loss_bbox": mw["bbox"] * loss_bbox,
+            "loss_giou": mw["giou"] * loss_giou, "loss_rad": mw["rad"] * loss_rad}
+
+
+def targets(batch: Dict[str, Any], model_cfg: Dict[str, Any]):
+    """(tgt_boxes [B, G, 7] normalized, tgt_labels [B, G] 0-based, tgt_mask
+    [B, G], num_boxes = max(#GT, 1))."""
+    coder = VoxelBoxCoder3D(model_cfg["voxel_size"], model_cfg["pc_range"])
+    tgt_mask = batch["gt_mask"].bool()
+    return (coder.encode(batch["gt_boxes"]), torch.clamp(batch["gt_classes"].long() - 1, min=0),
+            tgt_mask, torch.clamp(tgt_mask.sum().float(), min=1.0))
+
+
+def compute_loss(preds: Dict[str, Any], batch: Dict[str, Any], *, model_cfg: Dict[str, Any],
+                 return_assign: bool = False):
+    """The set losses of the encoder's proposals (binary objectness over
+    the full map) and of every decoder layer, their sum under "loss". One
+    host solve matches all 1 + D layers ([(1 + D)·B, Q, G] costs). With
+    `return_assign`, also the last decoder layer's assignment [B, G]."""
+    mw = model_cfg["loss_weights"]  # {"class": 1, "bbox": 4, "giou": 2, "rad": 4}
+    tgt_boxes, tgt_labels, tgt_mask, num_boxes = targets(batch, model_cfg)
+    topk = preds["topk_idx"]
+    enc_logits_q = _take_rows(preds["enc_logits"], topk)
+    enc_boxes_q = _take_rows(preds["enc_boxes"], topk)
+    bin_labels = torch.zeros_like(tgt_labels)
+    d = preds["dec_logits"].shape[0]
+    layer_logits: List[torch.Tensor] = [enc_logits_q] + [preds["dec_logits"][i] for i in range(d)]
+    layer_boxes: List[torch.Tensor] = [enc_boxes_q] + [preds["dec_boxes"][i] for i in range(d)]
+    layer_labels = [bin_labels] + [tgt_labels] * d
+    cost_all = torch.cat([match_cost(lg, bx, tgt_boxes, ll, tgt_mask, mw)
+                          for lg, bx, ll in zip(layer_logits, layer_boxes, layer_labels)], dim=0)
+    k = 1 + d
+    b, g = tgt_mask.shape
+    assign_all = hungarian_match(cost_all, tgt_mask.repeat(k, 1)).reshape(k, b, g)
+
+    losses: Dict[str, torch.Tensor] = {}
+    enc = detr_set_loss(enc_logits_q, enc_boxes_q, tgt_boxes, bin_labels, tgt_mask, num_boxes, mw,
+                        full_logits=preds["enc_logits"], topk_idx=topk, assign=assign_all[0])
+    losses.update({k_ + "_enc": v for k_, v in enc.items()})
+    for i in range(d):
+        li = detr_set_loss(preds["dec_logits"][i], preds["dec_boxes"][i], tgt_boxes, tgt_labels,
+                           tgt_mask, num_boxes, mw, assign=assign_all[1 + i])
+        suffix = "" if i == d - 1 else f"_{i}"
+        losses.update({k_ + suffix: v for k_, v in li.items()})
+    losses["loss"] = sum(losses.values())
+    if return_assign:
+        return losses, assign_all[-1]
+    return losses
 
 
 def predict(preds: Dict[str, Any], *, model_cfg: Dict[str, Any],

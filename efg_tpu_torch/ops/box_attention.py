@@ -17,6 +17,17 @@ accelerator, f32 on the CPU), and sums in f32. The products of two bf16
 values are exact in f32, so f32 arithmetic on the rounded operands is
 efg_tpu's bf16 product with an f32 accumulator.
 
+Gradients are plain autograd, as efg_tpu's are for the dense op (its
+roundings are casts, so dV and dA come back rounded to bf16 there too).
+efg_tpu gives the gather op a custom VJP (`_window_gather_runs`) whose dV
+and dA are f32 sums (of the rounded operands' products); the port's
+gather op rounds V and A with an identity gradient (`_rounded`), so its
+autograd computes the same.
+`WINDOW_DTYPE` is the type both ops round V (and the encoder's A) to:
+bf16, as efg_tpu's ops; tests that hold the port against efg_tpu's f32
+forms of the ops (`box_attention_window_dense`, the gather's `runs=False`)
+set it to f32.
+
 Maps are NHWC [B, H, W, C]; a head's channels are the contiguous slice
 [h·hd, (h+1)·hd) of C; grid coordinates are normalized [0, 1] per level.
 These are plain PyTorch: efg_tpu has no Pallas kernel for them.
@@ -33,6 +44,12 @@ import torch
 # products: efg_tpu's `_dot_dtype()` on an accelerator. Its CPU run keeps
 # f32 there; tests that hold the port against it on the CPU switch this.
 GATHER_DOT_DTYPE = torch.bfloat16
+WINDOW_DTYPE = torch.bfloat16
+
+
+def _rounded(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """x rounded to `dtype` and back, with the identity as its gradient."""
+    return x + (x.to(dtype).to(x.dtype) - x).detach()
 
 
 def kernel_indices(kernel_size: int, dtype=torch.float32, device=None) -> torch.Tensor:
@@ -153,15 +170,15 @@ def box_attention_window_dense(value: torch.Tensor, coeffs: torch.Tensor, *,
                                num_heads: int, radius: int) -> torch.Tensor:
     """Window self-attention with every query anchored at its own cell (the
     encoder; efg_tpu's `box_attention_window_dense_mxu`): V and A rounded to
-    bf16, sums in f32, one shifted slice of the zero-padded map per offset.
+    WINDOW_DTYPE, sums in f32, one shifted slice of the zero-padded map per offset.
     value [B, H, W, C], coeffs [B, H·W, NH, (2R+1)²] → [B, H·W, C] in
     value's dtype."""
     b, h, w, c = value.shape
     hd = c // num_heads
     s = 2 * radius + 1
-    vp = torch.nn.functional.pad(value.to(torch.bfloat16).float(),
+    vp = torch.nn.functional.pad(value.to(WINDOW_DTYPE).float(),
                                  (0, 0, radius, radius, radius, radius))
-    a = coeffs.reshape(b, h, w, num_heads, s * s).to(torch.bfloat16).float()
+    a = coeffs.reshape(b, h, w, num_heads, s * s).to(WINDOW_DTYPE).float()
     out = torch.zeros(b, h, w, c, dtype=torch.float32, device=value.device)
     for o in range(s * s):
         dy, dx = divmod(o, s)
@@ -175,7 +192,7 @@ def box_attention_window_gather(value: torch.Tensor, coeffs: torch.Tensor,
     """Window attention around each query's anchor cell (decoder
     cross-attention; efg_tpu's `box_attention_window_gather`): the
     (2R+1)² cells of the window gathered from the zero-padded map, V
-    rounded to bf16 and A to GATHER_DOT_DTYPE, sums in f32. value
+    rounded to WINDOW_DTYPE and A to GATHER_DOT_DTYPE, sums in f32. value
     [B, H, W, C], coeffs [B, L, NH, (2R+1)²], base_yx [B, L, 2] (clamped
     into the map, as efg_tpu clamps it) → [B, L, C] in value's dtype.
     Queries go in chunks of `chunk` to bound the gathered windows."""
@@ -187,7 +204,8 @@ def box_attention_window_gather(value: torch.Tensor, coeffs: torch.Tensor,
     y = torch.clamp(base_yx[..., 0].long(), 0, h - 1)
     x = torch.clamp(base_yx[..., 1].long(), 0, w - 1)
     wp = w + 2 * radius
-    vp = torch.nn.functional.pad(value.to(torch.bfloat16), (0, 0, radius, radius, radius, radius))
+    vp = torch.nn.functional.pad(_rounded(value.float(), WINDOW_DTYPE),
+                                 (0, 0, radius, radius, radius, radius))
     vflat = vp.reshape(b, (h + 2 * radius) * wp, c)
     oy = torch.arange(s, device=dev).repeat_interleave(s)  # window row, then column
     ox = torch.arange(s, device=dev).repeat(s)
@@ -196,8 +214,8 @@ def box_attention_window_gather(value: torch.Tensor, coeffs: torch.Tensor,
     for q0 in range(0, l, chunk):
         # padded coords of window cell (oy, ox) of a query at (y, x): (y + oy, x + ox)
         rows = (y[:, q0:q0 + chunk, None] + oy) * wp + (x[:, q0:q0 + chunk, None] + ox)
-        patch = vflat[bidx, rows].float()  # [B, q, S², C]
+        patch = vflat[bidx, rows]  # [B, q, S², C]
         patch = patch.reshape(*patch.shape[:3], num_heads, hd)
-        a = coeffs[:, q0:q0 + chunk].to(GATHER_DOT_DTYPE).float()  # [B, q, NH, S²]
+        a = _rounded(coeffs[:, q0:q0 + chunk].float(), GATHER_DOT_DTYPE)  # [B, q, NH, S²]
         outs.append(torch.einsum("bqno,bqonh->bqnh", a, patch).reshape(b, -1, c))
     return torch.cat(outs, dim=1).to(value.dtype)

@@ -67,10 +67,10 @@ from efg_tpu_torch.ops.cuda import build as _build
 INVALID_Q = 1 << 29
 CLAMP_Q = 1 << 30  # canonical +inf value keys/queries are clamped to
 
-# C and O the forward gather-GEMM kernel takes; the stacked and dW entries
-# stop at TAPS_CHANNELS (their 256-channel plans: ROADMAP queue 2 item 1)
+# C and O both entries of the gather-GEMM kernel take; the dW entry stops
+# at DW_CHANNELS (its 256-channel plan: ROADMAP queue 2 item 1)
 GEMM_CHANNELS = (16, 32, 64, 128, 256)
-TAPS_CHANNELS = 128
+DW_CHANNELS = 128
 
 # The switches of efg_tpu's sparse kernels (its sparse_kernels.py:62,66):
 # the rank kernel merge_rank_flags runs ("seq", "seq4"; `seq=False` gives
@@ -89,12 +89,13 @@ HOSTWIN_ROW = 128  # keys per window row, and queries per band, of hostwin
 # (`efg_tpu.ops.sparse.set_compute_dtype`); the kernels refuse it.
 COMPUTE_DTYPE = torch.bfloat16
 
-# gather_gemm_256 counts the forward launches of gather_gemm.cu with C or O
-# of 256 (its two-blocks-a-tile plans), gather_gemm the others
+# gather_gemm_256 and gather_gemm_stacked_256 count the launches of
+# gather_gemm.cu's two entries with C or O of 256 (ConQueR's res4),
+# gather_gemm and gather_gemm_stacked the others
 launches: Dict[str, int] = {
     "rank_flags": 0, "gather_gemm": 0, "gather_gemm_stacked": 0, "gather_dw": 0,
     "rank_flags_seq4": 0, "rank_flags_hostwin": 0, "gather_gemm_g3": 0,
-    "gather_gemm_g3_stacked": 0, "gather_gemm_256": 0,
+    "gather_gemm_g3_stacked": 0, "gather_gemm_256": 0, "gather_gemm_stacked_256": 0,
 }
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -345,13 +346,12 @@ def _width(n: int) -> int:
     raise ValueError(f"the sparse kernels take at most {GEMM_CHANNELS[-1]} channels, got {n}")
 
 
-def _check_taps_widths(entry: str, c: int, o: int) -> None:
-    """The stacked and dW entries take C, O ≤ TAPS_CHANNELS, on either
-    device: what their kernels take (a CPU call runs the plain version of
-    the same contract)."""
-    if max(c, o) > TAPS_CHANNELS:
+def _check_dw_widths(c: int, o: int) -> None:
+    """The dW entry takes C, O ≤ DW_CHANNELS, on either device: what its
+    kernel takes (a CPU call runs the plain version of the same contract)."""
+    if max(c, o) > DW_CHANNELS:
         raise ValueError(
-            f"{entry} takes at most {TAPS_CHANNELS} channels, got C={c}, O={o}: its "
+            f"fused_gather_dw takes at most {DW_CHANNELS} channels, got C={c}, O={o}: its "
             "256-channel kernel is not ported yet (ROADMAP queue 2 item 1)")
 
 
@@ -398,7 +398,8 @@ def _gather_gemm_cuda(features, packed, weights, emit: bool):
             stacked.data_ptr(), v_in, v_out, n_pairs, cw, ow, _stream(dev),
         )
         _build.check(lib, err, f"{stem}_stacked launch")
-        launches[f"{stem}_stacked"] += 1
+        launches[f"{stem}_stacked_256" if max(cw, ow) == GEMM_CHANNELS[-1]
+                 else f"{stem}_stacked"] += 1
         if cw != c:
             stacked = stacked.view(v_out, n_pairs * 3, cw)[..., :c].reshape(v_out, -1)
         return out[:, :o], stacked
@@ -407,7 +408,7 @@ def _gather_gemm_cuda(features, packed, weights, emit: bool):
         out.data_ptr(), v_in, v_out, n_pairs, cw, ow, _stream(dev),
     )
     _build.check(lib, err, f"{stem} launch")
-    launches["gather_gemm_256" if max(cw, ow) > TAPS_CHANNELS else stem] += 1
+    launches["gather_gemm_256" if max(cw, ow) == GEMM_CHANNELS[-1] else stem] += 1
     return out[:, :o]
 
 
@@ -430,8 +431,7 @@ def gather_gemm_stacked(features: torch.Tensor, packed: torch.Tensor,
     `emit_stacked=True`): (out [V_out, O] f32, stacked [V_out, P·3·C]
     bf16) with stacked[v, (p·3 + t)·C + c] = flag_t · f[row_t(v), c].
     The layout is the transpose of efg_tpu's [P·3·C, vt] buffer, without
-    its tile padding. C, O ≤ TAPS_CHANNELS."""
-    _check_taps_widths("gather_gemm_stacked", features.shape[1], weights.shape[1])
+    its tile padding. C, O ≤ 256, as the forward."""
     if _on_card(features):
         return _gather_gemm_cuda(features, packed, weights, emit=True)
     return gather_gemm_stacked_plain(features, packed, weights)
@@ -503,8 +503,8 @@ def fused_gather_dw(features: torch.Tensor, packed: torch.Tensor,
     of the kernel's blocks, summed in chunk order), so two calls on the
     same inputs give the same bits; against the plain version, whose order
     differs, compare at f32-accumulation tolerance (~1e-5 of max|dW|).
-    C, O ≤ TAPS_CHANNELS."""
-    _check_taps_widths("fused_gather_dw", features.shape[1], g.shape[1])
+    C, O ≤ DW_CHANNELS."""
+    _check_dw_widths(features.shape[1], g.shape[1])
     if _on_card(features):
         return _gather_dw_cuda(features, packed, g)
     return gather_dw_plain(features, packed, g)

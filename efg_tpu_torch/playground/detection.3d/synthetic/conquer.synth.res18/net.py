@@ -1,8 +1,9 @@
 """`build_model` of the experiment
 `playground/detection.3d/synthetic/conquer.synth.res18` for the port (the
-counterpart of its `net.py`): a ConQueR ModelDef for serving from the
+counterpart of its `net.py`): the ConQueR ModelDef (serving, and training
+with its denoising queries, momentum decoder and losses) from the
 experiment's config, on `device`, its initial weights drawn from
-`generator`. Training it is not ported yet (ROADMAP queue 1 item 8)."""
+`generator`."""
 
 from efg_tpu_torch.models import conquer as CQ
 
@@ -28,11 +29,17 @@ def _detr_kwargs(config):
 
 
 def build_model(config, device="cuda", generator=None):
-    if config.task == "train":
-        raise CQ._not_ported("task=train of ConQueR (its loss, denoising queries and EMA decoder)")
+    lw = config.model.loss
     cfg = dict(
         pc_range=tuple(config.dataset.pc_range),
         voxel_size=tuple(config.dataset.voxel_size),
+        loss_weights={
+            "class": float(lw.class_loss_coef),
+            "bbox": float(lw.bbox_loss_coef),
+            "giou": float(lw.giou_loss_coef),
+            "rad": float(lw.rad_loss_coef),
+        },
+        dn=dict(config.model.dn),
         contrastive=dict(config.model.contrastive),
     )
     return CQ.make_model_def(_detr_kwargs(config), cfg, device=device, generator=generator)

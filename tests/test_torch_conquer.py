@@ -244,9 +244,12 @@ def test_predict_matches(models, source):
 
 def test_eval_step_is_predict(models):
     """The ModelDef that `make_model_def` builds: eval_step = predict of
-    the module's outputs; its training loss raises "not ported"."""
+    the module's outputs; for training it carries the custom loss and the
+    EMA hooks, whose state is a real copy of the decoder's parameters,
+    kept outside the module's parameters."""
     md = TCQ.make_model_def({**KW, "pc_range": PC, "voxel_size": VOX},
-                            dict(MODEL_CFG, contrastive={"dim": CONTRAS_DIM}), device="cpu")
+                            dict(MODEL_CFG, contrastive={"dim": CONTRAS_DIM, "mom": 0.5}),
+                            device="cpu")
     md.module.load_state_dict(models["tm"].state_dict())
     batch = dict(points=torch.from_numpy(models["pts"]), points_mask=torch.from_numpy(models["mask"]))
     out = eval_step(md, batch)
@@ -256,8 +259,19 @@ def test_eval_step_is_predict(models):
     for k in out:
         assert torch.equal(out[k], ref[k]), k
     assert out["box3d"].shape == (2, 48, 7) and int(out["labels"].min()) >= 1
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        md.loss_fn(None, batch)
+    assert callable(md.custom_loss) and callable(md.ema_init) and callable(md.ema_update)
+    dec = dict(md.module.detr.decoder.named_parameters())
+    ema = md.ema_init(md.module)
+    assert set(ema) == set(dec) and all(torch.equal(ema[n], p) for n, p in dec.items())
+    assert all(e.data_ptr() != dec[n].data_ptr() for n, e in ema.items())
+    params = {id(p) for p in md.module.parameters()}
+    assert not any(id(e) in params for e in ema.values())
+    before = {n: e.clone() for n, e in ema.items()}
+    with torch.no_grad():
+        for p in dec.values():
+            p.add_(1.0)
+    md.ema_update(ema, md.module)
+    assert all(torch.equal(ema[n], before[n] * 0.5 + dec[n] * (1.0 - 0.5)) for n in ema)
 
 
 def test_weight_import_is_strict(models):

@@ -322,7 +322,7 @@ def _last_row_only(packed, v_in):
 DW_CASES = {
     # the dW entry takes C, O ≤ 128 (its 256-channel plan: ROADMAP queue 2)
     **{name: make for name, make in GEMM_CASES.items()
-       if max(make()[0].shape[1], make()[2].shape[1]) <= K.TAPS_CHANNELS},
+       if max(make()[0].shape[1], make()[2].shape[1]) <= K.DW_CHANNELS},
     "cout_5x8": functools.partial(_gemm_case, 80, 300, 5, 8),
     "edge_rows": functools.partial(_gemm_case, 81, 2 * TM + 9, 32, 16, edit=_edge_rows),
     "pair_no_flag": functools.partial(_gemm_case, 82, 300, 16, 32, edit=_pair_no_flag),
@@ -441,7 +441,7 @@ def test_planted_fp_at_pos_fails(name):
         check_dw(feats, packed, g, RESIDENT["132x2"], rows_of=tap_rows_fp_at_pos)
 
 
-DW_WIDTHS = [c for c in K.GEMM_CHANNELS if c <= K.TAPS_CHANNELS]  # what the dW entry takes
+DW_WIDTHS = [c for c in K.GEMM_CHANNELS if c <= K.DW_CHANNELS]  # what the dW entry takes
 WIDTHS = [(c, o) for c in DW_WIDTHS for o in DW_WIDTHS]
 
 

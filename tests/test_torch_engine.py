@@ -1,5 +1,6 @@
 """The port's entry point on the CPU: events and hooks, the trainer loop
-against `train_step` driven by hand, checkpoints, resume continuity bit
+against `train_step` driven by hand, cuDNN held to deterministic
+algorithms in the loop, checkpoints, resume continuity bit
 for bit, SIGTERM preemption, evaluation after training and `task=val`
 from a checkpoint, `EvalHook` and `ProfilerHook`, the requests that are
 not ported yet, and the initial weights' generator.
@@ -232,6 +233,35 @@ def test_loop_equals_train_step_by_hand(tmp_path):
     assert sorted(os.listdir(tmp_path / "loop")) == [
         "metrics.json", "model_0000001", "model_final"]
 
+
+
+def test_train_holds_cudnn_to_deterministic_algorithms(tmp_path, monkeypatch):
+    """Every step of DefaultTrainer.train() runs with
+    torch.backends.cudnn.deterministic set (a resumed run repeats the
+    uninterrupted one on the card), and train() restores the caller's
+    setting afterwards, also when a step raises."""
+    seen = []
+
+    def step(model_def, tx, state, batch, seed=0):
+        seen.append(torch.backends.cudnn.deterministic)
+        state.step += 1
+        return {"loss": torch.tensor(1.0), "grad_norm": torch.tensor(0.0)}
+
+    monkeypatch.setattr(T, "train_step", step)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", False)
+    trainer = _trainer(tmp_path / "a", ["solver.lr_scheduler.max_iters=2"])
+    trainer.train()
+    assert seen == [True, True]
+    assert torch.backends.cudnn.deterministic is False
+
+    def failing(*args, **kwargs):
+        raise RuntimeError("step failed")
+
+    monkeypatch.setattr(T, "train_step", failing)
+    trainer = _trainer(tmp_path / "b", ["solver.lr_scheduler.max_iters=2"])
+    with pytest.raises(RuntimeError, match="step failed"):
+        trainer.train()
+    assert torch.backends.cudnn.deterministic is False
 
 def test_checkpoint_round_trip(tmp_path):
     """save_checkpoint then resume_or_load into a fresh trainer: module

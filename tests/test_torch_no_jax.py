@@ -72,9 +72,12 @@ print(json.dumps({"modules": names, "nets": nets, "loaded": sorted(sys.modules)}
                  "data.processors.extend_3d", "data.samplers.dataset_sampler", "cli.main",
                  "utils.events", "utils.logger", "evaluator.build", "evaluator.evaluator",
                  "evaluator.det3d_metrics", "evaluator.waymo_official",
-                 "evaluator.waymo_evaluator", "utils.distributed", "ops.iou_rotated"):
+                 "evaluator.waymo_evaluator", "utils.distributed", "ops.iou_rotated",
+                 "ops.matcher", "ops.box_attention", "models.voxel_detr", "models.conquer",
+                 "geometry.box_ops_torch"):
         assert f"efg_tpu_torch.{name}" in res["modules"], name
     assert "playground/detection.3d/synthetic/centerpoint.synth.voxelnet/net.py" in res["nets"]
+    assert "playground/detection.3d/synthetic/conquer.synth.res18/net.py" in res["nets"]
     assert [m for m in res["loaded"] if _forbidden(m)] == []
 
 
@@ -93,4 +96,5 @@ def test_every_kernel_source_is_bound_and_built():
             assert f'extern "C" int {entry}(' in text, entry
     assert set(K.launches) == {
         "rank_flags", "gather_gemm", "gather_gemm_stacked", "gather_dw", "rank_flags_seq4",
-        "rank_flags_hostwin", "gather_gemm_g3", "gather_gemm_g3_stacked", "gather_gemm_256"}
+        "rank_flags_hostwin", "gather_gemm_g3", "gather_gemm_g3_stacked", "gather_gemm_256",
+        "gather_gemm_stacked_256"}

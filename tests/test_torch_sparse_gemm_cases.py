@@ -12,9 +12,12 @@ steps of a pair, a tap or a tap's 64-channel part, steps that no row of a
 tile needs skipped, O = 256 split over two blocks of 128 columns) is held
 on the same cases and on the trunk's rulebooks: every set flag whose row
 is in range is read by exactly one step that runs in each column block, no
-such step is skipped, every output column is written by one block, and the
-steps that run give the plain version's result. The stacked and dW
-entries stop at 128 channels and say so.
+such step is skipped, every output column is written by one block, every
+element of the stacked taps is written exactly once, by the column block
+of y = 0 (zeros for the skipped steps), and the steps that run give the
+plain versions' results. Both gather-GEMM entries take C, O ≤ 256 (ConQueR's
+res4 backward runs the stacked one at 256); the dW entry stops at 128
+channels and says so.
 chip_smoke.py keeps its own copy of the cases (GEMM_EDGE_CASES) and runs
 them through both entries of the kernel on the card."""
 
@@ -124,12 +127,6 @@ GEMM_CASES = {
 }
 
 
-def wide(name):
-    """Whether a case is wider than the stacked and dW entries take."""
-    feats, _, w = GEMM_CASES[name]()
-    return max(feats.shape[1], w.shape[1]) > K.TAPS_CHANNELS
-
-
 def _close(got, want):
     want = np.asarray(want, np.float32)
     np.testing.assert_allclose(np.asarray(got, np.float32), want, rtol=0,
@@ -143,8 +140,7 @@ def test_plain_matches_pallas_on_case(name):
     at 1e-4·max|ref| (both sum exact bf16 products in f32; only the order
     differs). The Pallas grid takes pairs in groups of three, so P = 1 is
     padded there with flag-off pairs and zero weights, which add nothing.
-    At 256 channels the stacked wrapper refuses the call, so its plain
-    version is held alone."""
+    Every case goes through both wrappers, the 256-wide ones included."""
     feats, packed, w = GEMM_CASES[name]()
     n_pairs, v_out = packed.shape
     c, o = feats.shape[1], w.shape[1]
@@ -156,8 +152,7 @@ def test_plain_matches_pallas_on_case(name):
     want_st = np.asarray(want_st, np.float32)[:n_pairs * 3 * c, :v_out].T
     f, p, wt = torch.from_numpy(feats), torch.from_numpy(packed), torch.from_numpy(w)
     K.reset_launches()
-    stacked = K.gather_gemm_stacked_plain if wide(name) else K.gather_gemm_stacked
-    got_out, got_st = stacked(f, p, wt)
+    got_out, got_st = K.gather_gemm_stacked(f, p, wt)
     got_fwd = K.fused_gather_gemm(f, p, wt)
     assert got_st.dtype == torch.bfloat16 and got_st.shape == (v_out, n_pairs * 3 * c)
     np.testing.assert_array_equal(got_st.float().numpy(), want_st)
@@ -262,7 +257,11 @@ def _tap_rows(packed, v_in):
 def check_schedule(feats, packed, w):
     """Hold the model on one call (inputs rounded to bf16, as the plain
     version rounds them; the model sums in f64); returns (steps run, steps
-    in all), counted over every block (a tile × a column block)."""
+    in all), counted over every block (a tile × a column block). With the
+    stacked entry's writes: the block of the first columns writes each
+    step's A tile (zeros for a skipped step) to its columns of the stacked
+    row, the other column blocks none; every element is written once and
+    the taps are the plain version's."""
     v_in, c = feats.shape
     n_pairs, v_out = packed.shape
     o = w.shape[1]
@@ -272,18 +271,27 @@ def check_schedule(feats, packed, w):
     rows, live = _tap_rows(packed, v_in)
     out = np.zeros((v_out, o), np.float64)
     written = np.zeros((v_out, o), np.int32)
+    stacked = np.zeros((v_out, n_pairs * 3 * c), np.float64)
+    st_written = np.zeros((v_out, n_pairs * 3 * c), np.int32)
     wk = w.reshape(n_pairs, 3, c, -1).astype(np.float64)
     ran = total = 0
     for row0, steps in block_schedule(packed, c):
         r1 = min(row0 + GEMM_TM, v_out)
         for col0 in range(0, o, width):  # the blocks of one tile, side by side over O
             cols = slice(col0, col0 + width)
+            taps_block = col0 == 0  # blockIdx.y == 0 writes the tile's stacked taps
             cover = np.zeros((n_pairs, 3, c), np.int32)  # reads of each (pair, tap, channel)
             every = np.zeros((n_pairs, 3, c), np.int32)  # and of every step, run or not
             for p, t0, ch, runs in steps:
                 sl = (p, slice(t0, t0 + taps), slice(ch * kc, ch * kc + kc))
                 every[sl] += 1
                 total += 1
+                # the step's columns of a stacked row: (p·3 + t0)·C + ch·KC, K = taps·KC wide
+                scol = (p * 3 + t0) * c + ch * kc
+                scols = [scol + t * c + k for t in range(taps) for k in range(kc)] if taps == 3 \
+                    else list(range(scol, scol + kc))
+                if taps_block:
+                    st_written[row0:r1, scols] += 1
                 if not runs:
                     assert not live[p, row0:r1, t0:t0 + taps].any(), "a step with a live tap skipped"
                     continue
@@ -294,14 +302,21 @@ def check_schedule(feats, packed, w):
                     a = np.where(on[:, None], feats[np.clip(rows[p, row0:r1, t], 0, v_in - 1)], 0)
                     out[row0:r1, cols] += (a[:, ch * kc:ch * kc + kc]
                                            @ wk[p, t, ch * kc:ch * kc + kc, cols])
+                    if taps_block:  # the A tile, as it lands in shared memory
+                        c0 = (p * 3 + t) * c + ch * kc
+                        stacked[row0:r1, c0:c0 + kc] = a[:, ch * kc:ch * kc + kc]
             written[row0:r1, cols] += 1
             assert (every == 1).all(), "the steps do not partition the stacked row"
             need = live[:, row0:r1].any(axis=1)  # [P, 3]: taps some row of the tile reads
             assert (cover[need] == 1).all(), "a live tap read not exactly once"
     assert (written == 1).all(), "an output element not written by exactly one block"
+    assert (st_written == 1).all(), "a stacked tap element not written by exactly one block"
     ref = K.gather_gemm_plain(torch.from_numpy(feats).double(), torch.from_numpy(packed),
                               torch.from_numpy(w).double()).numpy()
     np.testing.assert_allclose(out, ref, rtol=0, atol=1e-5 * max(np.abs(ref).max(initial=0), 1))
+    _, ref_st = K.gather_gemm_stacked_plain(torch.from_numpy(feats), torch.from_numpy(packed),
+                                            torch.from_numpy(w))
+    np.testing.assert_array_equal(stacked, ref_st.double().numpy())
     return ran, total
 
 
@@ -321,15 +336,20 @@ def test_block_schedule_on_case(name):
 @pytest.mark.parametrize("entry", ["gather_gemm_stacked", "fused_gather_dw"])
 @pytest.mark.parametrize("c,o", [(256, 256), (128, 256), (256, 64)])
 def test_taps_entries_refuse_256(entry, c, o):
-    """The stacked and dW entries take C, O ≤ 128 (their 256-channel
-    kernels are ROADMAP queue 2) on either device; the forward takes 256."""
-    rs = np.random.RandomState(c + o)
-    f = torch.from_numpy(rs.randn(40, c).astype(np.float32))
-    p = torch.zeros(9, 40, dtype=torch.int32)
-    second = torch.zeros(27 * c, o) if entry == "gather_gemm_stacked" else torch.zeros(40, o)
-    with pytest.raises(ValueError, match=r"at most 128 channels.*ROADMAP queue 2 item 1"):
-        getattr(K, entry)(f, p, second)
-    assert K.fused_gather_gemm(f, p, torch.zeros(27 * c, o)).shape == (40, o)
+    """Only the dW entry refuses 256 channels (its kernel is ROADMAP queue 2
+    item 1), on either device; the stacked entry takes them, as the forward
+    does, and its out is the forward's."""
+    f, p, w = (torch.from_numpy(a) for a in _gemm_case(c + o, 40, c, o))
+    fwd = K.fused_gather_gemm(f, p, w)
+    assert fwd.shape == (40, o)
+    if entry == "fused_gather_dw":
+        with pytest.raises(ValueError, match=r"at most 128 channels.*ROADMAP queue 2 item 1"):
+            K.fused_gather_dw(f, p, torch.zeros(40, o))
+        return
+    out, stacked = K.gather_gemm_stacked(f, p, w)
+    assert stacked.shape == (40, 27 * c) and stacked.dtype == torch.bfloat16
+    assert torch.equal(out, fwd) or float((out - fwd).abs().max()) <= 1e-4 * float(fwd.abs().max())
+    assert (stacked != 0).any()
 
 
 @pytest.mark.parametrize("kind,c", [("subm", 16), ("subm", 64), ("strided", 128),
