@@ -29,7 +29,10 @@ either. Phases (each prints JSON lines; any failure exits 1):
              GEMM_EDGE_CASES (every width up to 256) run through both
              entries of gather_gemm.cu, and of gather_gemm_g3.cu where its
              gate admits them, against the plain versions (out within
-             1e-3·max|ref|, stacked taps bit for bit).
+             1e-3·max|ref|, stacked taps bit for bit); the hazards at 256
+             channels WIDE_EDGE_CASES (ragged V_out, an empty tile, flags on
+             rows −1 and V_in, a flag-free pair) through both entries of
+             gather_gemm.cu and through gather_dw.cu (twice, equal bits).
 4. breakdown — one bs=4 step stage by stage (voxelize + VFE, sparse trunk,
              RPN, head, decode, post-processing, and the NMS IoU matrix and
              greedy loop), CUDA-event medians.
@@ -117,7 +120,8 @@ either. Phases (each prints JSON lines; any failure exits 1):
              launches per forward: rank 11, gather-GEMM 13 and 5 at 256);
              every gather-GEMM and rank call of a bs=2 forward against its
              plain version on the card (the 256-wide calls: their own
-             kernel row); a small ConQueR on the card against the CPU
+             kernel row, with the steps its one block a tile runs and
+             skips); a small ConQueR on the card against the CPU
              (voxels and rulebooks equal, outputs within 3e-2 of range,
              top-k sets equal outside the tie band); one forward each under
              EFG_SPARSE_G3 and EFG_RANK_IMPL=seq4 against the default
@@ -134,7 +138,11 @@ either. Phases (each prints JSON lines; any failure exits 1):
              against its plain version on the card (taps bit for bit, out
              within 1e-3·max|ref|; the 5 at 256 channels are the kernels
              line's `gather_gemm_stacked_256` row, beside the dense f32 dW
-             after them); a small ConQueR one step on the card against the
+             after them), and the dW kernel on those 5 convs' captured
+             (features, forward rulebook, masked gradient) against its
+             plain version and the stacked route's dW (1e-3·max|ref|), two
+             calls bit for bit and 2 kernels a call (the kernels line's
+             `gather_dw_256` row); a small ConQueR one step on the card against the
              CPU from the same weights and noise (assignments equal up to
              ties, loss parts within 5e-2, step-1 gradients by direction,
              the EMA decoder exact); task=train of the synthetic ConQueR
@@ -206,7 +214,8 @@ TRAIN_STEPS = 3  # timed, after one warm-up step
 # cout is a multiple of 16, so dW always comes from the stacked taps; no
 # width is 256, and the switched kernels are off)
 NO_VARIANTS = {"rank_flags_seq4": 0, "rank_flags_hostwin": 0, "gather_gemm_g3": 0,
-               "gather_gemm_g3_stacked": 0, "gather_gemm_256": 0, "gather_gemm_stacked_256": 0}
+               "gather_gemm_g3_stacked": 0, "gather_gemm_256": 0, "gather_gemm_stacked_256": 0,
+               "gather_dw_256": 0}
 SERVE_LAUNCHES = {"rank_flags": 8, "gather_gemm": 21, "gather_gemm_stacked": 0, "gather_dw": 0,
                   **NO_VARIANTS}
 TRAIN_LAUNCHES = {"rank_flags": 12, "gather_gemm": 21, "gather_gemm_stacked": 21, "gather_dw": 0,
@@ -466,7 +475,10 @@ def phase_device():
                          "cudnn": torch.backends.cudnn.allow_tf32},
           "build_seconds": round(build_s, 3),
           "per_source_seconds": {k: round(v["seconds"], 3) for k, v in logs.items()},
-          "ptxas": {k: ptxas_usage(v["log"]) for k, v in logs.items()}})
+          "ptxas": {k: ptxas_usage(v["log"]) for k, v in logs.items()},
+          "ptxas_warnings": {k: [ln.strip() for ln in v["log"].splitlines()
+                                 if "arning" in ln or "Performance" in ln]
+                             for k, v in logs.items()}})
     return card
 
 
@@ -638,7 +650,7 @@ def phase_kernels(capture, card: str, launches: dict):
     against its plain version; returns the kernel rows by name."""
     rank_rows = [_rank_row(RANK_LABELS[i], k, q) for i, (k, q) in enumerate(capture.rank)]
     gemm_rows = [_gemm_row(gemm_label(i), *call)[0] for i, call in enumerate(capture.gemm)]
-    edges = gemm_edge_cases()
+    edges, wide = gemm_edge_cases(), wide_edge_cases()
     per = "sum over the {} calls of one bs=4 serving forward"
     rows = {
         "rank_flags": kernel_row("rank_flags", "rank_flags.cu", 882, launches["rank_flags"],
@@ -649,7 +661,7 @@ def phase_kernels(capture, card: str, launches: dict):
                                   card=card),
     }
     emit({"phase": "kernels", "summary": list(rows.values()), "rank_calls": rank_rows,
-          "gemm_calls": gemm_rows, "gemm_edge_cases": edges})
+          "gemm_calls": gemm_rows, "gemm_edge_cases": edges, "wide_edge_cases": wide})
     return rows
 
 
@@ -992,6 +1004,12 @@ def _pos_v_in_off(packed, v_in):
     return packed
 
 
+def _pair_no_flag(packed, v_in):
+    packed = packed.copy()
+    packed[4] &= ~7  # pair 4 has no flag in any row
+    return packed
+
+
 def _middle_only(packed, v_in):
     """Only the middle taps of pairs 3-5, as a (3, 1, 1) conv's rulebook:
     24 of the 27 taps empty in every tile."""
@@ -1019,6 +1037,21 @@ GEMM_EDGE_CASES = {
     "pos_v_in_off": functools.partial(_gemm_case, 66, 300, 64, 64, v_in=120, edit=_pos_v_in_off),
     "middle_only": functools.partial(_gemm_case, 67, 300, 128, 128, density=0.6,
                                      edit=_middle_only),
+}
+
+
+# hazards at 256 channels, one at each corner of the widths the kernels take
+# there (C256·O256, C128·O256, C256·O16, C16·O256): through both entries of
+# gather_gemm.cu and through gather_dw.cu in phase kernels
+WIDE_EDGE_CASES = {
+    "wide_ragged_256x256": functools.partial(_gemm_case, 90, 2 * GEMM_TM + 37, 256, 256,
+                                             density=0.2),
+    "wide_tile_empty_128x256": functools.partial(_gemm_case, 91, 2 * GEMM_TM + 37, 128, 256,
+                                                 edit=_tile_empty),
+    "wide_outside_rows_256x16": functools.partial(_gemm_case, 92, 300, 256, 16, v_in=250,
+                                                  edit=_outside_rows),
+    "wide_pair_no_flag_16x256": functools.partial(_gemm_case, 93, 300, 16, 256,
+                                                  edit=_pair_no_flag),
 }
 
 
@@ -1235,8 +1268,8 @@ def _gemm_agrees(name, out, ref_out, st=None, ref_st=None):
 
 def gemm_edge_cases():
     """GEMM_EDGE_CASES on the card through both entries of gather_gemm.cu
-    (the 256-wide cases too: the stacked entry's two blocks a tile over O,
-    of which the first writes the taps), and of gather_gemm_g3.cu where
+    (the 256-wide cases too: one block a tile over all 256 columns), and of
+    gather_gemm_g3.cu where
     efg_tpu's g3 gate admits the case, each against the plain versions;
     returns a row per case."""
     import torch
@@ -1270,8 +1303,66 @@ def gemm_edge_cases():
     return rows
 
 
+def wide_edge_cases():
+    """WIDE_EDGE_CASES on the card through both entries of gather_gemm.cu
+    (one block a tile over all 256 columns) and through gather_dw.cu (two
+    column blocks of 128 at O = 256; twice, equal bits), each
+    against its plain version: out and dW within 1e-3·max|ref|, taps bit for
+    bit. The g3 kernel takes no O of 256. Returns a row per case."""
+    import torch
+
+    from efg_tpu_torch.ops.cuda import sparse_kernels as K
+
+    rows = []
+    for i, (name, make) in enumerate(WIDE_EDGE_CASES.items()):
+        feats, packed, weights = make()
+        f = torch.from_numpy(feats).to("cuda", torch.bfloat16)
+        p = torch.from_numpy(packed).cuda()
+        w = torch.from_numpy(weights).to("cuda", torch.bfloat16)
+        g = torch.from_numpy(np.random.RandomState(700 + i).randn(p.shape[1], w.shape[1])
+                             .astype(np.float32)).to("cuda", torch.bfloat16)
+        ref_out, ref_st = K.gather_gemm_stacked_plain(f, p, w)
+        ref_dw = K.gather_dw_plain(f, p, g)
+        out = K.fused_gather_gemm(f, p, w)
+        st_out, st = K.gather_gemm_stacked(f, p, w)
+        dw, dw_again = K.fused_gather_dw(f, p, g), K.fused_gather_dw(f, p, g)
+        torch.cuda.synchronize()
+        err, scale = _gemm_agrees(f"gather_gemm case {name}", out, ref_out)
+        err_st, _ = _gemm_agrees(f"gather_gemm_stacked case {name}", st_out, ref_out, st, ref_st)
+        err_dw, scale_dw = _gemm_agrees(f"gather_dw case {name}", dw, ref_dw)
+        if not torch.equal(dw, dw_again):
+            raise AssertionError(f"gather_dw case {name}: two calls on the same inputs differ")
+        run, skipped = _steps(p, f.shape[1])
+        rows.append({"case": name, "P": p.shape[0], "V_in": f.shape[0], "V_out": p.shape[1],
+                     "C": f.shape[1], "O": w.shape[1], "taps_found": _found(p),
+                     "steps_run": run, "steps_skipped": skipped, "max_ref": scale,
+                     "max_abs_err": err, "max_abs_err_stacked": err_st, "taps_bit_exact": True,
+                     "dw_max_ref": scale_dw, "dw_max_abs_err": err_dw, "dw_bit_equal_twice": True})
+    return rows
+
+
 def _found(packed):
     return int(sum(((packed >> s) & 1).sum() for s in range(3)))  # set tap flags
+
+
+def _steps(packed, c: int):
+    """(steps run, steps skipped) of one block a tile of gather_gemm.cu on
+    a rulebook: its steps (a whole pair at C ≤ 32, else a tap's 64-channel
+    part) and its rule (a step runs where a row of the 128-row tile has a
+    flag among the step's taps; the rest it skips)."""
+    import torch
+
+    n_pairs, v_out = packed.shape
+    tiles = -(-v_out // GEMM_TM)
+    pk = torch.zeros(n_pairs, tiles * GEMM_TM, dtype=packed.dtype, device=packed.device)
+    pk[:, :v_out] = packed
+    pk = pk.view(n_pairs, tiles, GEMM_TM)
+    live = torch.stack([((pk >> s) & 1).amax(dim=2) for s in (2, 1, 0)], -1)  # [P, tiles, 3]
+    if c <= 32:  # a pair a step
+        run, total = int(live.amax(-1).sum()), n_pairs * tiles
+    else:
+        run, total = int(live.sum()) * (c // 64), n_pairs * tiles * 3 * (c // 64)
+    return run, total - run
 
 
 def phase_train_kernels(capture, card: str, launches: dict):
@@ -1299,38 +1390,7 @@ def phase_train_kernels(capture, card: str, launches: dict):
         lib_ms, lib_dev = timed(matmul), graph_device(matmul)
 
         # the dW kernel on the same conv: (features, forward rulebook, g)
-        fp, gm, dw_stacked = conv["packed"].contiguous(), conv["g"].contiguous(), conv["dw"]
-        run = functools.partial(K.fused_gather_dw, f, fp, gm)
-        dw, again = run(), run()
-        ref_dw = K.gather_dw_plain(f, fp, gm)
-        torch.cuda.synchronize()
-        if not torch.equal(dw, again):
-            raise AssertionError(f"gather_dw {label}: two calls on the same inputs differ")
-        scale = float(ref_dw.abs().max())
-        err_plain = float((dw - ref_dw).abs().max())
-        err_stacked = float((dw - dw_stacked).abs().max())
-        if not (err_plain <= 1e-3 * max(scale, 1e-6) and err_stacked <= 1e-3 * max(scale, 1e-6)):
-            raise AssertionError(f"gather_dw {label}: max|Δ| {err_plain} vs plain, {err_stacked} "
-                                 f"vs the stacked path (max|ref| {scale})")
-        del again, ref_dw
-        dev = graph_device(run)
-        if (dev["kernels"], dev["nodes"]) != (2, 2):  # the blocks' partials, then their sum
-            raise AssertionError(f"gather_dw {label}: one call is {dev['kernels']} kernels in "
-                                 f"{dev['nodes']} device operations, expected 2")
-        v_in, c = f.shape
-        n_pairs, v_out = fp.shape
-        o = gm.shape[1]
-        found = _found(fp)
-        bytes_ = 2 * v_in * c + 4 * n_pairs * v_out + 2 * v_out * o + 4 * n_pairs * 3 * c * o
-        row = dict(label=label, P=n_pairs, V_in=v_in, V_out=v_out, C=c, O=o, taps_found=found,
-                   ms=timed(run), device_ms=dev["device_ms"], device_kernels=dev["kernels"],
-                   plain_ms=timed(lambda: K.gather_dw_plain(f, fp, gm)),
-                   library_ms=lib_ms, library_device_ms=lib_dev["device_ms"],
-                   bytes_ms=1e3 * bytes_ / H100_BYTES_PER_S,
-                   ops_ms=1e3 * 2 * found * c * o / H100_BF16_FLOPS,
-                   max_abs_err=err_plain, max_abs_err_vs_stacked=err_stacked, max_ref=scale,
-                   bit_equal_twice=True)
-        row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
+        row = _dw_row(label, conv, lib_ms, lib_dev["device_ms"])
         dw_rows.append(row)
         routes.append(_route_row(label, row, st_rows[-1], g, packed, w))
         del st, st_f32, f_f32
@@ -1357,6 +1417,54 @@ def phase_train_kernels(capture, card: str, launches: dict):
                    card=card),
     ]
     return {r["name"]: r for r in rows}
+
+
+def _dw_row(label, conv, library_ms, library_device_ms):
+    """The dW kernel on one conv backward's captured (features, forward
+    rulebook, masked gradient) against its plain version and against the
+    dW the stacked route returned (1e-3·max|ref|), two calls bit for bit,
+    two kernels a call in CUDA graphs (the blocks' partials, then their sum
+    over row chunks); returns its row with times and bound, and as its
+    library call the dense f32 dW of the stacked taps (timed by the
+    caller)."""
+    import torch
+
+    from efg_tpu_torch.ops.cuda import sparse_kernels as K
+
+    f = conv["features"].to(torch.bfloat16).contiguous()
+    fp, gm, dw_stacked = conv["packed"].contiguous(), conv["g"].contiguous(), conv["dw"]
+    run = functools.partial(K.fused_gather_dw, f, fp, gm)
+    dw, again = run(), run()
+    ref_dw = K.gather_dw_plain(f, fp, gm)
+    torch.cuda.synchronize()
+    if not torch.equal(dw, again):
+        raise AssertionError(f"gather_dw {label}: two calls on the same inputs differ")
+    scale = float(ref_dw.abs().max())
+    err_plain = float((dw - ref_dw).abs().max())
+    err_stacked = float((dw - dw_stacked).abs().max())
+    if not (err_plain <= 1e-3 * max(scale, 1e-6) and err_stacked <= 1e-3 * max(scale, 1e-6)):
+        raise AssertionError(f"gather_dw {label}: max|Δ| {err_plain} vs plain, {err_stacked} "
+                             f"vs the stacked path (max|ref| {scale})")
+    del dw, again, ref_dw
+    dev = graph_device(run)
+    if (dev["kernels"], dev["nodes"]) != (2, 2):  # the blocks' partials, then their sum
+        raise AssertionError(f"gather_dw {label}: one call is {dev['kernels']} kernels in "
+                             f"{dev['nodes']} device operations, expected 2")
+    v_in, c = f.shape
+    n_pairs, v_out = fp.shape
+    o = gm.shape[1]
+    found = _found(fp)
+    bytes_ = 2 * v_in * c + 4 * n_pairs * v_out + 2 * v_out * o + 4 * n_pairs * 3 * c * o
+    row = dict(label=label, P=n_pairs, V_in=v_in, V_out=v_out, C=c, O=o, taps_found=found,
+               ms=timed(run), device_ms=dev["device_ms"], device_kernels=dev["kernels"],
+               plain_ms=timed(lambda: K.gather_dw_plain(f, fp, gm)),
+               library_ms=library_ms, library_device_ms=library_device_ms,
+               bytes_ms=1e3 * bytes_ / H100_BYTES_PER_S,
+               ops_ms=1e3 * 2 * found * c * o / H100_BF16_FLOPS,
+               max_abs_err=err_plain, max_abs_err_vs_stacked=err_stacked, max_ref=scale,
+               bit_equal_twice=True)
+    row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
+    return row
 
 
 def _route_row(label, dw_row, st_row, g, packed, w):
@@ -2598,11 +2706,19 @@ def phase_detr_kernels(capture, counts, card: str):
                  for j, call in enumerate(capture.gemm)]
     rank_rows = [_rank_row(f"call{j}", *call) for j, call in enumerate(capture.rank)]
     rows_256 = [gemm_rows[j] for j in wide]
+    for j in wide:  # the steps the one block a tile runs, and its products' time at peak
+        f, packed, w = capture.gemm[j]
+        c, o = f.shape[1], w.shape[1]
+        run, skipped = _steps(packed, c)
+        k = 3 * c if c <= 32 else 64  # K of a step
+        gemm_rows[j].update(steps_run=run, steps_skipped=skipped,
+                            step_ops_ms=1e3 * 2 * run * GEMM_TM * k * o / H100_BF16_FLOPS)
     row = kernel_row("gather_gemm_256", "gather_gemm.cu", 259, counts["gather_gemm_256"], rows_256,
                      tolerance="1e-3 * max|ref|", card=card,
                      per="sum over the 5 calls at 256 channels of one bs=2 ConQueR forward")
     emit({"phase": "detr", "part": "kernels", "summary": row,
-          "gemm_256": [{k: r[k] for k in ("label", "C", "O", "V_in", "V_out", "taps_found", "ms",
+          "gemm_256": [{k: r[k] for k in ("label", "C", "O", "V_in", "V_out", "taps_found",
+                                          "steps_run", "steps_skipped", "step_ops_ms", "ms",
                                           "device_ms", "bound_ms", "bytes_ms", "ops_ms",
                                           "plain_ms", "max_abs_err")}
                        for r in rows_256],
@@ -2707,34 +2823,31 @@ class MatcherProbe:
         return False
 
 
-class StackedCapture:
-    """Records every stacked gather-GEMM call of a backward (its inputs)
-    and the features of the dense dW product after it (`stacked_weight_grad`,
-    one a stacked call, in the same order)."""
+class StackedCapture(BackwardCapture):
+    """BackwardCapture (every stacked gather-GEMM call of a backward and
+    every conv backward: its features, forward rulebook, masked gradient
+    and dW) and the features of the dense dW product after each stacked
+    call (`stacked_weight_grad`, one a stacked call, in the same order)."""
 
     def __init__(self, K):
-        self.K = K
-        self.stacked, self.dw_features = [], []
+        super().__init__(K)
+        self.dw_features = []
 
     def __enter__(self):
+        super().__enter__()
         K = self.K
-        self._orig = (K.gather_gemm_stacked, K.stacked_weight_grad)
-        st0, dw0 = self._orig
-
-        def stacked(features, packed, weights):
-            self.stacked.append((features.clone(), packed.clone(), weights.clone()))
-            return st0(features, packed, weights)
+        self._dw0 = K.stacked_weight_grad
 
         def dw(st, features):
             self.dw_features.append(features.clone())
-            return dw0(st, features)
+            return self._dw0(st, features)
 
-        K.gather_gemm_stacked, K.stacked_weight_grad = stacked, dw
+        K.stacked_weight_grad = dw
         return self
 
     def __exit__(self, *exc):
-        self.K.gather_gemm_stacked, self.K.stacked_weight_grad = self._orig
-        return False
+        self.K.stacked_weight_grad = self._dw0
+        return super().__exit__(*exc)
 
 
 def phase_detr_train(card: str, device="cuda", kw=DETR, n_points=N_POINTS):
@@ -2754,9 +2867,9 @@ def phase_detr_train(card: str, device="cuda", kw=DETR, n_points=N_POINTS):
         same weights, batch and denoising noise (`phase_detr_train_check`);
     (d) the synthetic ConQueR experiment through the CLI, task=train, its
         20 iterations (`phase_detr_cli_train`).
-    Returns the kernels-line row. A rehearsal on the CPU (`device="cpu"`,
-    smaller `kw` and `n_points`, torch.cuda.Event swapped for a host-clock
-    stand-in, DETR_TRAIN_LAUNCHES zeroed) runs (a) and (d)."""
+    Returns the kernels-line rows (none on the CPU). A rehearsal on the CPU
+    (`device="cpu"`, smaller `kw` and `n_points`, torch.cuda.Event swapped
+    for a host-clock stand-in, DETR_TRAIN_LAUNCHES zeroed) runs (a) and (d)."""
     import torch
 
     from efg_tpu_torch.engine.trainer import apply_grads, init_state, step_generator, train_step
@@ -2829,36 +2942,41 @@ def phase_detr_train(card: str, device="cuda", kw=DETR, n_points=N_POINTS):
           "matcher_host_ms": sum(matcher.ms), "step_ms": ev[0].elapsed_time(ev[4]),
           "loss": float(losses["loss"].detach()), "card": card})
 
-    row = None
-    if on_card:  # (b) one more step, its stacked gathers captured
+    rows = []
+    if on_card:  # (b) one more step, its stacked gathers and conv backwards captured
         with StackedCapture(K) as capture:
             train_step(md, tx, state, batch, seed=SEED)
         del md, state, tx, batch
-        row = phase_detr_train_kernels(capture, counts, card)
+        rows = phase_detr_train_kernels(capture, counts, card)
         del capture
         torch.cuda.empty_cache()
         phase_detr_train_check()
     phase_detr_cli_train(card, device)
-    return row
+    return rows
 
 
 def phase_detr_train_kernels(capture, counts, card: str):
     """(b) of phase detr_train: every stacked gather of one step through the
     kernel and its plain version on the card; the 256-wide ones also
-    through the dense f32 dW product after them. Returns the kernels-line
-    row of the 256-wide calls."""
+    through the dense f32 dW product after them, and their convs' dW
+    through the dW kernel on the captured (features, forward rulebook,
+    masked gradient), against its plain version and the stacked route's dW
+    (`_dw_row`). Returns the kernels-line rows of the 256-wide stacked calls
+    and dW calls."""
     import torch
 
     from efg_tpu_torch.ops.cuda import sparse_kernels as K
 
     n_wide = DETR_TRAIN_LAUNCHES["gather_gemm_stacked_256"]
     calls = capture.stacked
-    if len(calls) != len(capture.dw_features) or len(calls) != (
+    if not len(calls) == len(capture.dw_features) == len(capture.convs) == (
             n_wide + DETR_TRAIN_LAUNCHES["gather_gemm_stacked"]):
-        raise AssertionError(f"detr_train: {len(calls)} stacked calls and "
-                             f"{len(capture.dw_features)} dense dW products captured")
-    rows, rows_256 = [], []
-    for j, ((g, packed, w), feats) in enumerate(zip(calls, capture.dw_features)):
+        raise AssertionError(f"detr_train: {len(calls)} stacked calls, "
+                             f"{len(capture.dw_features)} dense dW products and "
+                             f"{len(capture.convs)} conv backwards captured")
+    rows, rows_256, dw_256 = [], [], []
+    for j, ((g, packed, w), feats, conv) in enumerate(zip(calls, capture.dw_features,
+                                                           capture.convs)):
         label = f"stacked{j} C{g.shape[1]}xO{w.shape[1]} P{packed.shape[0]}"
         row, st = _gemm_row(label, g, packed, w, emit=True)
         if max(g.shape[1], w.shape[1]) == 256:
@@ -2866,6 +2984,10 @@ def phase_detr_train_kernels(capture, counts, card: str):
             row["library_ms"] = timed(dw)
             row["library_device_ms"] = graph_device(dw)["device_ms"]
             rows_256.append(row)
+            del dw
+            c, o = conv["features"].shape[1], conv["g"].shape[1]
+            dw_256.append(_dw_row(f"dw{j} {conv['kind']} C{c}xO{o} P{conv['packed'].shape[0]}",
+                                  conv, row["library_ms"], row["library_device_ms"]))
         rows.append(row)
         del st
         torch.cuda.empty_cache()
@@ -2879,15 +3001,27 @@ def phase_detr_train_kernels(capture, counts, card: str):
                          "training step",
                      library_call="torch.matmul(stacked.t().float(), features.float()): the "
                                   "dense f32 dW after each call (K.stacked_weight_grad)")
+    dw_row = kernel_row("gather_dw_256", "gather_dw.cu", 652, counts["gather_dw_256"], dw_256,
+                        library_call="torch.matmul(stacked.t().float(), features.float()): the "
+                                     "dense f32 dW the stacked route runs instead "
+                                     "(K.stacked_weight_grad)",
+                        tolerance="1e-3 * max|ref| vs plain and vs the stacked route's dW; two "
+                                  "calls bit for bit",
+                        per="sum over the 5 conv backwards at 256 channels of one bs=2 ConQueR "
+                            "training step (run on their captured inputs; the step takes dW "
+                            "from the stacked taps)", card=card)
     keys = ("label", "C", "O", "P", "V_in", "V_out", "taps_found", "ms", "device_ms",
             "bound_ms", "bytes_ms", "ops_ms", "plain_ms", "max_abs_err")
-    emit({"phase": "detr_train", "part": "kernels", "summary": row,
+    emit({"phase": "detr_train", "part": "kernels", "summary": row, "summary_dw": dw_row,
           "stacked_256": [{k: r[k] for k in keys + ("library_ms", "library_device_ms")}
                           for r in rows_256],
+          "dw_256": [{k: r[k] for k in keys + ("max_abs_err_vs_stacked", "device_kernels",
+                                               "library_ms", "library_device_ms")}
+                     for r in dw_256],
           "stacked_le128": [{k: r[k] for k in keys} for r in rows if r not in rows_256],
           "stacked_le128_ms": sum(r["ms"] for r in rows if r not in rows_256),
           "stacked_le128_device_ms": sum(r["device_ms"] for r in rows if r not in rows_256)})
-    return row
+    return [row, dw_row]
 
 
 # leaves whose gradient is zero or rounding noise: conv biases before a
@@ -3111,7 +3245,7 @@ def main() -> int:
         for name in ("rank_flags_seq4", "rank_flags_hostwin"):
             variants[name]["launches_serve"] = serve_counts[name]
         kernels = [train["rank_flags"], serve["gather_gemm"], detr, train["gather_gemm_stacked"],
-                   detr_train, train["gather_dw"], *variants.values()]
+                   *detr_train, train["gather_dw"], *variants.values()]
     except Exception:  # report every phase failure and exit non-zero
         traceback.print_exc()
         return 1

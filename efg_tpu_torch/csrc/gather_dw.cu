@@ -13,36 +13,36 @@
 //   dw[(p·3 + t)·C + c, o] = Σ_v flag_t(p, v) · f[row_t(p, v), c] · g[v, o],
 //   (row_t, flag_t) = (pos−1, fm), (pos, f0), (pos+f0, fp).
 // A tap whose flag is off, or whose row falls outside [0, V_in), adds
-// nothing and is never read. C and O are each one of 16, 32, 64, 128 (the
-// wrapper pads other widths with zero channels). The sum over V runs in a
-// fixed order, so two calls with the same inputs give the same bits.
+// nothing and is never read. C and O are each one of 16, 32, 64, 128, 256
+// (the wrapper pads other widths with zero channels). The sum over V runs
+// in a fixed order, so two calls with the same inputs give the same bits.
 //
 // What bounds it on the H100: bytes, as the forward gather-GEMM (2·C·O
 // operations per tap found against ≥ 2·C + 2·O + 4 bytes per output row and
 // pair). Beyond the bound, a block stages whole steps of TM rows and
 // multiplies their flag-free rows as zeros, as the forward does.
 //
-// Design. Grid (pair · channel chunk, row chunk): a block owns one pair, KC
-// channels of each of its three taps and one chunk of `steps` steps of TM
-// output rows. It
+// Design. Grid (pair · channel chunk, row chunk, column block): a block
+// owns one pair, KC channels of each of its three taps, ON ≤ 128 columns of
+// O and one chunk of `steps` steps of TM output rows. It
 // 1. loads the chunk's rulebook words into shared memory and ORs each
 //    step's flags; warp 0 lists the steps with a flag (a ballot), so a step
 //    none of whose rows has one of the pair's flags issues no copy and no
 //    product;
 // 2. runs a STAGES-deep cp.async ring over the listed steps, one barrier a
 //    step: a step stages its three tap rows as one A tile [TM, 3·KC] and its
-//    gradient rows as one G tile [TM, O] (zero-filled where a tap's flag is
+//    gradient rows as one G tile [TM, ON] (zero-filled where a tap's flag is
 //    off or its row is out of range, and G where the row has no flag of the
 //    pair, so nothing is read for it), and the next steps' copies fly while
 //    this one multiplies;
-// 3. accumulates Aᵀ·G into [3·KC, O] f32 registers that live across the
+// 3. accumulates Aᵀ·G into [3·KC, ON] f32 registers that live across the
 //    chunk. The rows are K, so both operands are MN-major. Where C, O ≥ 64
-//    (WG): three warpgroups, one per tap, each a wgmma.m64nOk16 chain over
+//    (WG): three warpgroups, one per tap, each a wgmma.m64nONk16 chain over
 //    the step's rows, A and G in blocks of 64 columns of 128-byte rows
 //    (128-byte swizzle) read by MN-major descriptors. Below: eight warps of
 //    mma.sync m16n8k16, both operands loaded by ldmatrix .trans, the warps
 //    splitting the tile WM × WN and a step's rows WK ways;
-// 4. writes the block's partial [3·KC, O] once into the workspace [chunks,
+// 4. writes the block's partial [3·KC, ON] once into the workspace [chunks,
 //    P·3·C, O] (mma.sync: the WK warp partials summed in order through
 //    shared memory first). A second kernel sums the workspace over the
 //    chunks in chunk order into dw, one float4 a thread: every launch's
@@ -52,6 +52,23 @@
 // The grid's row chunks are chosen (`chunks_for`) so that the blocks fill
 // the card WAVES times over, with no block taking more than ROWS rows (its
 // rulebook words are staged whole).
+//
+// 256 channels (no model conv: efg_tpu takes this kernel only where cout %
+// 16 ≠ 0) reuse the 128-wide blocks unchanged. C = 256 is four 64-channel
+// chunks (CH = 4), as C = 128 is two. O = 256 is two column blocks of 128
+// (the grid's z), each the O = 128 block with its columns offset: one
+// block of all 256 columns would need ACC = 128 accumulators a thread over
+// three warpgroups (384 threads, past 65 536 / 384 = 170 registers with
+// the operands' addresses) and a ring of 2 × 112 KB; each column block
+// gathers the step's A tile again (the workspace rows it writes differ
+// only in columns). The workspace grows to chunks × P·3·C·O f32: at
+// C256·O256 with P = 9 and 30 000 output rows, 8 chunks (the card filled
+// 4 times: 132 blocks × 4 over 72 blocks a chunk) of 7.1 MB, about 57 MB.
+// Shared memory of a block of the most rows (bytes) and registers as
+// `ptxas -v` prints them: C256·O16 131 344 and 96, C256·O32 139 536 and
+// 120, C256·O64 214 288 and 92, C256·O128 and O256 181 520 and 128,
+// C128·O256 and C64·O256 181 520 and 128, C32·O256 139 536 and 120,
+// C16·O256 114 960 and 121; no spills.
 //
 // The plan (below) is the fastest of those tools/port_kernel_sweep.py timed
 // on the flagship's 21 conv backwards (PERF.md §6): wgmma at C, O ≥ 64
@@ -73,15 +90,16 @@ namespace dw {
 template <int C, int O>
 struct Plan {
   static constexpr int TM = 128;                  // output rows a step
+  static constexpr int ON = O < 128 ? O : 128;    // columns of O a block
   static constexpr int KC = C < 64 ? C : 64;      // channels of a tap a block
-  static constexpr int WG = C >= 64 && O >= 64;   // wgmma, a warpgroup per tap
-  static constexpr int STAGES = WG ? (O == 64 ? 3 : 2) : (C == 16 && O <= 64 ? 3 : 2);
+  static constexpr int WG = C >= 64 && ON >= 64;  // wgmma, a warpgroup per tap
+  static constexpr int STAGES = WG ? (ON == 64 ? 3 : 2) : (C == 16 && ON <= 64 ? 3 : 2);
   static constexpr int WM = 3 * KC / 48;          // mma.sync: warps along dW's 3·KC rows
-  static constexpr int WN = O < 64 ? 1 : (O / 32 < 8 / WM ? O / 32 : 8 / WM);  // along O
+  static constexpr int WN = ON < 64 ? 1 : (ON / 32 < 8 / WM ? ON / 32 : 8 / WM);  // along O
   static constexpr int WK = 8 / (WM * WN);        // along a step's rows
   static constexpr int ROWS = C == 16 && O == 16 ? 2048 : 4096;  // most output rows a block
   static constexpr int WAVES = C == 64 && O == 128 ? 2 : 4;  // blocks per resident block, at least
-  static constexpr int MIN_BLOCKS = WG || (C >= 64 && O == 128) ? 1 : 2;  // the launch bound
+  static constexpr int MIN_BLOCKS = WG || (C >= 64 && ON == 128) ? 1 : 2;  // the launch bound
 };
 
 // What follows from a plan (the plan's members are the Layout's too)
@@ -89,27 +107,30 @@ template <int C, int O>
 struct Layout : Plan<C, O> {
   using P = Plan<C, O>;
   static constexpr int CH = C / P::KC;             // channel chunks
+  static constexpr int ON = P::ON;                 // columns of dW a block
+  static constexpr int OS = O / ON;                // column blocks
   static constexpr int M = 3 * P::KC;              // rows of a block's dW tile
   static constexpr bool WGMMA = P::WG != 0;
   static constexpr int THREADS = WGMMA ? 3 * 128 : 32 * P::WM * P::WN * P::WK;
   // mma.sync tiles are padded rows; wgmma tiles are blocks of 64 columns
   // (a tap's channels, or 64 of O) of 128-byte rows, swizzled
   static constexpr int LDA = WGMMA ? 64 : M + kPad;
-  static constexpr int LDG = WGMMA ? 64 : O + kPad;
+  static constexpr int LDG = WGMMA ? 64 : ON + kPad;
   static constexpr int A_ELEMS = P::TM * (WGMMA ? M : LDA);
-  static constexpr int STAGE_ELEMS = A_ELEMS + P::TM * (WGMMA ? O : LDG);
+  static constexpr int STAGE_ELEMS = A_ELEMS + P::TM * (WGMMA ? ON : LDG);
   static constexpr int RING_BYTES = P::STAGES * STAGE_ELEMS * 2;
-  static constexpr int WTM = M / P::WM, WTN = O / P::WN;  // mma.sync: warp tile of dW
+  static constexpr int WTM = M / P::WM, WTN = ON / P::WN;  // mma.sync: warp tile of dW
   static constexpr int KW = P::TM / P::WK;         // a warp's rows of a step
   static constexpr int MT = WTM / 16, NT = WTN / 8;
-  static constexpr int ACC = WGMMA ? O / 2 : MT * NT * 4;  // accumulators a thread
-  static constexpr int LDO = O + 4;                // mma.sync: the partials in shared memory
+  static constexpr int ACC = WGMMA ? ON / 2 : MT * NT * 4;  // accumulators a thread
+  static constexpr int LDO = ON + 4;               // mma.sync: the partials in shared memory
   static constexpr int OUT_BYTES = WGMMA ? 0 : P::WK * M * LDO * 4;
   static constexpr int BODY_BYTES = RING_BYTES > OUT_BYTES ? RING_BYTES : OUT_BYTES;
   static constexpr int MAX_STEPS = P::ROWS / P::TM;
-  static_assert(!WGMMA || (P::KC == 64 && O % 64 == 0), "wgmma: a tap is one 64-channel block");
+  static_assert(!WGMMA || (P::KC == 64 && ON % 64 == 0), "wgmma: a tap is one 64-channel block");
   static_assert(C % P::KC == 0 && P::KC % 16 == 0, "whole 16-channel pieces per chunk");
-  static_assert(P::WM * P::WN * P::WK == 8 && M % (16 * P::WM) == 0 && O % (16 * P::WN) == 0,
+  static_assert(O % ON == 0 && ON <= 128, "column blocks of at most one m64n128");
+  static_assert(P::WM * P::WN * P::WK == 8 && M % (16 * P::WM) == 0 && ON % (16 * P::WN) == 0,
                 "eight warps over whole m16 tiles and pairs of n8 tiles");
   static_assert(KW % 16 == 0 && P::TM % 32 == 0, "whole k16 slices; a warp's words share a step");
   static_assert(MAX_STEPS >= 1, "a block takes at least one step");
@@ -129,11 +150,11 @@ template <int C, int O>
 __device__ __forceinline__ void load_step(int s, __nv_bfloat16* slot, const int* s_pk,
                                           const __nv_bfloat16* __restrict__ feat,
                                           const __nv_bfloat16* __restrict__ g, int v_in,
-                                          int row0, int ch) {
+                                          int row0, int ch, int col0) {
   using L = Layout<C, O>;
   constexpr int KV = L::KC / 8;  // 16-byte pieces of a tap
   constexpr int AV = 3 * KV;     // of an A row
-  constexpr int GV = O / 8;      // of a G row
+  constexpr int GV = L::ON / 8;  // of the block's columns of a G row
   const int* pk = s_pk + s * L::TM;
   const uint32_t a0 = smem_addr(slot);
   for (int i = threadIdx.x; i < L::TM * AV; i += L::THREADS) {
@@ -157,7 +178,7 @@ __device__ __forceinline__ void load_step(int s, __nv_bfloat16* slot, const int*
     const bool on = (pk[r] & 7) != 0;  // rows past V_out have no flags
     const int dst = L::WGMMA ? (vc / 8) * L::TM * 128 + r * 128 + (((vc % 8) ^ (r & 7)) << 4)
                           : (r * L::LDG + vc * 8) * 2;
-    cp_async16(g0 + dst, on ? g + (grow + r) * O + vc * 8 : g, on ? 16 : 0);
+    cp_async16(g0 + dst, on ? g + (grow + r) * O + col0 + vc * 8 : g, on ? 16 : 0);
   }
 }
 
@@ -179,7 +200,7 @@ __device__ __forceinline__ void step_products(float (&acc)[Layout<C, O>::ACC],
     for (int kk = 0; kk < L::TM; kk += 16) {
       const uint64_t da = wgmma_desc(a_tap + (kk / 8) * 1024, L::TM * 128, 1024);
       const uint64_t db = wgmma_desc(g_base + (kk / 8) * 1024, L::TM * 128, 1024);
-      wgmma_k16<O, 1>(acc, da, db);  // A M-major: the transpose flag
+      wgmma_k16<L::ON, 1>(acc, da, db);  // A M-major: the transpose flag
     }
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
@@ -227,7 +248,7 @@ gather_dw_kernel(const __nv_bfloat16* __restrict__ feat, const int* __restrict__
   int* s_list = s_act + steps;
   int* s_n = s_list + steps;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int p = blockIdx.x / L::CH, ch = blockIdx.x % L::CH;
+  const int p = blockIdx.x / L::CH, ch = blockIdx.x % L::CH, col0 = blockIdx.z * L::ON;
   const int tiles = v_out > 0 ? (v_out + L::TM - 1) / L::TM : 1;
   const int s0 = blockIdx.y * steps;
   const int ns = min(steps, tiles - s0);  // this chunk's steps
@@ -266,7 +287,9 @@ gather_dw_kernel(const __nv_bfloat16* __restrict__ feat, const int* __restrict__
   for (int i = 0; i < L::ACC; ++i) acc[i] = 0.0f;
 #pragma unroll
   for (int s = 0; s < L::STAGES - 1; ++s) {
-    if (s < n) load_step<C, O>(s_list[s], ring + s * L::STAGE_ELEMS, s_pk, feat, g, v_in, row0, ch);
+    if (s < n) {
+      load_step<C, O>(s_list[s], ring + s * L::STAGE_ELEMS, s_pk, feat, g, v_in, row0, ch, col0);
+    }
     cp_async_commit();
   }
   for (int i = 0; i < n; ++i) {
@@ -276,7 +299,7 @@ gather_dw_kernel(const __nv_bfloat16* __restrict__ feat, const int* __restrict__
     const int nx = i + L::STAGES - 1;
     if (nx < n) {
       load_step<C, O>(s_list[nx], ring + (nx % L::STAGES) * L::STAGE_ELEMS, s_pk, feat, g, v_in,
-                      row0, ch);
+                      row0, ch, col0);
     }
     cp_async_commit();
     step_products<C, O>(acc, ring + (i % L::STAGES) * L::STAGE_ELEMS, m0, n0, k0);
@@ -285,9 +308,10 @@ gather_dw_kernel(const __nv_bfloat16* __restrict__ feat, const int* __restrict__
   float* dst = ws + (size_t)blockIdx.y * n_pairs * 3 * C * O;
   if constexpr (L::WGMMA) {  // 4. each warpgroup's tap to the workspace once
     const int m = (warp % 4) * 16 + (lane >> 2);  // the tap's channel
-    float* row = dst + ((size_t)(p * 3 + warp / 4) * C + ch * L::KC + m) * O + (lane & 3) * 2;
+    float* row =
+        dst + ((size_t)(p * 3 + warp / 4) * C + ch * L::KC + m) * O + col0 + (lane & 3) * 2;
 #pragma unroll
-    for (int j = 0; j < O / 8; ++j) {
+    for (int j = 0; j < L::ON / 8; ++j) {
       *reinterpret_cast<float2*>(row + j * 8) = make_float2(acc[j * 4], acc[j * 4 + 1]);
       *reinterpret_cast<float2*>(row + 8 * O + j * 8) = make_float2(acc[j * 4 + 2], acc[j * 4 + 3]);
     }
@@ -309,7 +333,7 @@ gather_dw_kernel(const __nv_bfloat16* __restrict__ feat, const int* __restrict__
       }
     }
     __syncthreads();
-    constexpr int OV = O / 4;
+    constexpr int OV = L::ON / 4;
     for (int i = tid; i < L::M * OV; i += L::THREADS) {
       const int m = i / OV, c = (i % OV) * 4;
       float4 sum = *reinterpret_cast<const float4*>(s_out + m * L::LDO + c);
@@ -322,7 +346,7 @@ gather_dw_kernel(const __nv_bfloat16* __restrict__ feat, const int* __restrict__
         sum.w += t.w;
       }
       const int row = (p * 3 + m / L::KC) * C + ch * L::KC + m % L::KC;
-      *reinterpret_cast<float4*>(dst + (size_t)row * O + c) = sum;
+      *reinterpret_cast<float4*>(dst + (size_t)row * O + col0 + c) = sum;
     }
   }
 }
@@ -378,7 +402,7 @@ cudaError_t chunks_for(int v_out, int n_pairs, int* chunks) {
     resident = sms * per_sm > 0 ? sms * per_sm : 1;
   }
   const long long tiles = v_out > 0 ? (v_out + L::TM - 1) / L::TM : 1;
-  const long long per_chunk = (long long)n_pairs * L::CH;  // blocks of one row chunk
+  const long long per_chunk = (long long)n_pairs * L::CH * L::OS;  // blocks of one row chunk
   long long n = ((long long)resident * P::WAVES + per_chunk - 1) / per_chunk;
   const long long fewest = (tiles + L::MAX_STEPS - 1) / L::MAX_STEPS;
   n = n < fewest ? fewest : n;
@@ -398,7 +422,7 @@ cudaError_t launch(const void* feat, const void* packed, const void* g, void* ws
   if (steps > L::MAX_STEPS || (tiles + steps - 1) / steps != chunks) return cudaErrorInvalidValue;
   cudaError_t err = allow_smem<C, O>();
   if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)(n_pairs * L::CH), (unsigned)chunks);
+  const dim3 grid((unsigned)(n_pairs * L::CH), (unsigned)chunks, (unsigned)L::OS);
   gather_dw_kernel<C, O><<<grid, L::THREADS, smem_bytes<C, O>(steps), stream>>>(
       (const __nv_bfloat16*)feat, (const int*)packed, (const __nv_bfloat16*)g, (float*)ws, v_in,
       v_out, n_pairs, steps);
@@ -419,6 +443,7 @@ cudaError_t by_width(int c, int o, F&& f) {
       case 32: return f(cc, std::integral_constant<int, 32>{});
       case 64: return f(cc, std::integral_constant<int, 64>{});
       case 128: return f(cc, std::integral_constant<int, 128>{});
+      case 256: return f(cc, std::integral_constant<int, 256>{});
       default: return cudaErrorInvalidValue;
     }
   };
@@ -427,6 +452,7 @@ cudaError_t by_width(int c, int o, F&& f) {
     case 32: return on_o(std::integral_constant<int, 32>{});
     case 64: return on_o(std::integral_constant<int, 64>{});
     case 128: return on_o(std::integral_constant<int, 128>{});
+    case 256: return on_o(std::integral_constant<int, 256>{});
     default: return cudaErrorInvalidValue;
   }
 }

@@ -94,22 +94,29 @@
 // - The output is written once from the accumulators (float2 per thread,
 //   whole 32-byte sectors; the wgmma fragment repeats the mma.sync one per
 //   warp), the ragged last tile masked by row.
-// - O = 256 (ConQueR's res4: the strided conv into it at C = 128 and its
-//   SubM convs and (3,1,1) out conv at C = 256) runs as two blocks a tile,
-//   side by side over O (the grid's y): each owns 128 columns of W and of
-//   out (row stride 256) and is the O = 128 block in everything else. One
-//   block holding all 256 columns would need 128 accumulators a thread for
-//   the m64n256 fragment, past the 128 registers that two blocks an SM
-//   allow; the split keeps the O = 128 plan's registers and ring (two
-//   blocks an SM) and pays for it by gathering each tile's taps twice,
-//   once per half (those bytes come from L2 for the second half when the
-//   two blocks run together, which the grid's order does not promise).
-//   The stacked entry at O = 256 (res4's backward: the d_features gathers
-//   of its SubM convs, C256·O256, and of `down` over the inverse rulebook,
-//   C256·O128) splits the same way; the taps depend on C alone, so the
-//   two blocks stage the same A tiles and the block of y = 0 writes them,
-//   zeros of skipped steps included. At C = 256 and P = 18 a stacked row
-//   is 13 824 elements; offsets into `stacked` are size_t.
+// - O = 256 (ConQueR's res4: the strided conv into it at C = 128, its
+//   SubM convs and (3,1,1) out conv at C = 256, and their backward's
+//   d_features gathers in the stacked entry; `WIDE`) runs one block a tile
+//   over all 256 columns, so each tile's taps are gathered once. A step
+//   stages A [128, 64] (16 KB) and W's [64, 256] block (32 KB, four
+//   64-column blocks); each warpgroup multiplies its 64 rows with
+//   wgmma.m64n256k16 into 128 f32 accumulators a thread, one block an SM
+//   (≤ 255 registers), a 4-slot ring (192 KB). The steps' copies run two
+//   ahead and each step's wgmma group stays in flight through the next
+//   step's barrier and copies (LAG = 1: on the H100 the 5 res4 forward
+//   calls ran 24% slower waiting for each step's products,
+//   tools/port_kernel_sweep.py `lag0`), so the tensor cores work while the
+//   gathers are issued. All eight warps issue the copies, as in every
+//   plan: A's rows are gathered (no TMA), W's block would need a tensor
+//   map per call (the 128-byte swizzle) for one bulk copy, and a producer
+//   warpgroup with setmaxnreg would leave the consumers the same
+//   255-register cap they have here. At C ≤ 32 (no model conv) the block
+//   is mma.sync over 4 × 2 warps of 32 × 128. The earlier plan, two blocks
+//   of the O = 128 plan a tile side by side over O, gathered each tile's
+//   taps twice: on res4's calls on the H100 the one block takes 12.5% less
+//   device time in the forward and 12.8% less in the stacked entry
+//   (PERF.md §6). At C = 256 and P = 18 a stacked row is 13 824 elements;
+//   offsets into `stacked` are size_t.
 //
 // The block itself (rulebook, masks, step list, ring, products, stacked
 // writes, epilogue) is gather_gemm_core.cuh, shared with gather_gemm_g3.cu;
@@ -120,19 +127,20 @@
 // list (+ 1024 to align a wgmma ring). At P = 9 (P = 18 adds 4 680-4 860):
 // C16·O16 54 616, C16·O32 59 224, C32·O16 67 160, C32·O32 73 304, C32·O64
 // 85 592, C64·O32 75 424, C64·O64 79 520, C64·O128 104 096, C128·O64
-// 79 628, C128·O128 104 204; at 256, C128·O256 104 204 and C256·O256
-// 104 420 (a block of an O = 256 plan is the O = 128 plan's; C256·O16-O128
-// are the C128 plans with 12 steps a pair, + 216 bytes), in either entry.
-// Registers (≤ 128 by the launch bound of two blocks an SM), forward /
-// stacked, as `ptxas -v` prints them in chip_smoke.py's `device` line:
-// C16·O16 63 / 80, C16·O32 72 / 112, C16·O64 102 / 118, C32·O16 64 / 88,
-// C32·O32 79 / 96, C32·O64 103 / 114, C64·O16 64 / 108, C64·O32 80 / 96,
-// C64·O64 94 / 106, C64·O128 124 / 128, C128·O16-O64 55-83 / 92-96,
-// C128·O128 124 / 123, C256·O16-O64 55-83 / 92-96, C256·O128 and O256
-// 124 / 123, C128·O256 124 / 123, C64·O256 124 / 128, C32·O128 and O256
-// and C16·O128 and O256 128 / 128. No spills on a model's path; 24 bytes
-// spill in the stacked C32·O128 and C32·O256 and 8 bytes in the forward
-// C16·O128 and C16·O256, which no model conv runs.
+// 79 628, C128·O128 104 204; C256·O16-O128 are the C128 plans with 12
+// steps a pair (+ 216 bytes). At O = 256 (4 slots of 48 KB, 2 of 75.5 KB
+// at C = 32), in either entry: C16 163 416, C32 159 320, C64 202 400, C128
+// 202 508, C256 202 724.
+// Registers (≤ 128 by the launch bound of two blocks an SM; ≤ 255 at
+// O = 256, one block an SM), forward / stacked, as `ptxas -v` prints them
+// in chip_smoke.py's `device` line:
+// C16·O16 56 / 80, C16·O32 72 / 112, C16·O64 103 / 114, C16·O128 128 / 128,
+// C32·O16 58 / 90, C32·O32 77 / 96, C32·O64 101 / 114, C32·O128 128 / 128,
+// C64·O16 60 / 106, C64·O32 80 / 96, C64·O64 83 / 114, C64·O128 124 / 128,
+// C128 and C256·O16-O64 55-83 / 94-96, C128 and C256·O128 123 / 125; at
+// O = 256, C64-C256 185 / 206 (wgmma), C32 238 / 255 and C16 238 / 239
+// (mma.sync). No spills on a model's path; 8 bytes spill in the forward
+// C16·O128 and 4 in the stacked C32·O256, which no model conv runs.
 
 #include "gather_gemm_core.cuh"
 
@@ -149,10 +157,11 @@ struct Plan {
   static constexpr int CHUNKS = C / KC;          // steps per tap
   static constexpr int SPP = 3 / TAPS * CHUNKS;  // steps per pair
   static constexpr int KS = TAPS * KC;           // K of one step
-  static constexpr int STAGES = C == 32 ? 2 : 3;  // ring slots (see the note)
-  static constexpr int MIN_BLOCKS = 2;           // launch bound: ≤ 128 registers
+  static constexpr bool WIDE = O > 128;          // all 256 columns in one block a tile
+  static constexpr int STAGES = C == 32 ? 2 : (WIDE ? 4 : 3);  // ring slots (see the note)
+  static constexpr int MIN_BLOCKS = WIDE ? 1 : 2;  // launch bound: ≤ 255 or ≤ 128 registers
+  static constexpr int LAG = WIDE ? 1 : 0;       // wgmma groups left in flight across a step
   static constexpr bool PERSIST = false;         // a block per tile
-  static constexpr int OSPLIT = O > 128 ? 2 : 1;  // blocks a tile, side by side over O
   static_assert(C < 64 || KS == 64, "a wgmma step is one 128-byte swizzle span");
 };
 

@@ -31,10 +31,9 @@
 // flag among its taps is skipped (its stacked columns written as zeros).
 // Products: wgmma.m64nOk16 from 128-byte-swizzled tiles where C, O ≥ 64
 // (a step's K is 64 there, one swizzle span), mma.sync + ldmatrix
-// otherwise. A plan with OSPLIT > 1 splits O over that many blocks of a
-// tile (the grid's y): each owns O / OSPLIT ≤ 128 columns of W and out
-// and gathers the tile's taps itself; with EMIT only the block of y = 0
-// writes them to `stacked` (O = 256 in either entry).
+// otherwise. A plan's LAG = 1 leaves each step's wgmma group in flight
+// through the next step's barrier and copies (its ring slot is refilled
+// one step later).
 //
 // Everything here lives in an anonymous namespace: each source is its own
 // translation unit and shared library, and its Plan is its own.
@@ -54,8 +53,8 @@ constexpr int kPad = 8;  // row padding (16 bytes) of the staged bf16 tiles (mma
 // The step plan of the including source: TM (output rows per block), PAIRS
 // (pairs per step), TAPS (taps of each pair per step, 3 or 1), KC (channels
 // of a tap per step), STAGES (ring slots), MIN_BLOCKS (the launch bound),
-// PERSIST (persistent blocks that prefetch the next tile's rulebook),
-// OSPLIT (blocks side by side over O, the grid's y).
+// PERSIST (persistent blocks that prefetch the next tile's rulebook), LAG
+// (wgmma groups left in flight across a step, 0 or 1).
 template <int C, int O, bool EMIT>
 struct Plan;
 
@@ -71,21 +70,21 @@ struct Layout {
   static constexpr int SPP = 3 / TAPS * CHUNKS;   // steps per group of PAIRS pairs
   static constexpr int KS = PAIRS * TAPS * KC;    // K of one step
   static constexpr int STAGES = P::STAGES;
-  static constexpr int OSPLIT = P::OSPLIT;
-  static constexpr int ON = O / OSPLIT;           // output columns of one block
-  // wgmma (two warpgroups, 64 rows each, all the block's columns) where C, ON ≥ 64
-  static constexpr bool WG = C >= 64 && ON >= 64;
+  // wgmma (two warpgroups, 64 rows each, all O columns) where C, O ≥ 64
+  static constexpr bool WG = C >= 64 && O >= 64;
+  static constexpr int LAG = WG ? P::LAG : 0;     // wgmma groups in flight
+  static constexpr int AHEAD = STAGES - 1 - LAG;  // steps whose copies fly ahead
   // mma.sync tiles are padded rows; wgmma tiles are 128-byte rows (K = 64),
   // swizzled
   static constexpr int LDA = WG ? KS : KS + kPad;
-  static constexpr int LDW = WG ? ON : ON + kPad;
+  static constexpr int LDW = WG ? O : O + kPad;
   static constexpr int A_ELEMS = TM * LDA;
   static constexpr int STAGE_ELEMS = A_ELEMS + KS * LDW;
   static constexpr int RING_BYTES = STAGES * STAGE_ELEMS * 2;
-  static constexpr int WN = WG || ON == 16 ? 1 : 2;  // warp grid (wgmma: a warp's 16 rows)
+  static constexpr int WN = WG || O == 16 ? 1 : 2;  // warp grid (wgmma: a warp's 16 rows)
   static constexpr int WM = kWarps / WN;
   static constexpr int WTM = TM / WM;             // warp tile
-  static constexpr int WTN = ON / WN;
+  static constexpr int WTN = O / WN;
   static constexpr int MT = WTM / 16;             // m16 tiles per warp
   static constexpr int NT = WTN / 8;              // n8 tiles per warp
   static_assert(NT % 2 == 0, "B fragments load two n8 tiles at a time");
@@ -95,7 +94,8 @@ struct Layout {
   static_assert(PAIRS == 1 || (TAPS == 3 && KC == C), "a group step takes whole pairs");
   static_assert(!WG || (KS == 64 && TM == 128),
                 "wgmma: K of one 128-byte swizzle span, two warpgroups of 64 rows");
-  static_assert(O % OSPLIT == 0 && ON <= 128, "a block's columns are at most one m64n128");
+  static_assert(O <= 256, "a block's columns are at most one m64n256");
+  static_assert(LAG <= 1 && AHEAD >= 1, "a slot is refilled only after its wgmma group is done");
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -184,12 +184,47 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a, uin
       : "l"(a), "l"(b), "r"(1), "n"(TRANS_A));
 }
 
+template <int TRANS_A = 0>
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, %131, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(1), "n"(TRANS_A));
+}
+
 template <int N, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_k16(float (&d)[N / 2], uint64_t a, uint64_t b) {
   if constexpr (N == 64) {
     wgmma_m64n64k16<TRANS_A>(d, a, b);
-  } else {
+  } else if constexpr (N == 128) {
     wgmma_m64n128k16<TRANS_A>(d, a, b);
+  } else {
+    wgmma_m64n256k16<TRANS_A>(d, a, b);
   }
 }
 
@@ -240,14 +275,13 @@ __device__ __forceinline__ int a_offset(int r, int vc) {
   }
 }
 
-// start the cp.async copies of step e into ring slot `slot` (W's columns
-// [col0, col0 + ON)); W rows at and past w_rows (a group's missing pairs)
-// are zero-filled
+// start the cp.async copies of step e into ring slot `slot`; W rows at and
+// past w_rows (a group's missing pairs) are zero-filled
 template <int C, int O, bool EMIT>
 __device__ __forceinline__ void load_step(int e, __nv_bfloat16* slot, const int* s_pk,
                                           const __nv_bfloat16* __restrict__ feat,
                                           const __nv_bfloat16* __restrict__ w, int v_in,
-                                          int w_rows, int col0) {
+                                          int w_rows) {
   using L = Layout<C, O, EMIT>;
   const Step<C, O, EMIT> st(e);
   constexpr int KV = L::KC / 8;         // 16-byte pieces of one tap
@@ -265,9 +299,9 @@ __device__ __forceinline__ void load_step(int e, __nv_bfloat16* slot, const int*
     const __nv_bfloat16* g = on ? feat + (size_t)src * C + st.ch * L::KC + cv * 8 : feat;
     cp_async16(a0 + a_offset<C, O, EMIT>(r, vc), g, on ? 16 : 0);
   }
-  constexpr int WV = L::ON / 8;
+  constexpr int WV = O / 8;
   const int row0 = st.col();
-  const __nv_bfloat16* wsrc = w + (size_t)row0 * O + col0;
+  const __nv_bfloat16* wsrc = w + (size_t)row0 * O;
   const uint32_t w0 = a0 + L::A_ELEMS * 2;
   for (int i = threadIdx.x; i < L::KS * WV; i += kThreads) {
     const int k = i / WV, vc = i % WV;
@@ -343,10 +377,12 @@ __device__ __forceinline__ void step_products(float (&acc)[Layout<C, O, EMIT>::M
     for (int kk = 0; kk < L::KS; kk += 16) {
       const uint64_t da = wgmma_desc(a_wg + kk * 2, 16, 1024);
       const uint64_t db = wgmma_desc(w_base + (kk / 8) * 1024, L::KS * 128, 1024);
-      wgmma_k16<L::ON>(acc, da, db);
+      wgmma_k16<O>(acc, da, db);
     }
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    // with LAG, this step's group runs on while the next step waits, meets
+    // the barrier and issues its copies
+    asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(L::LAG) : "memory");
     fence_acc(acc);
   } else {
 #pragma unroll
@@ -369,14 +405,14 @@ __device__ __forceinline__ void step_products(float (&acc)[Layout<C, O, EMIT>::M
   }
 }
 
-// The accumulators to out: row lane/4 [+8], columns col0 + 2·(lane%4) + {0, 1}
+// The accumulators to out: row lane/4 [+8], columns 2·(lane%4) + {0, 1}
 // of each n8 tile (the wgmma fragment repeats the mma.sync one), whole
 // 32-byte sectors, the ragged last tile masked by row.
 template <int C, int O, bool EMIT>
 __device__ __forceinline__ void store_out(const float (&acc)[Layout<C, O, EMIT>::MT *
                                                              Layout<C, O, EMIT>::NT * 4],
                                           float* __restrict__ out, int row0, int rows,
-                                          int warp_row, int warp_col, int col0) {
+                                          int warp_row, int warp_col) {
   using L = Layout<C, O, EMIT>;
   const int lane = threadIdx.x & 31;
 #pragma unroll
@@ -384,7 +420,7 @@ __device__ __forceinline__ void store_out(const float (&acc)[Layout<C, O, EMIT>:
     const int r = warp_row + mt * 16 + (lane >> 2);
 #pragma unroll
     for (int nt = 0; nt < L::NT; ++nt) {
-      const int c = col0 + warp_col + nt * 8 + (lane & 3) * 2;
+      const int c = warp_col + nt * 8 + (lane & 3) * 2;
       const float* d = acc + (mt * L::NT + nt) * 4;
       if (r < rows) {
         *reinterpret_cast<float2*>(out + (size_t)(row0 + r) * O + c) = make_float2(d[0], d[1]);
@@ -399,28 +435,22 @@ __device__ __forceinline__ void store_out(const float (&acc)[Layout<C, O, EMIT>:
 
 // The tile's products (its accumulators zeroed here) over the ring of its
 // steps that run, and with EMIT its stacked taps, zeros included; then its
-// rows of out, columns [col0, col0 + ON). Every copy the tile issued has
-// landed when it returns.
+// rows of out. Every copy the tile issued has landed when it returns.
 template <int C, int O, bool EMIT>
 __device__ __forceinline__ void run_tile(const TileSmem& t, __nv_bfloat16* ring,
                                          const __nv_bfloat16* __restrict__ feat,
                                          const __nv_bfloat16* __restrict__ w,
                                          float* __restrict__ out,
                                          __nv_bfloat16* __restrict__ stacked, int v_in,
-                                         int n_pairs, int n_all, int row0, int rows,
-                                         int col0) {
+                                         int n_pairs, int n_all, int row0, int rows) {
   using L = Layout<C, O, EMIT>;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x, warp = tid >> 5;
   const size_t lds = (size_t)n_pairs * 3 * C;  // stacked row length
   const int w_rows = n_pairs * 3 * C;
   const int n = *t.n;
-  // The taps a tile gathers depend on C alone, so the OSPLIT blocks of a
-  // tile stage the same A tiles: the block of the first columns writes the
-  // tile's stacked taps, the others none.
-  const bool taps = EMIT && blockIdx.y == 0;
 
   constexpr int AV = L::KS / 8;
-  if (taps && n < n_all) {  // the skipped steps' columns of stacked are zero
+  if (EMIT && n < n_all) {  // the skipped steps' columns of stacked are zero
     for (int e = 0; e < n_all; ++e) {
       const Step<C, O, EMIT> st(e);
       if (st.active(t.mask)) continue;
@@ -438,10 +468,9 @@ __device__ __forceinline__ void run_tile(const TileSmem& t, __nv_bfloat16* ring,
   for (int k = 0; k < L::MT * L::NT * 4; ++k) acc[k] = 0.0f;
 
 #pragma unroll
-  for (int s = 0; s < L::STAGES - 1; ++s) {
+  for (int s = 0; s < L::AHEAD; ++s) {
     if (s < n) {
-      load_step<C, O, EMIT>(t.steps[s], ring + s * L::STAGE_ELEMS, t.pk, feat, w, v_in, w_rows,
-                            col0);
+      load_step<C, O, EMIT>(t.steps[s], ring + s * L::STAGE_ELEMS, t.pk, feat, w, v_in, w_rows);
     }
     cp_async_commit();
   }
@@ -452,19 +481,21 @@ __device__ __forceinline__ void run_tile(const TileSmem& t, __nv_bfloat16* ring,
   const int warp_col = wn * L::WTN;
 
   for (int i = 0; i < n; ++i) {
-    cp_async_wait<L::STAGES - 2>();
+    cp_async_wait<L::AHEAD - 1>();
     if constexpr (L::WG) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    __syncthreads();  // step i has landed everywhere; the slot of step i − 1 is free
+    // step i has landed everywhere; the slot of step i − 1 − LAG is free (its
+    // products are done: each warpgroup waited for them before this barrier)
+    __syncthreads();
     {
-      const int nx = i + L::STAGES - 1;
+      const int nx = i + L::AHEAD;
       if (nx < n) {
         load_step<C, O, EMIT>(t.steps[nx], ring + (nx % L::STAGES) * L::STAGE_ELEMS, t.pk, feat, w,
-                              v_in, w_rows, col0);
+                              v_in, w_rows);
       }
       cp_async_commit();
     }
     const __nv_bfloat16* sA = ring + (i % L::STAGES) * L::STAGE_ELEMS;
-    if (taps) {
+    if (EMIT) {
       const int col = Step<C, O, EMIT>(t.steps[i]).col();
       for (int j = tid; j < rows * AV; j += kThreads) {
         const int r = j / AV, vc = j % AV;
@@ -477,7 +508,11 @@ __device__ __forceinline__ void run_tile(const TileSmem& t, __nv_bfloat16* ring,
     step_products<C, O, EMIT>(acc, sA, warp_row, warp_col);
   }
   cp_async_wait<0>();
-  store_out<C, O, EMIT>(acc, out, row0, rows, warp_row, warp_col, col0);
+  if constexpr (L::LAG > 0) {  // the last step's products
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_acc(acc);
+  }
+  store_out<C, O, EMIT>(acc, out, row0, rows, warp_row, warp_col);
 }
 
 // One block per tile of TM output rows: the tile's rulebook entries loaded
@@ -516,7 +551,7 @@ gather_gemm_kernel(const __nv_bfloat16* __restrict__ feat, const int* __restrict
   list_steps<C, O, EMIT>(t, n_all);
   __syncthreads();
   run_tile<C, O, EMIT>(t, reinterpret_cast<__nv_bfloat16*>(smem), feat, w, out, stacked, v_in,
-                       n_pairs, n_all, row0, rows, blockIdx.y * L::ON);
+                       n_pairs, n_all, row0, rows);
 }
 
 // 4-byte async copy; src_bytes 0 fills the destination with zeros and reads nothing
@@ -578,7 +613,7 @@ gather_gemm_persistent_kernel(const __nv_bfloat16* __restrict__ feat,
     list_steps<C, O, EMIT>(t, n_all);
     __syncthreads();
     run_tile<C, O, EMIT>(t, reinterpret_cast<__nv_bfloat16*>(smem), feat, w, out, stacked, v_in,
-                         n_pairs, n_all, row0, rows, blockIdx.y * L::ON);
+                         n_pairs, n_all, row0, rows);
   }
   cp_async_wait<0>();
 }
@@ -605,8 +640,7 @@ size_t smem_bytes(int n_pairs) {
 }
 
 // A block per tile, or (Plan::PERSIST) as many persistent blocks as the
-// card holds at once, each taking every gridDim.x-th tile; OSPLIT blocks
-// side by side (the grid's y) over O.
+// card holds at once, each taking every gridDim.x-th tile.
 template <int C, int O, bool EMIT>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   using L = Layout<C, O, EMIT>;
@@ -644,7 +678,7 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
     }
     blocks = tiles < resident ? tiles : resident;
   }
-  kernel<<<dim3((unsigned)blocks, L::OSPLIT), kThreads, smem, stream>>>(
+  kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
       (const __nv_bfloat16*)a.feat, (const int*)a.packed, (const __nv_bfloat16*)a.w,
       (float*)a.out, (__nv_bfloat16*)a.stacked, a.v_in, a.v_out, a.n_pairs);
   return cudaGetLastError();

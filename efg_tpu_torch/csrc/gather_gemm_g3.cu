@@ -72,7 +72,7 @@ struct Plan {
   static constexpr bool PERSIST = EMIT ? C == 16 || (C == 32 && O == 32)
                                       : (C == 16 && O == 32) || (C == 32 && O == 64) ||
                                             (C == 64 && O == 64);
-  static constexpr int OSPLIT = 1;  // a block owns all O columns
+  static constexpr int LAG = 0;  // each step's wgmma group done before the next
 };
 
 template <bool EMIT>

@@ -31,8 +31,9 @@ backward, one for each Pallas kernel:
   per pair over its three tap rows, loaded as one span.
 - `fused_gather_dw` → `csrc/gather_dw.cu` (replaces `_dw_kernel`): dW by
   re-gathering the inputs, where the stacked taps do not apply: a block
-  per (pair, channel chunk, row chunk), its partial summed over the row
-  chunks in a fixed order by a second kernel.
+  per (pair, channel chunk, row chunk, block of ≤ 128 output columns),
+  its partial summed over the row chunks in a fixed order by a second
+  kernel.
 
 Each wrapper dispatches on the tensor's device: a CUDA tensor launches the
 kernel the switches select (or raises), a CPU tensor runs the plain
@@ -67,10 +68,9 @@ from efg_tpu_torch.ops.cuda import build as _build
 INVALID_Q = 1 << 29
 CLAMP_Q = 1 << 30  # canonical +inf value keys/queries are clamped to
 
-# C and O both entries of the gather-GEMM kernel take; the dW entry stops
-# at DW_CHANNELS (its 256-channel plan: ROADMAP queue 2 item 1)
+# C and O every entry of the gather-GEMM and dW kernels takes (other
+# widths up to 256 run zero-padded to the next one)
 GEMM_CHANNELS = (16, 32, 64, 128, 256)
-DW_CHANNELS = 128
 
 # The switches of efg_tpu's sparse kernels (its sparse_kernels.py:62,66):
 # the rank kernel merge_rank_flags runs ("seq", "seq4"; `seq=False` gives
@@ -89,13 +89,15 @@ HOSTWIN_ROW = 128  # keys per window row, and queries per band, of hostwin
 # (`efg_tpu.ops.sparse.set_compute_dtype`); the kernels refuse it.
 COMPUTE_DTYPE = torch.bfloat16
 
-# gather_gemm_256 and gather_gemm_stacked_256 count the launches of
-# gather_gemm.cu's two entries with C or O of 256 (ConQueR's res4),
-# gather_gemm and gather_gemm_stacked the others
+# gather_gemm_256, gather_gemm_stacked_256 and gather_dw_256 count the
+# launches of gather_gemm.cu's two entries and of gather_dw.cu with C or O
+# of 256 (ConQueR's res4), gather_gemm, gather_gemm_stacked and gather_dw
+# the others
 launches: Dict[str, int] = {
     "rank_flags": 0, "gather_gemm": 0, "gather_gemm_stacked": 0, "gather_dw": 0,
     "rank_flags_seq4": 0, "rank_flags_hostwin": 0, "gather_gemm_g3": 0,
     "gather_gemm_g3_stacked": 0, "gather_gemm_256": 0, "gather_gemm_stacked_256": 0,
+    "gather_dw_256": 0,
 }
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -346,13 +348,11 @@ def _width(n: int) -> int:
     raise ValueError(f"the sparse kernels take at most {GEMM_CHANNELS[-1]} channels, got {n}")
 
 
-def _check_dw_widths(c: int, o: int) -> None:
-    """The dW entry takes C, O ≤ DW_CHANNELS, on either device: what its
-    kernel takes (a CPU call runs the plain version of the same contract)."""
-    if max(c, o) > DW_CHANNELS:
-        raise ValueError(
-            f"fused_gather_dw takes at most {DW_CHANNELS} channels, got C={c}, O={o}: its "
-            "256-channel kernel is not ported yet (ROADMAP queue 2 item 1)")
+def _check_widths(entry: str, c: int, o: int) -> None:
+    """Every entry takes C, O ≤ 256, on either device: what its kernel
+    takes (a CPU call runs the plain version of the same contract)."""
+    if max(c, o) > GEMM_CHANNELS[-1]:
+        raise ValueError(f"{entry} takes at most {GEMM_CHANNELS[-1]} channels, got C={c}, O={o}")
 
 
 def _pad_cols(t: torch.Tensor, width: int) -> torch.Tensor:
@@ -420,6 +420,7 @@ def fused_gather_gemm(features: torch.Tensor, packed: torch.Tensor,
     V_in == V_out for SubM convs; strided convs index input rows from the
     output sites. C, O ≤ 256. On the card the calls `use_g3` admits run
     the group-merged kernel."""
+    _check_widths("fused_gather_gemm", features.shape[1], weights.shape[1])
     if _on_card(features):
         return _gather_gemm_cuda(features, packed, weights, emit=False)
     return gather_gemm_plain(features, packed, weights)
@@ -432,6 +433,7 @@ def gather_gemm_stacked(features: torch.Tensor, packed: torch.Tensor,
     bf16) with stacked[v, (p·3 + t)·C + c] = flag_t · f[row_t(v), c].
     The layout is the transpose of efg_tpu's [P·3·C, vt] buffer, without
     its tile padding. C, O ≤ 256, as the forward."""
+    _check_widths("gather_gemm_stacked", features.shape[1], weights.shape[1])
     if _on_card(features):
         return _gather_gemm_cuda(features, packed, weights, emit=True)
     return gather_gemm_stacked_plain(features, packed, weights)
@@ -490,7 +492,7 @@ def _gather_dw_cuda(features, packed, g) -> torch.Tensor:
         dw.data_ptr(), v_in, v_out, n_pairs, cw, ow, chunks.value, _stream(dev),
     )
     _build.check(lib, err, "gather_dw launch")
-    launches["gather_dw"] += 1
+    launches["gather_dw_256" if max(cw, ow) == GEMM_CHANNELS[-1] else "gather_dw"] += 1
     return dw.view(n_pairs * 3, cw, ow)[:, :c, :o].reshape(-1, o)
 
 
@@ -503,8 +505,8 @@ def fused_gather_dw(features: torch.Tensor, packed: torch.Tensor,
     of the kernel's blocks, summed in chunk order), so two calls on the
     same inputs give the same bits; against the plain version, whose order
     differs, compare at f32-accumulation tolerance (~1e-5 of max|dW|).
-    C, O ≤ DW_CHANNELS."""
-    _check_dw_widths(features.shape[1], g.shape[1])
+    C, O ≤ 256."""
+    _check_widths("fused_gather_dw", features.shape[1], g.shape[1])
     if _on_card(features):
         return _gather_dw_cuda(features, packed, g)
     return gather_dw_plain(features, packed, g)

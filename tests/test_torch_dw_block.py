@@ -1,8 +1,8 @@
 """Port parity: the block schedule of the dW kernel.
 
 `csrc/gather_dw.cu` (replaces efg_tpu's `_dw_kernel`) gives a block one
-pair, KC channels of each of its three taps and a chunk of steps of TM
-output rows. It loads the chunk's rulebook words, lists the steps where some
+pair, KC channels of each of its three taps, ON ≤ 128 columns of O (two
+column blocks at O = 256) and a chunk of steps of TM output rows. It loads the chunk's rulebook words, lists the steps where some
 row has one of the pair's flags, stages each listed step's three tap rows as
 one A tile [TM, 3·KC] and its gradient rows as one G tile [TM, O] (zero
 where a tap's flag is off or its row is out of range, G zero where the row
@@ -13,13 +13,15 @@ second kernel sums over the chunks in chunk order. A CUDA kernel cannot run
 here, so a numpy model of that schedule, its Plan read from the source's
 `constexpr` lines, is held in f64 at 1e-5·max|ref| against efg_tpu's
 `fused_gather_dw` in Pallas interpret mode and against `gather_dw_plain`,
-on the gather-GEMM's hazard cases and on cases of the dW kernel's own.
+on the gather-GEMM's hazard cases (those at 256 channels too) and on
+cases of the dW kernel's own.
 Every step with a live tap runs, a skipped step's slice of A is zero, the
 blocks write every row of the workspace once, and a planted fault (a skip
 rule blind to a step's last row, tap 2 read at pos) fails the model. The
 Plans' shared memory and accumulators are held against the H100's limits.
 The kernel itself is held against the plain version and the stacked path's
-dW on the card by chip_smoke.py (phase `train_kernels`)."""
+dW on the card by chip_smoke.py (phase `train_kernels`; at 256 channels
+phases `kernels`, on WIDE_EDGE_CASES, and `detr_train`, on ConQueR's res4)."""
 
 import functools
 import re
@@ -36,7 +38,8 @@ from efg_tpu.ops.pallas import sparse_kernels as PK
 from efg_tpu_torch.ops import sparse as TS
 from efg_tpu_torch.ops.cuda import sparse_kernels as K
 
-from test_torch_sparse_gemm_cases import GEMM_CASES, _gemm_case
+from test_torch_sparse_gemm_cases import (GEMM_CASES, WIDE_CASES, _c_eval, _gemm_case,
+                                          _pair_no_flag)
 from test_torch_sparse_kernels import NO_LAUNCHES, both_tensors, sites
 
 PK.set_interpret(True)
@@ -53,68 +56,6 @@ PAD = 8  # row padding of the staged bf16 tiles (gather_gemm_core.cuh kPad)
 # ---------------------------------------------------------------------------
 
 
-def _c_eval(expr: str, env: dict) -> int:
-    """The value of a C integer constant expression (literals, names in
-    `env`, ?:, || && ! == != < <= > >= + - * / %, parentheses)."""
-    toks = re.findall(r"\d+|\w+|&&|\|\||==|!=|<=|>=|[-+*/%<>!?:()]", expr)
-    pos = 0
-
-    def peek():
-        return toks[pos] if pos < len(toks) else None
-
-    def take(t=None):
-        nonlocal pos
-        tok = toks[pos]
-        assert t is None or tok == t, (expr, tok, t)
-        pos += 1
-        return tok
-
-    def primary():
-        t = take()
-        if t == "(":
-            v = ternary()
-            take(")")
-            return v
-        if t == "!":
-            return int(not primary())
-        if t == "-":
-            return -primary()
-        if t.isdigit():
-            return int(t)
-        return {"true": 1, "false": 0}[t] if t in ("true", "false") else env[t]
-
-    levels = [("||",), ("&&",), ("==", "!="), ("<", "<=", ">", ">="), ("+", "-"), ("*", "/", "%")]
-    ops = {"||": lambda a, b: int(bool(a) or bool(b)), "&&": lambda a, b: int(bool(a) and bool(b)),
-           "==": lambda a, b: int(a == b), "!=": lambda a, b: int(a != b),
-           "<": lambda a, b: int(a < b), "<=": lambda a, b: int(a <= b),
-           ">": lambda a, b: int(a > b), ">=": lambda a, b: int(a >= b),
-           "+": lambda a, b: a + b, "-": lambda a, b: a - b, "*": lambda a, b: a * b,
-           "/": lambda a, b: int(a / b), "%": lambda a, b: a - int(a / b) * b}
-
-    def binary(level):
-        if level == len(levels):
-            return primary()
-        v = binary(level + 1)
-        while peek() in levels[level]:
-            op = take()
-            v = ops[op](v, binary(level + 1))
-        return v
-
-    def ternary():
-        cond = binary(0)
-        if peek() == "?":
-            take("?")
-            a = ternary()
-            take(":")
-            b = ternary()
-            return a if cond else b
-        return cond
-
-    v = ternary()
-    assert pos == len(toks), (expr, toks[pos:])
-    return v
-
-
 def plan_lines(text: str) -> list:
     """(member, expression) of each `static constexpr int` line of the
     source's `struct Plan`, in order."""
@@ -127,21 +68,22 @@ def dw_plan(c: int, o: int, text: str = None) -> dict:
     env = {"C": c, "O": o}
     for member, expr in plan_lines(text if text is not None else SOURCE.read_text()):
         env[member] = _c_eval(expr, env)
-    kc, tm, wg = env["KC"], env["TM"], bool(env["WG"])
+    kc, tm, wg, on = env["KC"], env["TM"], bool(env["WG"]), env["ON"]
     m = 3 * kc
     if wg:  # a warpgroup per tap over all of a step's rows; unpadded swizzled tiles
-        ring = env["STAGES"] * tm * (m + o) * 2
+        ring = env["STAGES"] * tm * (m + on) * 2
         out = 0
     else:
-        ring = env["STAGES"] * tm * (m + PAD + o + PAD) * 2
-        out = env["WK"] * m * (o + 4) * 4
-    env.update(CH=c // kc, M=m, THREADS=3 * 128 if wg else 32 * env["WM"] * env["WN"] * env["WK"],
-               WTM=m // env["WM"], WTN=o // env["WN"], KW=tm // env["WK"],
+        ring = env["STAGES"] * tm * (m + PAD + on + PAD) * 2
+        out = env["WK"] * m * (on + 4) * 4
+    env.update(CH=c // kc, OS=o // on, M=m,
+               THREADS=3 * 128 if wg else 32 * env["WM"] * env["WN"] * env["WK"],
+               WTM=m // env["WM"], WTN=on // env["WN"], KW=tm // env["WK"],
                BODY=max(ring, out), MAX_STEPS=env["ROWS"] // tm)
     if wg:  # each warpgroup takes all of a step's rows
         env.update(WK=1, KW=tm)
     env.update(MT=env["WTM"] // 16, NT=env["WTN"] // 8)
-    env["ACC"] = o // 2 if wg else env["MT"] * env["NT"] * 4
+    env["ACC"] = on // 2 if wg else env["MT"] * env["NT"] * 4
     return env
 
 
@@ -156,7 +98,7 @@ def row_chunks(plan: dict, v_out: int, n_pairs: int, resident: int) -> int:
     at most ROWS rows a block, no more chunks than tiles, then as few chunks
     as hold the steps a chunk takes."""
     tiles = -(-v_out // plan["TM"]) if v_out > 0 else 1
-    n = -(-resident * plan["WAVES"] // (n_pairs * plan["CH"]))
+    n = -(-resident * plan["WAVES"] // (n_pairs * plan["CH"] * plan["OS"]))
     n = min(max(n, -(-tiles // plan["MAX_STEPS"])), tiles)
     steps = -(-tiles // n)
     return -(-tiles // steps)
@@ -201,7 +143,7 @@ def model_dw(feats, packed, g, resident, rule=runs_kernel, rows_of=tap_rows):
     gd = np.zeros((v_out, o))
     gd[:, :o0] = torch.from_numpy(g).to(torch.bfloat16).double().numpy()
     plan = dw_plan(c, o)
-    tm, kc, wk_n, kw = plan["TM"], plan["KC"], plan["WK"], plan["KW"]
+    tm, kc, wk_n, kw, ncol = plan["TM"], plan["KC"], plan["WK"], plan["KW"], plan["ON"]
     chunks = row_chunks(plan, v_out, n_pairs, resident)
     tiles = -(-v_out // tm) if v_out > 0 else 1
     steps = -(-tiles // chunks)
@@ -217,8 +159,9 @@ def model_dw(feats, packed, g, resident, rule=runs_kernel, rows_of=tap_rows):
             words = np.zeros(ns * tm, np.int64)
             real = np.arange(row0, min(row0 + ns * tm, v_out))
             words[:len(real)] = packed[p, real]
-            for ch in range(plan["CH"]):
-                acc = np.zeros((wk_n, 3 * kc, o))
+            for ch, col0 in ((ch, col0) for ch in range(plan["CH"]) for col0 in range(0, o, ncol)):
+                cols = slice(col0, col0 + ncol)  # the block's columns of G and of dW
+                acc = np.zeros((wk_n, 3 * kc, ncol))
                 for s in range(ns):
                     w = words[s * tm:(s + 1) * tm]
                     pos, fl = w >> 3, w & 7
@@ -228,9 +171,9 @@ def model_dw(feats, packed, g, resident, rule=runs_kernel, rows_of=tap_rows):
                         on = ((fl >> (2 - t)) & 1).astype(bool) & (src >= 0) & (src < v_in)
                         live[:, t] = on
                         a[on, t * kc:(t + 1) * kc] = f[src[on], ch * kc:(ch + 1) * kc]
-                    gt = np.zeros((tm, o))
+                    gt = np.zeros((tm, ncol))
                     live_rows = np.flatnonzero(fl != 0)
-                    gt[live_rows] = gd[row0 + s * tm + live_rows]
+                    gt[live_rows] = gd[row0 + s * tm + live_rows, cols]
                     total += 1
                     if not rule(w):
                         assert not live.any(), "a step with a live tap skipped"
@@ -245,9 +188,9 @@ def model_dw(feats, packed, g, resident, rule=runs_kernel, rows_of=tap_rows):
                     part += acc[wk]
                 for t in range(3):
                     dst = slice((p * 3 + t) * c + ch * kc, (p * 3 + t) * c + (ch + 1) * kc)
-                    assert np.isnan(ws[k, dst]).all(), "a workspace row written twice"
-                    ws[k, dst] = part[t * kc:(t + 1) * kc]
-    assert not np.isnan(ws).any(), "a workspace row never written"
+                    assert np.isnan(ws[k, dst, cols]).all(), "a workspace element written twice"
+                    ws[k, dst, cols] = part[t * kc:(t + 1) * kc]
+    assert not np.isnan(ws).any(), "a workspace element never written"
     dw = ws[0].copy()
     for k in range(1, chunks):  # the chunk sum, in chunk order
         dw += ws[k]
@@ -302,12 +245,6 @@ def _edge_rows(packed, v_in):
     return packed
 
 
-def _pair_no_flag(packed, v_in):
-    packed = packed.copy()
-    packed[4] &= ~7  # pair 4 has no flag in any row
-    return packed
-
-
 def _last_row_only(packed, v_in):
     """Pair 0's flags (all three taps) only on the last row of each step,
     pair 1's (f0) only on the first; pos kept monotone."""
@@ -320,9 +257,8 @@ def _last_row_only(packed, v_in):
 
 
 DW_CASES = {
-    # the dW entry takes C, O ≤ 128 (its 256-channel plan: ROADMAP queue 2)
-    **{name: make for name, make in GEMM_CASES.items()
-       if max(make()[0].shape[1], make()[2].shape[1]) <= K.DW_CHANNELS},
+    **GEMM_CASES,
+    **WIDE_CASES,
     "cout_5x8": functools.partial(_gemm_case, 80, 300, 5, 8),
     "edge_rows": functools.partial(_gemm_case, 81, 2 * TM + 9, 32, 16, edit=_edge_rows),
     "pair_no_flag": functools.partial(_gemm_case, 82, 300, 16, 32, edit=_pair_no_flag),
@@ -378,12 +314,13 @@ def test_dw_schedule_on_case(name, resident):
     ran, total, chunks = check_dw(feats, packed, g, RESIDENT[resident], pallas_of_case(name))
     plan = dw_plan(K._width(feats.shape[1]), K._width(g.shape[1]))
     tiles = max(-(-packed.shape[1] // plan["TM"]), 1)
-    assert total == tiles * packed.shape[0] * plan["CH"]
-    if resident == "one" and packed.shape[0] * plan["CH"] >= plan["WAVES"]:
+    assert total == tiles * packed.shape[0] * plan["CH"] * plan["OS"]
+    if resident == "one" and packed.shape[0] * plan["CH"] * plan["OS"] >= plan["WAVES"]:
         assert chunks == -(-tiles // plan["MAX_STEPS"])  # every step in as few chunks as fit
     if name == "all_off":
         assert ran == 0
-    if name in ("pair_no_flag", "tile_empty", "middle_only"):
+    if name in ("pair_no_flag", "tile_empty", "middle_only", "wide_tile_empty_128x256",
+                "wide_pair_no_flag_16x256"):
         assert ran < total
     assert K.launches == NO_LAUNCHES  # CPU: plain versions
 
@@ -441,7 +378,7 @@ def test_planted_fp_at_pos_fails(name):
         check_dw(feats, packed, g, RESIDENT["132x2"], rows_of=tap_rows_fp_at_pos)
 
 
-DW_WIDTHS = [c for c in K.GEMM_CHANNELS if c <= K.DW_CHANNELS]  # what the dW entry takes
+DW_WIDTHS = list(K.GEMM_CHANNELS)  # what the dW entry takes
 WIDTHS = [(c, o) for c in DW_WIDTHS for o in DW_WIDTHS]
 
 
@@ -455,6 +392,11 @@ def test_plan_fits_the_h100(c, o):
     assert smem_bytes(plan, plan["MAX_STEPS"]) <= SMEM_LIMIT
     assert plan["TM"] % 32 == 0 and plan["MAX_STEPS"] >= 1
     assert c % plan["KC"] == 0 and plan["KC"] % 16 == 0
+    assert plan["ON"] == min(o, 128) and plan["OS"] * plan["ON"] == o
+    if 256 in (c, o):  # the 128-wide block: the plan at 128 but for its channel and column blocks
+        small = dw_plan(min(c, 128), min(o, 128))
+        assert {k: v for k, v in plan.items() if k not in ("C", "O", "CH", "OS", "WAVES")} == \
+            {k: v for k, v in small.items() if k not in ("C", "O", "CH", "OS", "WAVES")}
     regs = min(255, REGS_PER_SM // (plan["THREADS"] * plan["MIN_BLOCKS"]))
     if plan["WG"]:  # a warpgroup per tap: one 64-channel block, m64nOk16 over O
         assert plan["WG"] == (c >= 64 and o >= 64) and plan["KC"] == 64 and o % 64 == 0
@@ -470,7 +412,8 @@ def test_plan_fits_the_h100(c, o):
 
 @pytest.mark.parametrize("v_out,n_pairs,c,resident", [
     (320000, 9, 16, 396), (320000, 9, 32, 264), (200000, 9, 64, 132), (120000, 9, 128, 132),
-    (100000, 3, 128, 132), (1, 9, 16, 264), (0, 9, 16, 264), (129, 18, 64, 132),
+    (100000, 3, 128, 132), (30000, 9, 256, 132), (1, 9, 16, 264), (0, 9, 16, 264),
+    (129, 18, 64, 132),
     (5000, 1, 16, 1), (2_000_000, 9, 16, 396)])
 def test_row_chunks_cover_the_call(v_out, n_pairs, c, resident):
     """The chunks partition the call's tiles with no empty chunk and at
@@ -482,8 +425,8 @@ def test_row_chunks_cover_the_call(v_out, n_pairs, c, resident):
     steps = -(-tiles // chunks)
     assert 1 <= chunks <= tiles and steps <= plan["MAX_STEPS"]
     assert (chunks - 1) * steps < tiles <= chunks * steps
-    blocks = chunks * n_pairs * plan["CH"]  # at least half the aim, or a block a tile
-    assert 2 * blocks >= min(resident * plan["WAVES"], tiles * n_pairs * plan["CH"])
+    per_chunk = n_pairs * plan["CH"] * plan["OS"]  # at least half the aim, or a block a tile
+    assert 2 * chunks * per_chunk >= min(resident * plan["WAVES"], tiles * per_chunk)
 
 
 def test_model_follows_the_kernel_source():
@@ -497,6 +440,10 @@ def test_model_follows_the_kernel_source():
             "const bool on = (pk[r] & 7) != 0;",
             "const int any = __reduce_or_sync(0xffffffffu, v & 7);",
             "const int v = r < v_out ? packed[(size_t)p * v_out + r] : 0;",
+            "cp_async16(g0 + dst, on ? g + (grow + r) * O + col0 + vc * 8 : g, on ? 16 : 0);",
+            "const int p = blockIdx.x / L::CH, ch = blockIdx.x % L::CH, col0 = blockIdx.z * L::ON;",
+            "const dim3 grid((unsigned)(n_pairs * L::CH), (unsigned)chunks, (unsigned)L::OS);",
+            "const long long per_chunk = (long long)n_pairs * L::CH * L::OS;",
             "const int wk = warp / (L::WM * L::WN), wmn = warp % (L::WM * L::WN);",
             "const int m0 = (wmn / L::WN) * L::WTM, n0 = (wmn % L::WN) * L::WTN, k0 = wk * L::KW;",
             "for (int w = 1; w < L::WK; ++w) {",
@@ -505,7 +452,8 @@ def test_model_follows_the_kernel_source():
             "return L::BODY_BYTES + (size_t)steps * (L::TM + 2) * 4 + 16 + (L::WGMMA ? 1024 : 0);",
             "const int dst = L::WGMMA ? tap * L::TM * 128 + r * 128 + ((cv ^ (r & 7)) << 4)",
             "const uint32_t a_tap = a_base + (threadIdx.x / 128) * L::TM * 128;",
-            "float* row = dst + ((size_t)(p * 3 + warp / 4) * C + ch * L::KC + m) * O + (lane & 3) * 2;",
+            "dst + ((size_t)(p * 3 + warp / 4) * C + ch * L::KC + m) * O + col0 + (lane & 3) * 2;",
+            "*reinterpret_cast<float4*>(dst + (size_t)row * O + col0 + c) = sum;",
             "long long n = ((long long)resident * P::WAVES + per_chunk - 1) / per_chunk;",
             "const long long fewest = (tiles + L::MAX_STEPS - 1) / L::MAX_STEPS;",
             "const long long steps = (tiles + n - 1) / n;",
@@ -513,7 +461,7 @@ def test_model_follows_the_kernel_source():
         assert line in src, line
     assert "atomicAdd" not in src
     members = [m for m, _ in plan_lines(src)]
-    assert members == ["TM", "KC", "WG", "STAGES", "WM", "WN", "WK", "ROWS", "WAVES",
+    assert members == ["TM", "ON", "KC", "WG", "STAGES", "WM", "WN", "WK", "ROWS", "WAVES",
                        "MIN_BLOCKS"]
 
 

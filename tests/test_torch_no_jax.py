@@ -97,4 +97,4 @@ def test_every_kernel_source_is_bound_and_built():
     assert set(K.launches) == {
         "rank_flags", "gather_gemm", "gather_gemm_stacked", "gather_dw", "rank_flags_seq4",
         "rank_flags_hostwin", "gather_gemm_g3", "gather_gemm_g3_stacked", "gather_gemm_256",
-        "gather_gemm_stacked_256"}
+        "gather_gemm_stacked_256", "gather_dw_256"}

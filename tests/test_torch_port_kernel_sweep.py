@@ -23,7 +23,8 @@ def _sweep():
 S = _sweep()
 PLANS = ([("gather_gemm_g3", n, p) for n, p in S.G3_PLANS.items()]
          + [("rank_flags", n, p) for n, p in S.RANK_PLANS.items()]
-         + [("gather_dw", n, p) for n, p in S.DW_PLANS.items()])
+         + [("gather_dw", n, p) for n, p in S.DW_PLANS.items()]
+         + [("gather_gemm", n, p) for n, p in S.GEMM_PLANS.items()])
 
 
 @pytest.mark.parametrize("stem,name,lines", PLANS, ids=[f"{s}-{n}" for s, n, _ in PLANS])

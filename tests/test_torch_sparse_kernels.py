@@ -22,7 +22,8 @@ PK.set_interpret(True)
 SHAPE = (6, 10, 12)  # (D, H, W)
 NO_LAUNCHES = {"rank_flags": 0, "gather_gemm": 0, "gather_gemm_stacked": 0, "gather_dw": 0,
                "rank_flags_seq4": 0, "rank_flags_hostwin": 0, "gather_gemm_g3": 0,
-               "gather_gemm_g3_stacked": 0, "gather_gemm_256": 0, "gather_gemm_stacked_256": 0}
+               "gather_gemm_g3_stacked": 0, "gather_gemm_256": 0, "gather_gemm_stacked_256": 0,
+               "gather_dw_256": 0}
 
 
 def sites(seed, bsz=2, n=60, cap=80, c=5, shape=SHAPE):

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Time plans of the port's g3 gather-GEMM, default rank kernel and dW
-kernel, and the rank kernel's wrapper, on one NVIDIA card.
+kernel, of gather_gemm.cu at 256 channels, and the rank kernel's wrapper,
+on one NVIDIA card.
 
 Run from the root of a checkout: `python3 tools/port_kernel_sweep.py
-[--parent DIR] [--only rank|g3|dw] [--out FILE]` (needs one CUDA device;
+[--parent DIR] [--only rank|g3|dw|wide] [--out FILE]` (needs one CUDA device;
 writes its JSON lines to stdout and to FILE, by default
 efg_tpu_torch/build/port_kernel_sweep.jsonl). It
 
@@ -25,7 +26,13 @@ efg_tpu_torch/build/port_kernel_sweep.jsonl). It
    wrapper's host time per call into its parts;
 5. on every conv backward's (features, rulebook, gradient), times each
    gather_dw.cu plan (and the parent's kernel, with the C entry it has) in
-   turns, each held against the plain version (1e-3·max|ref|).
+   turns, each held against the plain version (1e-3·max|ref|);
+6. with `--only wide`, instead of 2-5: captures from ConQueR at bench.py's
+   widths (chip_smoke.py's DETR, weights from its seed) the 5 gather-GEMM
+   calls at 256 channels of one bs=2 forward and the 5 stacked calls at
+   256 of one bs=2 training step, and times gather_gemm.cu under each plan
+   in GEMM_PLANS (and the parent's) in turns, each held against the plain
+   version (out within 1e-3·max|ref|, taps bit for bit).
 """
 
 from __future__ import annotations
@@ -85,6 +92,13 @@ DW_PLANS = {
                 "MIN_BLOCKS": "C >= 64 && O == 128 ? 1 : 2"},
     "waves2": {"WAVES": "2"},
     "rows4k": {"ROWS": "4096"},
+}
+# Plan-line replacements of gather_gemm.cu, by plan name: "lag0" waits for
+# each step's wgmma group before the next step (the copies of the 256-wide
+# plans then run three steps ahead)
+GEMM_PLANS = {
+    "as_source": {},
+    "lag0": {"LAG": "0"},
 }
 # the C entry of a dW kernel from before the workspace (dw zeroed by the
 # caller, no row chunks)
@@ -260,6 +274,87 @@ def sweep_gemm(libs, calls, emit_taps: bool, gemm_parent=None):
     return rows
 
 
+def capture_wide():
+    """(forward calls, stacked calls), each [(label, (features, packed,
+    weights))], at 256 channels: ConQueR's res4 in one bs=2 serving forward
+    and one bs=2 training step at bench.py's widths."""
+    import torch
+
+    from efg_tpu_torch.engine.trainer import eval_step, init_state, train_step
+    from efg_tpu_torch.ops.cuda import sparse_kernels as K
+
+    def wide(call):
+        return max(call[0].shape[1], call[2].shape[1]) == 256
+
+    md = CS.make_detr(CS.DETR, "cuda")
+    with CS.Capture(K) as serve:
+        eval_step(md, CS.detr_batch(*CS.DETR_BATCHES[-1]))
+    fwd = list(zip(CS.DETR_256_LABELS, [c for c in serve.gemm if wide(c)]))
+    del md, serve
+    md, _ = CS.make_detr_train(CS.DETR, "cuda")
+    tx = CS.detr_solver()
+    state = init_state(md, tx)
+    with CS.StackedCapture(K) as train:
+        train_step(md, tx, state, CS.detr_train_batch(*CS.DETR_TRAIN_BATCH, "cuda"), seed=CS.SEED)
+    torch.cuda.synchronize()
+    st = [(f"stacked{j} C{c[0].shape[1]}xO{c[2].shape[1]} P{c[1].shape[0]}", c)
+          for j, c in enumerate(train.stacked) if wide(c)]
+    del md, state, tx, train
+    torch.cuda.empty_cache()
+    if len(fwd) != 5 or len(st) != 5:
+        raise AssertionError(f"captured {len(fwd)} forward and {len(st)} stacked calls at 256")
+    return fwd, st
+
+
+def sweep_wide(libs, calls, emit_taps: bool):
+    """Each call through gather_gemm.cu under every plan in `libs`, in turns
+    (two rounds, the order reversed in the second), each held against the
+    plain version; returns per-call rows."""
+    import torch
+
+    from efg_tpu_torch.ops.cuda import sparse_kernels as K
+
+    kernel = K.gather_gemm_stacked if emit_taps else K.fused_gather_gemm
+    plain = K.gather_gemm_stacked_plain if emit_taps else K.gather_gemm_plain
+    rows = []
+    for label, (features, packed, weights) in calls:
+        f = features.to(torch.bfloat16).contiguous()
+        w = weights.to(torch.bfloat16).contiguous()
+        p = packed.contiguous()
+        ref = plain(f, p, w)
+
+        def run(name):
+            with library("gather_gemm", libs[name]):
+                return kernel(f, p, w)
+
+        errs = {}
+        for name in libs:
+            got = run(name)
+            torch.cuda.synchronize()
+            out, st = (got if emit_taps else (got, None))
+            errs[name], _ = CS._gemm_agrees(f"{name} {label}", out, ref[0] if emit_taps else ref,
+                                            st, ref[1] if emit_taps else None)
+            del got, out, st
+        times = {n: [] for n in libs}
+        for order in (list(libs), list(libs)[::-1]):
+            for name in order:
+                dev = CS.graph_device(lambda: run(name))
+                if (dev["kernels"], dev["nodes"]) != (1, 1):
+                    raise AssertionError(f"{name} {label}: {dev}")
+                times[name].append(dev["device_ms"])
+        n_pairs, v_out = p.shape
+        run_steps, skipped = CS._steps(p, f.shape[1])
+        row = {"label": label, "C": f.shape[1], "O": w.shape[1], "P": n_pairs, "V_out": v_out,
+               "found": CS._found(p), "steps_run": run_steps, "steps_skipped": skipped,
+               "max_abs_err": errs, "device_ms": {n: statistics.median(t)
+                                                  for n, t in times.items()},
+               "device_ms_runs": times}
+        emit({"sweep": "wide_stacked" if emit_taps else "wide_forward", **row})
+        rows.append(row)
+        del ref
+    return rows
+
+
 def sweep_rank(libs, calls):
     """Each captured rank call through every rank_flags.cu plan (and the
     parent's kernel), in turns (two rounds, the order reversed in the
@@ -411,7 +506,7 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="a checkout of the parent tree: its kernels join the sweep")
-    ap.add_argument("--only", choices=("rank", "g3", "dw"), help="sweep one kernel only")
+    ap.add_argument("--only", choices=("rank", "g3", "dw", "wide"), help="sweep one kernel only")
     ap.add_argument("--out", help="the file the JSON lines go to")
     args = ap.parse_args()
     global OUT
@@ -428,6 +523,20 @@ def main() -> int:
     card = CS.nvidia_smi_line()
     t0 = time.perf_counter()
     built = K.build_kernels()
+    if args.only == "wide":
+        libs, logs = build_variants("gather_gemm", GEMM_PLANS, args.parent)
+        emit({"card": card, "build_seconds": time.perf_counter() - t0,
+              "ptxas": {"gather_gemm": logs}})
+        fwd, st = capture_wide()
+        summary = {"card": card}
+        for kind, calls, emit_taps in (("wide_forward", fwd, False), ("wide_stacked", st, True)):
+            rows = sweep_wide(libs, calls, emit_taps)
+            summary[kind] = {n: sum(r["device_ms"][n] for r in rows) for n in libs}
+            summary[kind + "_runs"] = {n: [sum(r["device_ms_runs"][n][k] for r in rows)
+                                           for k in range(2)] for n in libs}
+        emit({"sweep": "summary", **summary})
+        return 0
+
     def want(kernel):
         return args.only in (None, kernel)
 
