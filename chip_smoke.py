@@ -148,6 +148,29 @@ either. Phases (each prints JSON lines; any failure exits 1):
              the EMA decoder exact); task=train of the synthetic ConQueR
              experiment through the CLI (20 iterations, finite losses,
              launches = 20 × per step, the EMA state in model_final).
+15. ddp    — data parallelism: two ranks share the one card over gloo
+             (NCCL refuses two ranks on one device), set up through
+             parallel/ddp.py's explicit arguments. (a) The flagship at full
+             width, 2 ranks × bs 2 of TRAIN_BATCH's frames: the first step's
+             losses and grad_norm against one process's bs-4 step on the
+             same frames at train_check's step tolerances, every leaf's
+             gradient within max(0.8, 1.5 × the worst leaf of one process
+             against itself with the frames reordered: at this width a BN
+             scale's gradient is bf16 noise), the stage caps raised above
+             these frames' occupancy (DDP_FLAGSHIP: a full stage is
+             truncated over each rank's pool), then 3 timed steps (step
+             time and peak memory per
+             rank; two ranks on one card take turns, so these are not DDP's
+             speed), launches per rank and step 12/21/21/0, parameters equal
+             bit for bit across the ranks, each sparse stage's occupancy
+             beside its capacity. (b) The synthetic experiment through
+             `efg_run_torch --local-ranks 2` (engine/launch.py): 30
+             iterations with the asynchronous checkpoint after step 15, a
+             --resume from it held to the uninterrupted run, and task=val
+             with GT boxes as detections gathered over both ranks (AP = APH
+             = 1.0). (c) A small ConQueR (DETR_SMALL with its caps above
+             occupancy), 2 ranks × bs 1 against one process at bs 2: loss
+             parts within 5e-2, leaves by direction.
 
 The second-to-last line lists every kernel as JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", ...}}.
@@ -1794,10 +1817,12 @@ CHECK_STEP_TOL = {False: (1e-2, 2e-2), True: (1.5e-1, 2.5e-1)}
 CHECK_FAULT = "backbone.down1.weight"  # the planted fault doubles this gradient
 
 
-def _check_readings(a_out, a_grads, b_out, b_grads):
+def _check_readings(a_out, a_grads, b_out, b_grads, leaf_tols=None):
     """Readings of run a against run b, each beside its tolerance, and the
-    names of those above it."""
+    names of those above it. A leaf is held at `leaf_tols[its reading's
+    name]` where given, else at CHECK_LEAF_TOL."""
     readings, failed = [], []
+    leaf_tols = leaf_tols or {}
 
     def hold(what, x, tol):
         readings.append({"what": what, "reading": x, "tolerance": tol})
@@ -1807,7 +1832,7 @@ def _check_readings(a_out, a_grads, b_out, b_grads):
     for n, g in b_grads.items():
         if not ZERO_GRAD.search(n):
             hold(f"grad {n}", float((a_grads[n] - g).norm() / max(float(g.norm()), 1e-30)),
-                 CHECK_LEAF_TOL)
+                 leaf_tols.get(f"grad {n}", CHECK_LEAF_TOL))
     for i, (a, b) in enumerate(zip(a_out, b_out)):
         for k in ("loss", "0_hm_loss", "0_loc_loss", "grad_norm"):
             hold(f"step {i} {k}", abs(a[k] - b[k]) / abs(b[k]),
@@ -3195,6 +3220,446 @@ def phase_detr_cli_train(card: str, device="cuda", small=()):
         shutil.rmtree(cache, ignore_errors=True)
 
 
+# phase ddp: data parallelism. The machine has one card, so two ranks share
+# it over gloo (NCCL refuses two ranks on one device), through
+# parallel/ddp.py's explicit (backend, init method, rank, world, device):
+# their step times are two processes taking turns on one card, not a
+# figure of DDP's speed.
+DDP_WORLD = 2
+DDP_STEPS = 3  # timed, after the first step, which is held against one process
+# (a)'s model: the flagship's widths with its stage caps raised above the
+# occupancy of TRAIN_BATCH's frames. FLAGSHIP's bench-scale caps (80k / 50k
+# / 30k / 25k a frame) are full at every downsample: the four frames hold
+# 1178044 / 801505 / 264444 / 177894 rows after down1-3 and the extra conv
+# (phase ddp prints the occupancy beside these caps). Two ranks truncate a
+# full stage over their own pool and one process over the whole batch's
+# (ROADMAP queue 3), so the two agree only below the caps.
+DDP_FLAGSHIP = dict(FLAGSHIP, stage_caps=(360000, 250000, 80000, 56000))
+DDP_VAL_FRAMES = 16  # the val split of (b)'s task=val: 8 batches of 2, a frame a rank
+DDP_DETR_BATCH = (2, 305)  # (c): DETR_SMALL's check batch, a frame a rank
+# (c)'s model: DETR_SMALL with its SparseResNet caps raised above the check
+# batch's occupancy. Two ranks truncate a full stage over their own pool and
+# one process over the whole batch's, so the two agree only below the caps;
+# DETR_SMALL's own caps are full at the stem and res2 on that batch.
+DDP_DETR = dict(DETR_SMALL, resnet_caps=(65536, 32768, 8192, 4096))
+# (a)'s control: one process on TRAIN_BATCH's frames in this order against
+# the same process in theirs. At the flagship's width a BN scale's or
+# shift's gradient is a sum over ~10^6 bf16 rows that nearly cancels, so
+# another summation order moves it by a large share of itself: each leaf
+# of the 2-rank step is held within CHECK_LEAF_TOL or DDP_NOISE_FACTOR
+# times the control's reading of that same leaf, whichever is larger. The
+# conv and head weights stay at CHECK_LEAF_TOL, where train_check's
+# planted fault (CHECK_FAULT's gradient doubled) reads about 1.0; phase
+# ddp checks that its limits reject that fault in the ranks' gradients.
+DDP_CONTROL_ORDER = (2, 3, 0, 1)
+DDP_NOISE_FACTOR = 1.5
+
+
+def _ddp_specs(device: str):
+    """Two ranks on `device` (the card's index, or the CPU), over gloo."""
+    from efg_tpu_torch.engine import launch
+    from efg_tpu_torch.parallel.ddp import rank_device
+
+    init = f"tcp://127.0.0.1:{launch.free_port()}"
+    dev = str(rank_device(device, 0))
+    return [launch.RankSpec(r, DDP_WORLD, r, DDP_WORLD, "gloo", init, dev)
+            for r in range(DDP_WORLD)]
+
+
+def _digest(module) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for k, v in sorted(module.state_dict().items()):
+        h.update(k.encode())
+        h.update(v.detach().float().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _occupancy(module) -> list:
+    """Forward hooks noting [stage, valid rows, capacity] of every sparse
+    stage of a VoxelNet trunk, one entry a forward."""
+    seen = []
+    for name in ("bn_input", "bn_down1", "bn_down2", "bn_down3", "bn_extra"):
+        getattr(module.backbone, name).register_forward_hook(
+            lambda m, i, o, name=name: seen.append([name, int(o.valid.sum()), o.valid.numel()]))
+    return seen
+
+
+def _ddp_first_steps(kw, n_points, pc, detr_kw, detr_points, device):
+    """The one-process reference of phase ddp (a) and (c): the flagship's
+    first step on TRAIN_BATCH's frames (bs 4) and DETR_SMALL's on its
+    check batch (bs 2), from the seeded weights: (losses, gradients) each,
+    the flagship's stage occupancy, and the flagship's control: the same
+    first step on the same frames in another order (DDP_CONTROL_ORDER),
+    which sums every BN statistic and loss in another order, as the ranks
+    do."""
+    import torch
+
+    from efg_tpu_torch.engine.trainer import init_state, train_step
+
+    batch = train_batch(*TRAIN_BATCH, device, n_points=n_points, pc=pc)
+    flag = []
+    for order in (None, DDP_CONTROL_ORDER):
+        md, _ = make_model(kw, device)
+        occupancy = _occupancy(md.module)
+        tx = make_solver()
+        state = init_state(md, tx)
+        b = batch if order is None else {k: v[list(order)] for k, v in batch.items()}
+        m = train_step(md, tx, state, b)
+        flag.append(({k: float(v) for k, v in m.items()},
+                     {n: q.grad.float().cpu() for n, q in md.module.named_parameters()},
+                     occupancy))
+        del md, state
+    del batch
+    dmd, _ = make_detr_train(detr_kw, device)
+    dstate = init_state(dmd, detr_solver())
+    dm = train_step(dmd, detr_solver(), dstate,
+                    detr_train_batch(*DDP_DETR_BATCH, device, n_points=detr_points, pc=12.0,
+                                     max_gt=64), seed=SEED)
+    detr = ({k: float(v) for k, v in dm.items()},
+            {n: q.grad.float().cpu() for n, q in dmd.module.named_parameters()
+             if q.grad is not None})
+    del dmd, dstate
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return flag, detr
+
+
+def _ddp_rank(out_dir, kw, n_points, pc, detr_kw, detr_points, launches, device):
+    """One rank of phase ddp (a) and (c), its readings pickled to
+    `out_dir/rank{r}.pkl`: (a) the flagship from the seeded weights on its
+    half of TRAIN_BATCH's frames, the first step (its losses summed over
+    the ranks, its gradients after the sum) and DDP_STEPS timed steps, the
+    launches of each, peak memory, the replicas checked equal after them;
+    (c) DETR_SMALL one step on its frame of the check batch, the replicas
+    and EMA checked equal after it."""
+    import pickle
+
+    import torch
+
+    from efg_tpu_torch.engine.trainer import init_state, train_step
+    from efg_tpu_torch.ops.cuda import sparse_kernels as K
+    from efg_tpu_torch.parallel import ddp
+    from efg_tpu_torch.utils import distributed as comm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    r, cuda = comm.get_rank(), device.type == "cuda"
+    md, _ = make_model(kw, device)
+    occupancy = _occupancy(md.module)
+    tx = make_solver()
+    state = init_state(md, tx)
+    bsz, seed = TRAIN_BATCH
+    per = bsz // DDP_WORLD
+    full = train_batch(bsz, seed, "cpu", n_points=n_points, pc=pc)
+    batch = {k: v[r * per:(r + 1) * per].to(device) for k, v in full.items()}
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    steps, grads = [], None
+    for i in range(DDP_STEPS + 1):
+        K.reset_launches()
+        if cuda:
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+        t0 = time.perf_counter()
+        metrics = train_step(md, tx, state, batch)
+        if cuda:
+            b.record()
+            b.synchronize()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        steps.append(dict(step=i, launches=dict(K.launches), host_ms=host_ms,
+                          ms_cuda_events=a.elapsed_time(b) if cuda else None,
+                          losses={k: float(v) for k, v in metrics.items()}))
+        if grads is None:
+            grads = {n: q.grad.float().cpu() for n, q in md.module.named_parameters()}
+    peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else None
+    ddp.check_replicas_equal(md.module, f"the flagship's replicas after {DDP_STEPS + 1} steps")
+    res = dict(steps=steps, grads=grads, digest=_digest(md.module), peak_mem_gb=peak,
+               batch_size=per, launches_expected=launches, occupancy=occupancy[:5])
+    del md, state, batch
+    if cuda:
+        torch.cuda.empty_cache()
+
+    dmd, _ = make_detr_train(detr_kw, device)
+    dstate = init_state(dmd, detr_solver())
+    dfull = detr_train_batch(*DDP_DETR_BATCH, "cpu", n_points=detr_points, pc=12.0, max_gt=64)
+    dbatch = {k: v[r:r + 1].to(device) for k, v in dfull.items()}
+    dm = train_step(dmd, detr_solver(), dstate, dbatch, seed=SEED)
+    ddp.check_replicas_equal(dmd.module, "ConQueR's replicas after a step", dstate.ema)
+    res["detr"] = dict(losses={k: float(v) for k, v in dm.items()},
+                       grads={n: q.grad.float().cpu() for n, q in dmd.module.named_parameters()
+                              if q.grad is not None},
+                       digest=_digest(dmd.module))
+    with open(os.path.join(out_dir, f"rank{r}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+    return 0
+
+
+def _ddp_val_rank(config, opts, out_dir, device):
+    """One rank of phase ddp (b)'s task=val through the CLI's per-rank
+    entry: the eval step replaced by each frame's GT boxes as its
+    detections (`_perfect_predictions`); the results (rank 0) and the
+    frames each rank's evaluator processed, written to `out_dir`."""
+    import torch
+
+    from efg_tpu_torch.cli import main as cli
+    from efg_tpu_torch.engine import trainer as T
+    from efg_tpu_torch.evaluator.waymo_evaluator import WaymoDetEvaluator
+    from efg_tpu_torch.utils import distributed as comm
+
+    seen = {}
+
+    def perfect(model_def, batch):
+        k = max([300] + [len(a["gt_boxes"]) for a in batch["annotations"]])
+        return {n: torch.from_numpy(v).to(device)
+                for n, v in _perfect_predictions([batch], k=k).items()}
+
+    evaluate0, ev_evaluate0 = T.DefaultTrainer.evaluate, WaymoDetEvaluator.evaluate
+
+    def evaluate(self, evaluators=None):
+        seen["results"] = evaluate0(self, evaluators)
+        return seen["results"]
+
+    def ev_evaluate(self):
+        seen["frames"] = len(self._frames)
+        seen["gt_labels"] = sorted({int(c) for f in self._frames for c in f["gt_labels"]})
+        return ev_evaluate0(self)
+
+    T.eval_step, T.DefaultTrainer.evaluate, WaymoDetEvaluator.evaluate = (
+        perfect, evaluate, ev_evaluate)
+    rc = cli.run(cli.get_parser().parse_args(["--config", config, "task=val", *opts]), device)
+    with open(os.path.join(out_dir, f"val{comm.get_rank()}.json"), "w") as f:
+        json.dump({"rc": rc, **seen}, f)
+    return rc
+
+
+def phase_ddp(card: str, device="cuda", kw=DDP_FLAGSHIP, n_points=N_POINTS, pc=70.0,
+              detr_kw=DDP_DETR, detr_points=20000, launches=None, small=()):
+    """Data parallelism: two ranks on the one card (gloo), or on the CPU
+    for a rehearsal (`device="cpu"`, a small `kw` with `pc` inside its
+    range, `launches` zeroed, `small` engine overrides). Each sparse
+    stage's occupancy is printed beside its capacity: the ranks truncate a
+    full stage over their own pool, one process over the whole batch's,
+    so the comparison holds while no stage is full.
+    (a) the flagship at full width (its caps above occupancy,
+        DDP_FLAGSHIP), each rank on 2 of TRAIN_BATCH's 4 frames (160k
+        points, 161 GT boxes a frame): the first step's loss,
+        its parts, grad_norm and every leaf's gradient against one
+        process's bs-4 step on the same frames, run first in this process,
+        at train_check's bf16 tolerances (CHECK_STEP_TOL; each leaf at
+        CHECK_LEAF_TOL or DDP_NOISE_FACTOR × the same leaf's reading of
+        one process against itself with the frames in DDP_CONTROL_ORDER,
+        whichever is larger; those limits must reject train_check's
+        planted fault, CHECK_FAULT's gradient doubled);
+        then DDP_STEPS timed steps; launches per rank and step
+        TRAIN_LAUNCHES (12/21/21/0), the replicas equal bit for bit after
+        the steps, step time and peak memory per rank;
+    (b) the synthetic experiment through `efg_run_torch --local-ranks 2
+        --device cuda:0 --dist-backend gloo` (engine/launch.py spawns the
+        ranks): 30 iterations with the asynchronous checkpoint after step
+        15, then a --resume from it, held to the uninterrupted run as
+        phase engine holds a one-process resume; task=val of
+        DDP_VAL_FRAMES frames with each frame's GT boxes as its detections:
+        the evaluator gathers both ranks' frames and scores AP = APH = 1.0;
+    (c) DETR_SMALL (its caps above occupancy, DDP_DETR), 2 ranks × 1 frame
+        against one process's bs-2 step on the card, the denoising noise
+        drawn for the global batch: loss parts within DETR_TRAIN_TOL,
+        leaves by direction (CHECK_LEAF_TOL)."""
+    import pickle
+    import shutil
+    import tempfile
+
+    import torch
+
+    from efg_tpu_torch.engine import launch
+
+    launches = TRAIN_LAUNCHES if launches is None else launches
+    t_phase = time.perf_counter()
+    flag, (detr_losses, detr_grads) = _ddp_first_steps(kw, n_points, pc, detr_kw, detr_points,
+                                                       device)
+    (flag_losses, flag_grads, occupancy), (ctrl_losses, ctrl_grads, _) = flag
+    out = tempfile.mkdtemp(prefix="chip_smoke_ddp_")
+    try:
+        t0 = time.perf_counter()
+        rc = launch.spawn(_ddp_rank, _ddp_specs(device),
+                          (out, kw, n_points, pc, detr_kw, detr_points, launches))
+        spawn_s = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"ddp: a rank failed (exit code {rc})")
+        ranks = []
+        for r in range(DDP_WORLD):
+            with open(os.path.join(out, f"rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    r0, r1 = ranks
+    control, _ = _check_readings([ctrl_losses], ctrl_grads, [flag_losses], flag_grads)
+    leaf_tols = {x["what"]: max(CHECK_LEAF_TOL, DDP_NOISE_FACTOR * x["reading"])
+                 for x in control if x["what"].startswith("grad")}
+    readings, failed = _check_readings([r0["steps"][0]["losses"]], r0["grads"],
+                                       [flag_losses], flag_grads, leaf_tols)
+    fault = dict(r0["grads"], **{CHECK_FAULT: 2 * r0["grads"][CHECK_FAULT]})
+    fault_readings, fault_failed = _check_readings(
+        [r0["steps"][0]["losses"]], fault, [flag_losses], flag_grads, leaf_tols)
+    widened = sorted((x for x in readings if x["tolerance"] > CHECK_LEAF_TOL),
+                     key=lambda x: -x["tolerance"])
+    same_grads = all(torch.equal(r0["grads"][n], r1["grads"][n]) for n in r0["grads"])
+    steps = [{"rank": r, **{k: v for k, v in s.items() if k != "losses"},
+              "loss": s["losses"]["loss"]} for r, g in enumerate(ranks) for s in g["steps"]]
+    emit({"phase": "ddp", "part": "flagship", "card": card, "ranks": DDP_WORLD,
+          "backend": "gloo", "ranks_share_one_card": device != "cpu",
+          "note": "two ranks take turns on one card: the step times are not DDP's speed",
+          "batch_per_rank": r0["batch_size"], "points_per_cloud": n_points,
+          "one_process_step1": {k: flag_losses[k] for k in ("loss", "0_hm_loss", "0_loc_loss",
+                                                             "grad_norm")},
+          "step_readings": [x for x in readings if x["what"].startswith("step")],
+          "grad_readings_worst": sorted((x for x in readings if x["what"].startswith("grad")),
+                                        key=lambda x: -x["reading"])[:8],
+          "grad_leaves": sum(x["what"].startswith("grad") for x in readings),
+          "leaf_tolerance": CHECK_LEAF_TOL,
+          "leaves_widened_by_control": [
+              dict(x, control=next(c["reading"] for c in control if c["what"] == x["what"]))
+              for x in widened],
+          "control_frames_order": DDP_CONTROL_ORDER,
+          "control_step_readings": [x for x in control if x["what"].startswith("step")],
+          "control_grad_readings_worst": sorted(
+              (x for x in control if x["what"].startswith("grad")),
+              key=lambda x: -x["reading"])[:8],
+          "planted_fault": {"leaf": CHECK_FAULT, "rejected_by": fault_failed,
+                            "reading": [x for x in fault_readings
+                                        if x["what"] == f"grad {CHECK_FAULT}"]},
+          "ranks_grads_equal": same_grads,
+          "occupancy_one_process": occupancy[:5],
+          "occupancy_ranks_step1": [g["occupancy"] for g in ranks],
+          "replicas_equal_after_steps": r0["digest"] == r1["digest"],
+          "steps": steps, "launches_expected_per_rank_step": launches,
+          "peak_mem_gb_per_rank": [g["peak_mem_gb"] for g in ranks],
+          "spawn_and_ranks_s": spawn_s})
+    if failed:
+        raise AssertionError(f"ddp flagship: above tolerance vs one process: {failed}")
+    if f"grad {CHECK_FAULT}" not in fault_failed:
+        raise AssertionError(f"ddp flagship: the leaf limits pass {CHECK_FAULT}'s gradient "
+                             "doubled")
+    if not same_grads or r0["digest"] != r1["digest"]:
+        raise AssertionError("ddp flagship: the ranks' gradients or parameters differ")
+    bad = [(s["rank"], s["step"]) for s in steps if s["launches"] != launches]
+    if bad:
+        raise AssertionError(f"ddp flagship: launches differ from {launches} at {bad}")
+
+    d0, d1 = r0["detr"], r1["detr"]
+    loss_rel = {k: abs(d0["losses"][k] - v) / max(abs(v), 1e-6) for k, v in detr_losses.items()}
+    leaf_rel = {n: float((d0["grads"][n] - g).norm() / max(float(g.norm()), 1e-30))
+                for n, g in detr_grads.items() if not DETR_ZERO_GRAD.search(n)}
+    worst = sorted(leaf_rel.items(), key=lambda x: -x[1])[:8]
+    emit({"phase": "ddp", "part": "detr_small", "card": card, "ranks": DDP_WORLD,
+          "loss_rel_vs_one_process": loss_rel, "grad_leaves": len(leaf_rel),
+          "grad_worst_rel_l2": worst, "tolerance": DETR_TRAIN_TOL,
+          "leaf_tolerance": CHECK_LEAF_TOL, "replicas_equal": d0["digest"] == d1["digest"]})
+    over = [k for k, v in loss_rel.items() if k != "grad_norm" and not v <= DETR_TRAIN_TOL]
+    # the ranks' sum gives every parameter a gradient: zeros where no rank had one
+    extra = set(d0["grads"]) - set(detr_grads)
+    if over or not set(detr_grads) <= set(d0["grads"]) or d0["digest"] != d1["digest"] \
+            or any(bool(d0["grads"][n].any()) for n in extra) \
+            or any(not v <= CHECK_LEAF_TOL for v in leaf_rel.values()):
+        raise AssertionError(f"ddp detr: losses above tolerance {over}, leaves {worst[:3]}, "
+                             f"replicas equal {d0['digest'] == d1['digest']}")
+
+    _ddp_cli(card, device, small)
+    emit({"phase": "ddp", "part": "total", "card": card,
+          "phase_s": time.perf_counter() - t_phase})
+
+
+def _ddp_cli(card: str, device: str, small=()):
+    """(b) of phase ddp."""
+    import shutil
+    import tempfile
+
+    from efg_tpu_torch.cli import main as cli
+    from efg_tpu_torch.cli.main import experiment_relpath
+    from efg_tpu_torch.engine import launch
+    from efg_tpu_torch.parallel.ddp import rank_device
+
+    cache = tempfile.mkdtemp(prefix="chip_smoke_ddp_cli_")
+    old_cache = os.environ.get("EFG_CACHE_DIR")
+    os.environ["EFG_CACHE_DIR"] = cache
+    config = os.path.join(HERE, ENGINE_CONFIG)
+    out_dir = os.path.join(cache, "EFG_torch", experiment_relpath(ENGINE_CONFIG))
+    dev = str(rank_device(device, 0))
+    argv = ["--config", config, "--device", dev, "--local-ranks", str(DDP_WORLD),
+            "--dist-backend", "gloo"]
+    try:
+        def train(extra):
+            metrics = os.path.join(out_dir, "metrics.json")
+            n_before = sum(1 for _ in open(metrics)) if os.path.exists(metrics) else 0
+            t0 = time.perf_counter()
+            rc = cli.main(argv + extra + ["task=train", *ENGINE_RUN, *small])
+            wall = time.perf_counter() - t0
+            if rc != 0:
+                raise AssertionError(f"ddp cli: the launcher returned {rc} for {extra}")
+            with open(metrics) as f:
+                return _losses([json.loads(x) for x in f][n_before:]), wall
+
+        run1, wall1 = train([])
+        files = sorted(f for f in os.listdir(out_dir) if f.startswith("model_"))
+        emit({"phase": "ddp", "part": "cli_train", "card": card, "ranks": DDP_WORLD,
+              "records": sorted(run1), "checkpoints": files, "wall_s": wall1,
+              "loss_first_last": [run1[min(run1)]["loss"], run1[max(run1)]["loss"]]})
+        if sorted(run1) != list(range(1, ENGINE_ITERS + 1)):
+            raise AssertionError(f"ddp cli: records {sorted(run1)}")
+        if files != ["model_0000014", "model_final"]:
+            raise AssertionError(f"ddp cli: checkpoints {files}")
+
+        os.remove(os.path.join(out_dir, "model_final"))
+        run2, wall2 = train(["--resume"])
+        keys = ("loss", "0_hm_loss", "0_loc_loss", "grad_norm")
+        rel = {it: {k: abs(run2[it][k] - run1[it][k]) / abs(run1[it][k]) for k in keys}
+               for it in run2}
+        bits = all(run2[it][k] == run1[it][k] for it in run2 for k in keys)
+        emit({"phase": "ddp", "part": "cli_resume", "card": card, "records": sorted(run2),
+              "max_rel_diff_vs_run1": max(max(v.values()) for v in rel.values()),
+              "equal_bit_for_bit": bits, "wall_s": wall2,
+              "tolerance": dict(zip(("losses", "grad_norm"), CHECK_STEP_TOL[True]))})
+        if sorted(run2) != list(range(16, ENGINE_ITERS + 1)):
+            raise AssertionError(f"ddp cli resume: records {sorted(run2)}")
+        over = [(it, k) for it, v in rel.items() for k, x in v.items()
+                if not x <= CHECK_STEP_TOL[True][k == "grad_norm"]]
+        if over:
+            raise AssertionError(f"ddp cli resume: above tolerance vs run 1: {over}")
+
+        from efg_tpu_torch.config import Configuration
+
+        opts = [f"dataset.num_frames={DDP_VAL_FRAMES}", *small]
+        val_dir = tempfile.mkdtemp(prefix="val_", dir=cache)
+        specs = _ddp_specs(device)
+        rc = launch.spawn(_ddp_val_rank, specs, (config, opts, val_dir))
+        if rc != 0:
+            raise AssertionError(f"ddp val: a rank failed (exit code {rc})")
+        vals = []
+        for r in range(DDP_WORLD):
+            with open(os.path.join(val_dir, f"val{r}.json")) as f:
+                vals.append(json.load(f))
+        res = vals[0]["results"]
+        classes = list(Configuration(config_file=config, opts=["task=val", *opts])
+                       .get_config().dataset.classes)
+        has_gt = sorted({classes[c - 1] for v in vals for c in v["gt_labels"]})
+        off = {k: res.get(k) for c in has_gt for lvl in ("L1", "L2") for m in ("AP", "APH")
+               for k in [f"waymo/{c}/{lvl}/{m}"] if not abs(res.get(k, 0.0) - 1.0) <= 1e-6}
+        emit({"phase": "ddp", "part": "cli_val_perfect", "card": card,
+              "frames_per_rank": [v["frames"] for v in vals], "classes_with_gt": has_gt,
+              "results": res})
+        if sum(v["frames"] for v in vals) != DDP_VAL_FRAMES or off or not has_gt:
+            raise AssertionError(f"ddp val: frames {[v['frames'] for v in vals]}, not 1.0: "
+                                 f"{off}, classes {has_gt}")
+    finally:
+        if old_cache is None:
+            os.environ.pop("EFG_CACHE_DIR", None)
+        else:
+            os.environ["EFG_CACHE_DIR"] = old_cache
+        shutil.rmtree(cache, ignore_errors=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -3235,6 +3700,7 @@ def main() -> int:
         phase_eval(card)
         detr = phase_detr(card)
         detr_train = phase_detr_train(card)
+        phase_ddp(card)
         # a rank kernel's row is the training step's (its forward rulebooks
         # and the inverse ones); the serving forward's is in the kernels line
         train["rank_flags"]["launches_serve"] = serve["rank_flags"]["launches"]

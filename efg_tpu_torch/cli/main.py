@@ -13,6 +13,14 @@ evaluates with the config's `trainer.evaluators` unless the run was
 preempted; `task=val|test` loads the newest checkpoint of the output
 directory (or `model.weights`) and evaluates. Both run on the card unless
 `--device cpu` is given.
+
+Data parallelism (`engine/launch.py`): a machine runs one rank per visible
+card (`--local-ranks N` to choose; one on the CPU), each on
+`cuda:<local rank>`, over nccl; `--device cuda:0 --dist-backend gloo`
+puts every local rank on one card. Several machines come from
+`--num-machines N --machine-rank M --dist-url tcp://host:port`, SLURM or
+torchrun's environment. `dataloader.batch_size` is a machine's batch, as
+in efg_tpu; each local rank trains on its slice of it.
 """
 
 from __future__ import annotations
@@ -33,7 +41,12 @@ def get_parser():
     parser.add_argument("--num-machines", type=int, default=1)
     parser.add_argument("--machine-rank", type=int, default=0)
     parser.add_argument("--dist-url", default=None, help="coordinator address for multi-host")
-    parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    parser.add_argument("--local-ranks", type=int, default=None,
+                        help="ranks on this machine (default: one per visible card; 1 on the CPU)")
+    parser.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"),
+                        help="process group backend (default: nccl on cards, gloo on the CPU)")
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (default: cuda:<local rank>), cuda:N (every rank) or cpu")
     parser.add_argument(
         "opts", nargs=argparse.REMAINDER,
         help="config overrides: a.b.c value or a.b=value",
@@ -84,12 +97,20 @@ def setup_output_dir(config, config_path: str) -> str:
 
 
 def main(argv=None) -> int:
-    args = get_parser().parse_args(argv)
-    if args.num_machines > 1 or args.dist_url:
-        raise NotImplementedError(
-            "multi-process training (DDP) is not ported to efg_tpu_torch yet "
-            "(ROADMAP queue 1 item 1)")
+    from efg_tpu_torch.engine import launch
 
+    args = get_parser().parse_args(argv)
+    specs, spawn = launch.plan(args, os.environ)
+    if not specs:
+        return run(args, args.device)
+    if spawn:
+        return launch.spawn(run, specs, (args,))
+    return launch.run_rank(run, specs[0], (args,))
+
+
+def run(args, device) -> int:
+    """The entry point's work in one rank (or the only process) on
+    `device`."""
     import efg_tpu_torch.data  # noqa: F401  (registrations)
     from efg_tpu_torch.config import Configuration
     from efg_tpu_torch.engine.trainer import build_trainer
@@ -103,14 +124,16 @@ def main(argv=None) -> int:
         config["task"] = args.task
     if config.task not in ("train", "val", "test"):
         raise ValueError(f"Unknown task {config.task}")
-    device = resolve_device(args.device)
+    device = resolve_device(device)
 
     out_dir = setup_output_dir(config, args.config)
     logger = setup_logger(out_dir, comm.get_rank())
-    logger.info(f"Running with config: {args.config}; output: {out_dir}; device: {device}")
+    logger.info(f"Running with config: {args.config}; output: {out_dir}; device: {device}; "
+                f"rank {comm.get_rank()} of {comm.get_world_size()}")
 
+    # efg_tpu offsets the seed by its process index: the machine's rank
     seed = config.misc.get("seed", -1)
-    seed = seed_all_rng(None if seed is None or seed < 0 else seed + comm.get_rank())
+    seed = seed_all_rng(None if seed is None or seed < 0 else seed + comm.get_machine_rank())
     logger.info(f"Seed: {seed}")
 
     net = load_experiment_module(args.config)

@@ -100,13 +100,12 @@ def _resolve_env(expr: str) -> str:
 
 
 def _resolve_device_count(_: str) -> int:
-    """The devices this run uses: one process on one device (the card, or
-    the CPU under `--device cpu`) until data parallelism is ported (ROADMAP
-    queue 1 item 1), as efg_tpu's `jax.local_device_count()` reads 1 on
-    one device."""
+    """The devices of the run on this machine: its local ranks (one in a
+    world of one process), as efg_tpu's `jax.local_device_count()` reads
+    the local devices of its process."""
     from efg_tpu_torch.utils import distributed as comm
 
-    return comm.get_world_size()
+    return comm.get_local_size()
 
 
 _RESOLVERS = {

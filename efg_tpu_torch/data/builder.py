@@ -8,6 +8,15 @@ the device. Training reads through worker threads when
 item's augmentations draw from a numpy seed derived from the item's
 ordinal in the stream, so a stream fast-forwarded by `start_batch` or
 read by several workers yields the same batches.
+
+Under data parallelism the sampler gives every local rank of a machine
+the machine's stream (efg_tpu's process's), and local rank l of L loads
+only its slice of each batch: rows [l·n, (l+1)·n) with n = ⌈bs / L⌉. An
+item keeps its ordinal in the machine's stream, so its draws do not
+depend on the rank that loads it. A batch that does not split evenly (the
+eval loader's) is padded by repeating its last item, as efg_tpu pads a
+batch to its data axis; `local_valid` says how many of a rank's rows are
+real.
 """
 
 from __future__ import annotations
@@ -19,6 +28,7 @@ from typing import Any, Dict, Iterator, List, Optional
 import numpy as np
 
 from efg_tpu_torch.data.registry import DATASETS, PROCESSORS, SAMPLERS
+from efg_tpu_torch.utils import distributed as comm
 from efg_tpu_torch.utils.seed import seed_all_rng
 
 
@@ -95,7 +105,9 @@ def collate_fixed(samples: List, max_gt: int) -> Dict[str, Any]:
 
 class DataLoader:
     """Minimal prefetching loader over (dataset, sampler): batches of
-    `batch_size` items, collated by `collate_fixed`."""
+    `batch_size` items, collated by `collate_fixed`; with `local_size` >
+    1, local rank `local_rank`'s slice of each (`local_batch` rows, the
+    first `local_valid` of them real)."""
 
     def __init__(
         self,
@@ -106,6 +118,8 @@ class DataLoader:
         num_workers: int = 0,
         seed: Optional[int] = None,
         drop_last: bool = True,
+        local_rank: int = 0,
+        local_size: int = 1,
     ):
         self.dataset = dataset
         self.sampler = sampler
@@ -114,6 +128,11 @@ class DataLoader:
         self.num_workers = num_workers
         self.seed = seed
         self.drop_last = drop_last
+        self.local_rank = local_rank
+        self.local_size = local_size
+        self.local_batch = -(-batch_size // local_size)
+        self.local_valid = min(max(batch_size - local_rank * self.local_batch, 0),
+                               self.local_batch)
         # Resume fast-forward: iterators skip the first `start_batch`
         # batches by discarding sampler indices (no item fetch, no
         # transform replay). With a seed set, augmentation RNG is derived
@@ -159,19 +178,31 @@ class DataLoader:
                 break
         return it, n_skip
 
+    def _local_batch(self, idxs: List[int], ordinal0: int) -> Dict[str, Any]:
+        """This rank's slice of the batch of sampler indices `idxs` (its
+        first item at stream ordinal `ordinal0`), collated. The batch is
+        padded with its last item to `batch_size` (a short tail batch) and
+        to a multiple of the local ranks; each item is loaded once."""
+        n = self.local_batch
+        src = [min(p, len(idxs) - 1)
+               for p in range(self.local_rank * n, (self.local_rank + 1) * n)]
+        items: Dict[int, Any] = {}
+        for k in src:
+            if k not in items:
+                items[k] = self._fetch(idxs[k], ordinal0 + k)
+        return collate_fixed([items[k] for k in src], self.max_gt)
+
     def _iter_sequential(self) -> Iterator[Dict[str, Any]]:
-        buf = []
+        idxs: List[int] = []
         it, ordinal = self._skipped_indices()
         for idx in it:
-            buf.append(self._fetch(idx, ordinal))
-            ordinal += 1
-            if len(buf) == self.batch_size:
-                yield collate_fixed(buf, self.max_gt)
-                buf = []
-        if buf and not self.drop_last:
-            while len(buf) < self.batch_size:  # repeat-pad the tail batch
-                buf.append(buf[-1])
-            yield collate_fixed(buf, self.max_gt)
+            idxs.append(idx)
+            if len(idxs) == self.batch_size:
+                yield self._local_batch(idxs, ordinal)
+                ordinal += len(idxs)
+                idxs = []
+        if idxs and not self.drop_last:
+            yield self._local_batch(idxs, ordinal)
 
     def _iter_threaded(self) -> Iterator[Dict[str, Any]]:
         out_q: "queue.Queue" = queue.Queue(maxsize=4)
@@ -193,10 +224,7 @@ class DataLoader:
                         break
                 if len(items) < self.batch_size:
                     break
-                batch = collate_fixed(
-                    [self._fetch(i, ordinal0 + k) for k, i in enumerate(items)],
-                    self.max_gt,
-                )
+                batch = self._local_batch(items, ordinal0)
                 while not stop.is_set():  # a closed iterator's worker stops here
                     try:
                         out_q.put(batch, timeout=0.1)
@@ -230,7 +258,8 @@ class DataLoader:
 
 def build_dataloader(config, dataset, train: bool = True) -> DataLoader:
     """The train loader (an infinite shuffled stream, seeded from
-    `misc.seed`) or the eval loader (one pass in order)."""
+    `misc.seed`) or the eval loader (one pass in order), each yielding
+    this local rank's slice of the machine's batches."""
     dl = config.dataloader
     max_gt = int(config.dataset.get("max_gt", config.get("model", {}).get("loss", {}).get("max_objs", 500)))
     if train:
@@ -242,9 +271,11 @@ def build_dataloader(config, dataset, train: bool = True) -> DataLoader:
             dataset, sampler, int(dl.batch_size), max_gt=max_gt,
             num_workers=int(dl.get("num_workers", 0)),
             seed=None if seed is None or seed < 0 else seed,
+            local_rank=comm.get_local_rank(), local_size=comm.get_local_size(),
         )
     sampler = SAMPLERS.get(dl.get("eval_sampler", "InferenceSampler"))(len(dataset))
     return DataLoader(
         dataset, sampler, int(dl.get("eval_batch_size", dl.batch_size)),
         max_gt=max_gt, num_workers=0, drop_last=False,
+        local_rank=comm.get_local_rank(), local_size=comm.get_local_size(),
     )

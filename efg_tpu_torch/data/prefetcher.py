@@ -6,7 +6,9 @@ On the card each batch is copied from pinned host memory with
 that copy's event before it reads the batch, and every tensor is recorded
 on the consumer's stream so that its memory is not reused early. On the
 CPU the numpy arrays are wrapped by `torch.from_numpy`. Entries that are
-not arrays (metadata lists) pass through.
+not arrays (metadata lists) pass through. Under data parallelism each rank
+copies to its own card: the side stream, the pinned buffers and the event
+belong to the prefetcher's device, whichever card is current.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ class DevicePrefetcher:
         if self._stream is None:
             return {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
                     for k, v in batch.items()}, None
-        with torch.cuda.stream(self._stream):
+        with torch.cuda.device(self._device), torch.cuda.stream(self._stream):
             out = {k: torch.from_numpy(v).pin_memory().to(self._device, non_blocking=True)
                    if isinstance(v, np.ndarray) else v for k, v in batch.items()}
             ready = torch.cuda.Event()

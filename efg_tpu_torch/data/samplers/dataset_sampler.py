@@ -1,8 +1,10 @@
 """Index samplers (port of the samplers of
-`efg_tpu/data/samplers/dataset_sampler.py` that a single-card run uses).
+`efg_tpu/data/samplers/dataset_sampler.py` that the port's runs use).
 
-The distributed samplers shard by this process's rank and the world size
-(`utils/distributed.py`: one process until data parallelism is ported).
+The distributed samplers shard by machine, as efg_tpu's shard by process
+(one process a machine there): every local rank of a machine reads the
+machine's stream, and the loader (`data/builder.py`) hands each its slice
+of every batch.
 """
 
 from __future__ import annotations
@@ -38,16 +40,16 @@ class InfiniteSampler:
 @SAMPLERS.register()
 class DistributedInfiniteSampler(InfiniteSampler):
     def __init__(self, size: int, shuffle: bool = True, seed: Optional[int] = None):
-        super().__init__(size, shuffle=shuffle, seed=seed, rank=comm.get_rank(),
-                         world_size=comm.get_world_size())
+        super().__init__(size, shuffle=shuffle, seed=seed, rank=comm.get_machine_rank(),
+                         world_size=comm.get_num_machines())
 
 
 @SAMPLERS.register()
 class InferenceSampler:
-    """One pass, contiguous per-process shards."""
+    """One pass, contiguous per-machine shards."""
 
     def __init__(self, size: int):
-        rank, world = comm.get_rank(), comm.get_world_size()
+        rank, world = comm.get_machine_rank(), comm.get_num_machines()
         shard = size // world
         left = size % world
         begin = shard * rank + min(rank, left)

@@ -113,7 +113,9 @@ class PeriodicWriter(HookBase):
 class PeriodicCheckpoint(HookBase):
     """Save `model_{iter:07d}` after every `period`-th iteration (iter is
     0-based, so the file after the 15th step is model_0000014) and
-    `model_final` after training."""
+    `model_final` after training. The saves are asynchronous: the file is
+    written behind the next steps, and `train()` waits for it before it
+    returns. The trainer adds this hook on rank 0 only."""
 
     def __init__(self, period: int):
         self._period = max(1, int(period))
@@ -121,19 +123,20 @@ class PeriodicCheckpoint(HookBase):
     def after_step(self):
         it = get_event_storage().iter
         if (it + 1) % self._period == 0 and it != self.trainer.max_iters - 1:
-            self.trainer.save_checkpoint(f"model_{it:07d}")
+            self.trainer.save_checkpoint(f"model_{it:07d}", blocking=False)
 
     def after_train(self):
         # a preempted run is NOT final: it already saved a step checkpoint,
         # and writing model_final here would make the resumed run look done
         if getattr(self.trainer, "_preempted", False):
             return
-        self.trainer.save_checkpoint("model_final")
+        self.trainer.save_checkpoint("model_final", blocking=False)
 
 
 class EvalHook(HookBase):
     """Evaluate after every `period`-th iteration but the last one (the
-    CLI evaluates after training)."""
+    CLI evaluates after training). Every rank runs it: each evaluates its
+    shard and the evaluators gather the frames."""
 
     def __init__(self, period: int, eval_fn):
         self._period = int(period)

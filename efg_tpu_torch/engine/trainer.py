@@ -3,10 +3,23 @@ of `efg_tpu/engine/trainer.py`).
 
 efg_tpu jits its steps; here they run eagerly. `DefaultTrainer` is
 efg_tpu's loop: data, optimizer, state and hooks set up from the config,
-checkpoints as `torch.save` files, resume with the data stream
-fast-forwarded, a SIGTERM handler that checkpoints at the next step
-boundary, metrics fetched one step late, and `evaluate`: the eval step
-over the val split, its outputs fed to the config's evaluators.
+checkpoints as `torch.save` files written behind the next steps, resume
+with the data stream fast-forwarded, a SIGTERM handler that checkpoints
+at the next step boundary, metrics fetched one step late, and `evaluate`:
+the eval step over the val split, its outputs fed to the config's
+evaluators.
+
+Under data parallelism (`parallel/ddp.py`, ranks started by
+`engine/launch.py`) every rank holds the whole model and trains on its
+slice of the machine's batch. The BN statistics and the loss normalisers
+are the global batch's, each rank's gradient is its share of the gradient
+of the ranks' summed loss, and `train_step` sums the gradients over the
+ranks (one flat all-reduce per dtype after the backward, not a
+`DistributedDataParallel` wrapper: ConQueR's loss calls submodules and
+the EMA decoder outside the module's forward, and leaves some parameters
+without a gradient) before the clip and AdamW see them. So every rank
+applies efg_tpu's global-batch update, and the replicas stay equal bit
+for bit. Rank 0 writes the records and the checkpoints.
 """
 
 from __future__ import annotations
@@ -15,6 +28,7 @@ import logging
 import math
 import os
 import signal
+import threading
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -36,10 +50,16 @@ from efg_tpu_torch.engine.hooks import (
 from efg_tpu_torch.engine.train_state import ModelDef, TrainState
 from efg_tpu_torch.evaluator.build import build_evaluators, check_ported, evaluator_names
 from efg_tpu_torch.models.centerpoint import resolve_device
+from efg_tpu_torch.parallel import ddp
 from efg_tpu_torch.solver.optimizers import build_optimizer, global_norm
 from efg_tpu_torch.solver.schedulers import build_scheduler
 from efg_tpu_torch.utils import distributed as comm
-from efg_tpu_torch.utils.events import CommonMetricPrinter, EventStorage, JSONWriter
+from efg_tpu_torch.utils.events import (
+    CommonMetricPrinter,
+    EventStorage,
+    JSONWriter,
+    TensorboardWriter,
+)
 from efg_tpu_torch.utils.logger import LOGGER_NAME
 from efg_tpu_torch.utils.registry import Registry
 
@@ -92,9 +112,11 @@ def train_step(model_def: ModelDef, tx, state: TrainState, batch: Dict[str, Any]
     """One training step: `train_forward` and `loss_fn`, or the ModelDef's
     `custom_loss` (module in train mode, grads cleared, the EMA state and
     the step's generator, `step_generator(seed, state.step)`), then the
-    backward, `apply_grads` and `ema_update`. Returns the detached losses
-    plus `grad_norm`, the global norm before clipping. Leaves the module in
-    train mode and this step's grads on the parameters."""
+    backward, the gradients summed over the ranks, `apply_grads` and
+    `ema_update`. Returns the detached losses summed over the ranks (the
+    global batch's) plus `grad_norm`, the global norm before clipping.
+    Leaves the module in train mode and this step's grads on the
+    parameters."""
     if model_def.custom_loss is not None:
         module = _train_mode(state)
         device = next(module.parameters()).device
@@ -104,10 +126,11 @@ def train_step(model_def: ModelDef, tx, state: TrainState, batch: Dict[str, Any]
         preds = train_forward(model_def, state, batch)
         losses = model_def.loss_fn(preds, batch)
     losses["loss"].backward()
+    ddp.reduce_gradients(state.module)
     grad_norm = apply_grads(tx, state)
     if model_def.ema_update is not None and state.ema is not None:
         model_def.ema_update(state.ema, state.module)
-    metrics = {k: v.detach() for k, v in losses.items()}
+    metrics = ddp.sum_metrics({k: v.detach() for k, v in losses.items()})
     metrics["grad_norm"] = grad_norm
     return metrics
 
@@ -130,10 +153,11 @@ def _not_ported(what: str, item: int) -> NotImplementedError:
 
 @TRAINERS.register()
 class DefaultTrainer:
-    """efg_tpu's `DefaultTrainer` on one device. `build_model(config,
+    """efg_tpu's `DefaultTrainer` on this rank's device. `build_model(config,
     device=, generator=)` returns the ModelDef; its initial weights are
     drawn from a torch.Generator seeded by `misc.seed` (0 when unset),
-    as efg_tpu initialises from `jax.random.key(seed)`."""
+    as efg_tpu initialises from `jax.random.key(seed)`, the same on every
+    rank (checked at set-up)."""
 
     def __init__(self, config, build_model, device="cuda"):
         self.config = config
@@ -152,19 +176,14 @@ class DefaultTrainer:
         self.start_iter = 0
         self.iter = 0
         self._preempted = False
+        self._ckpt_write: Optional[_CheckpointWrite] = None
 
     def _refuse_unported(self):
-        """Raise on a request this port cannot serve yet, before any set-up."""
-        cfg = self.config.trainer
+        """Raise on a request this port cannot serve, before any set-up:
+        an evaluator not ported, or a mesh that does not fit the ranks
+        (`ddp.mesh_shape`, which also refuses a `model` axis)."""
         check_ported(evaluator_names(self.config))
-        if cfg.get("tensorboard", False):
-            raise _not_ported("trainer.tensorboard (TensorboardWriter)", 2)
-        mesh = dict(self.config.get("mesh") or {})
-        shape = dict(zip(mesh.get("axes", []), mesh.get("shape", [])))
-        if int(shape.get("model", 1)) > 1:
-            raise _not_ported("mesh: a `model` axis wider than 1 (tensor parallelism)", 5)
-        if int(shape.get("data", -1)) not in (-1, 1):
-            raise _not_ported("mesh: a `data` axis over several devices (data parallelism)", 1)
+        ddp.mesh_shape(dict(self.config.get("mesh") or {}), comm.get_world_size())
 
     # ------------------------------------------------------------------ data
     def setup_data(self):
@@ -175,8 +194,8 @@ class DefaultTrainer:
 
         # epoch → iteration conversion
         sched = cfg.solver.lr_scheduler
-        bs = int(cfg.dataloader.batch_size)
-        global_bs = bs * comm.get_world_size()
+        bs = int(cfg.dataloader.batch_size)  # a machine's, as in efg_tpu
+        global_bs = bs * comm.get_num_machines()
         self.iters_per_epoch = max(1, len(self.dataset) // global_bs)
         if sched.get("max_iters") or 0:
             self.max_iters = int(sched.max_iters)
@@ -185,6 +204,11 @@ class DefaultTrainer:
         else:
             self.max_iters = 1
         sched["max_iters"] = self.max_iters
+
+        local = comm.get_local_size()
+        if bs % local:
+            raise ValueError(f"dataloader.batch_size={bs} must divide the data mesh axis "
+                             f"({local} ranks on this machine)")
 
     # ----------------------------------------------------------------- model
     def setup_optimizer(self):
@@ -199,6 +223,7 @@ class DefaultTrainer:
         self.state: TrainState = init_state(self.model_def, self.tx)
         n_params = sum(p.numel() for p in self.state.module.parameters())
         logger.info(f"Model parameters: {n_params / 1e6:.2f}M on {self.device}")
+        ddp.check_replicas_equal(self.state.module, "initial weights", self.state.ema)
 
     # ----------------------------------------------------------------- hooks
     def setup_hooks(self):
@@ -208,6 +233,8 @@ class DefaultTrainer:
         if comm.is_main_process():
             writers.append(CommonMetricPrinter(self.max_iters, window_size=int(cfg.window_size)))
             writers.append(JSONWriter(os.path.join(out_dir, "metrics.json"), int(cfg.window_size)))
+            if cfg.get("tensorboard", False):
+                writers.append(TensorboardWriter(out_dir, int(cfg.window_size)))
         ckpt_period = cfg.get("checkpoint_iter") or None
         if ckpt_period is None and cfg.get("checkpoint_epoch"):
             ckpt_period = int(cfg.checkpoint_epoch * self.iters_per_epoch)
@@ -239,32 +266,57 @@ class DefaultTrainer:
         return d
 
     # ------------------------------------------------------------ checkpoint
-    def save_checkpoint(self, name: str) -> str:
-        """`torch.save` of the module's state_dict (parameters and BN
-        statistics), the AdamW state by parameter name, the step, and the
-        EMA state where the model has one, to `<output_dir>/<name>`. The file is written under a temporary name
-        and renamed, so a half-written checkpoint is never resumed."""
+    def save_checkpoint(self, name: str, blocking: bool = True) -> str:
+        """Save the module's state_dict (parameters and BN statistics),
+        the AdamW state by parameter name, the step, and the EMA state
+        where the model has one, to `<output_dir>/<name>`. Host copies of
+        all of it are complete when this returns, so the next step may
+        update the tensors in place; `torch.save` then writes them under a
+        temporary name, renamed when done, so a half-written checkpoint is
+        never resumed. With `blocking=False` the write runs on a thread
+        behind the next steps (one write at a time: a save first waits for
+        the previous one); `wait_for_checkpoints` raises if it failed."""
+        self.wait_for_checkpoints()
         path = os.path.join(self.output_dir, name)
         names = [n for n, _ in self.state.module.named_parameters()]
         opt = self.state.opt_state
-        tmp = os.path.join(self.output_dir, f".{name}.{os.getpid()}.tmp")
-        torch.save({
-            "model": self.state.module.state_dict(),
-            "optimizer": {"count": opt.count, "mu": dict(zip(names, opt.mu)),
-                          "nu": dict(zip(names, opt.nu))},
+        snapshot = {
+            "model": _host_copy(self.state.module.state_dict()),
+            "optimizer": {"count": opt.count, "mu": _host_copy(dict(zip(names, opt.mu))),
+                          "nu": _host_copy(dict(zip(names, opt.nu)))},
             "step": self.state.step,
-            **({"ema": self.state.ema} if self.state.ema is not None else {}),
-        }, tmp)
-        os.replace(tmp, path)
-        logger.info(f"Saved checkpoint to {path}")
+            **({"ema": _host_copy(self.state.ema)} if self.state.ema is not None else {}),
+        }
+        tmp = os.path.join(self.output_dir, f".{name}.{os.getpid()}.tmp")
+        if blocking:
+            _write_checkpoint(snapshot, tmp, path)
+            logger.info(f"Saved checkpoint to {path}")
+        else:
+            self._ckpt_write = _CheckpointWrite(snapshot, tmp, path)
+            self._ckpt_write.start()
+            logger.info(f"Saving checkpoint to {path} (async)")
         return path
+
+    def wait_for_checkpoints(self) -> None:
+        """Block until the checkpoint write in flight (if any) is on disk;
+        raise if it failed."""
+        write, self._ckpt_write = self._ckpt_write, None
+        if write is None:
+            return
+        write.join()
+        if write.error is not None:
+            raise RuntimeError(f"writing checkpoint {write.path} failed") from write.error
 
     def resume_or_load(self, resume: bool = True):
         """Resume from the newest `model_*` checkpoint of output_dir, or
         load the checkpoint named by `model.weights`. The data stream is
         fast-forwarded to the restored step: the loader discards the first
         `step` batches of sampler indices, and per-item seeding makes the
-        rest of the stream equal to an uninterrupted run's."""
+        rest of the stream equal to an uninterrupted run's. A write in
+        flight is waited for, and every rank reads the same file behind a
+        barrier (rank 0 wrote it)."""
+        self.wait_for_checkpoints()
+        comm.synchronize()
         out = self.output_dir
         ckpts = sorted(f for f in os.listdir(out)
                        if f.startswith("model_") and os.path.isfile(os.path.join(out, f)))
@@ -300,8 +352,10 @@ class DefaultTrainer:
     def _install_preemption_handler(self):
         """SIGTERM sets a flag; the loop saves a step checkpoint at the next
         step boundary and stops, so a `--resume` relaunch continues the same
-        run. Returns the previous handler, or None when not installable
-        (outside the main thread)."""
+        run. The ranks agree on the stop at each step boundary (a flag on
+        any rank stops all of them), so none is left waiting in a
+        collective. Returns the previous handler, or None when not
+        installable (outside the main thread)."""
         self._preempted = False
 
         def _on_term(signum, frame):
@@ -364,16 +418,19 @@ class DefaultTrainer:
                     h.after_step()
                 self.iter += 1
                 self.storage.step()
-                if self._preempted:
+                if comm.any_rank(self._preempted):
+                    self._preempted = True
                     logger.warning(
                         f"SIGTERM: saving preemption checkpoint at iter {self.iter} and exiting")
-                    self.save_checkpoint(f"model_{self.iter:07d}")
+                    if comm.is_main_process():
+                        self.save_checkpoint(f"model_{self.iter:07d}")
                     break
             self._data_iter.close()
             if pending is not None:
                 self._write_metrics(*pending)
             for h in self.hooks:
                 h.after_train()
+            self.wait_for_checkpoints()  # no exit with a write in flight
 
     def _write_metrics(self, it: int, fetched):
         keys, vals, done = fetched
@@ -397,8 +454,12 @@ class DefaultTrainer:
         """The eval step over the val split (a copy of the config with task
         `val`, read in order), each batch's outputs moved to host numpy and
         fed with the host batch to the evaluators (the config's when none
-        are given); returns their merged results. efg_tpu pads a batch to
-        its mesh's data axis; on one device there is nothing to pad."""
+        are given); returns their merged results. Under data parallelism
+        each rank runs the bare module over its slice of each batch; a
+        batch that does not split evenly over the local ranks comes padded
+        by the loader, as efg_tpu pads a batch to its data axis, and the
+        padding rows are trimmed from the outputs here. The evaluators
+        gather every rank's frames."""
         cfg = self.config
         eval_cfg = type(cfg)(dict(cfg))
         eval_cfg["task"] = "val"
@@ -408,10 +469,15 @@ class DefaultTrainer:
         for ev in evaluators:
             ev.reset()
         n_batches = len(loader)
+        n, n_valid = loader.local_batch, loader.local_valid
         for i, batch in enumerate(loader):
+            if n_valid == 0:  # this rank's slice is padding only
+                continue
             device_batch = {k: torch.from_numpy(v).to(self.device) if isinstance(v, np.ndarray)
                             else v for k, v in batch.items()}
             outputs = _to_numpy(eval_step(self.model_def, device_batch))
+            if n_valid < n:
+                outputs, batch = _trim(outputs, n, n_valid), _trim(batch, n, n_valid)
             for ev in evaluators:
                 ev.process(batch, outputs)
             if (i + 1) % 50 == 0:
@@ -424,6 +490,47 @@ class DefaultTrainer:
         if comm.is_main_process():
             logger.info(f"Evaluation results: {results}")
         return results
+
+
+def _trim(tree, n: int, keep: int):
+    """The first `keep` rows of every array and list of `n` rows in a
+    dict tree (the other entries as they are)."""
+    if isinstance(tree, dict):
+        return {k: _trim(v, n, keep) for k, v in tree.items()}
+    rows = isinstance(tree, list) or (isinstance(tree, np.ndarray) and tree.ndim >= 1)
+    if rows and len(tree) == n:
+        return tree[:keep]
+    return tree
+
+
+def _host_copy(tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Host copies of a dict of tensors, complete on return (a copy even
+    of a CPU tensor, which the next step updates in place)."""
+    return {k: v.detach().to("cpu", copy=True) for k, v in tensors.items()}
+
+
+def _write_checkpoint(snapshot: Dict[str, Any], tmp: str, path: str) -> None:
+    torch.save(snapshot, tmp)
+    os.replace(tmp, path)
+
+
+class _CheckpointWrite(threading.Thread):
+    """One checkpoint file written on a thread of its own; its exception,
+    if any, is kept for `DefaultTrainer.wait_for_checkpoints`."""
+
+    def __init__(self, snapshot: Dict[str, Any], tmp: str, path: str):
+        super().__init__(name="checkpoint-write")
+        self.path = path
+        self.error: Optional[BaseException] = None
+        self._job = (snapshot, tmp, path)
+
+    def run(self) -> None:
+        try:
+            _write_checkpoint(*self._job)
+        except Exception as e:  # re-raised by the next wait
+            self.error = e
+        finally:
+            self._job = None  # the host copies go with the thread
 
 
 def _to_numpy(tree):

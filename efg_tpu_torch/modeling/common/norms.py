@@ -5,6 +5,11 @@ the valid rows only. `BatchNorm` is the dense NCHW counterpart of
 `flax.linen.BatchNorm` as the RPN and CenterHead use it, with flax's
 arithmetic: y = (x − mean)·(rsqrt(var + eps)·scale) + bias in f32.
 
+Under data parallelism (`parallel/ddp.py`) both take their statistics over
+the global batch, as efg_tpu's do over its sharded batch: the sums, the
+sums of squares and the counts of every rank in one differentiable
+all-reduce. In a world of one the arithmetic is the one-process one.
+
 Both keep flax's momentum convention (running = m·running + (1−m)·batch,
 m = 0.9 ≡ torch momentum 0.1) and name their state like torch's BatchNorm
 (weight, bias, running_mean, running_var) for the weight mapper.
@@ -16,6 +21,8 @@ from typing import Optional
 
 import torch
 from torch import nn
+
+from efg_tpu_torch.parallel import ddp
 
 
 class _Norm(nn.Module):
@@ -48,12 +55,16 @@ class MaskedBatchNorm(_Norm):
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         if self.training:
             m = mask.to(torch.float32)[:, None]
-            cnt = torch.clamp(m.sum(), min=1.0)
             xf = x.to(torch.float32)
             # one pass: E[x²]−E[x]², fine in f32 at BN-scale magnitudes
             xm = xf * m
-            mean = xm.sum(dim=0) / cnt
-            var = torch.clamp((xm * xf).sum(dim=0) / cnt - mean * mean, min=0.0)
+            c = xf.shape[1]
+            # [Σx, Σx², count] over the ranks (itself in a world of one)
+            s = ddp.all_reduce_sum(torch.cat([xm.sum(dim=0), (xm * xf).sum(dim=0),
+                                              m.sum().reshape(1)]))
+            cnt = torch.clamp(s[2 * c], min=1.0)
+            mean = s[:c] / cnt
+            var = torch.clamp(s[c:2 * c] / cnt - mean * mean, min=0.0)
             self._update(mean, var)
         else:
             mean, var = self.running_mean, self.running_var
@@ -73,8 +84,16 @@ class BatchNorm(_Norm):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(torch.float32)
         if self.training:
-            mean = x.mean(dim=(0, 2, 3))
-            var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+            if ddp.active():
+                c = x.shape[1]
+                n = x.new_full((1,), x.numel() // c)
+                s = ddp.all_reduce_sum(torch.cat([x.sum(dim=(0, 2, 3)),
+                                                  (x * x).sum(dim=(0, 2, 3)), n]))
+                mean = s[:c] / s[2 * c]
+                var = torch.clamp(s[c:2 * c] / s[2 * c] - mean * mean, min=0.0)
+            else:
+                mean = x.mean(dim=(0, 2, 3))
+                var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
             self._update(mean, var)
         else:
             mean, var = self.running_mean, self.running_var

@@ -3,7 +3,11 @@ assignment, fast focal + gathered L1 losses, decode and rotated NMS (port
 of `efg_tpu/modeling/heads/center_head.py`).
 
 Maps are NHWC at the module boundary like efg_tpu. Targets are computed
-for the whole batch at once (efg_tpu vmaps a per-sample function).
+for the whole batch at once (efg_tpu vmaps a per-sample function). Under
+data parallelism the losses divide by the global batch's counts
+(`parallel/ddp.py` `global_sum`), so the ranks' losses add up to efg_tpu's
+loss of the global batch; `{t}_num_positive` stays a rank's own count,
+which the trainer sums over the ranks with the losses.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from efg_tpu_torch.modeling.backbones.rpn import Conv2d
 from efg_tpu_torch.modeling.common.norms import BatchNorm
 from efg_tpu_torch.ops.gaussian import gaussian_radius, splat_gaussians
 from efg_tpu_torch.ops.nms import NEG_INF, circle_nms, rotated_nms
+from efg_tpu_torch.parallel import ddp
 
 
 class SepHead(nn.Module):
@@ -161,12 +166,13 @@ def _gather_feat(fmap: torch.Tensor, ind: torch.Tensor) -> torch.Tensor:
 
 
 def fast_focal_loss(out, target, ind, mask, cat, eps: float = 1e-12) -> torch.Tensor:
-    """CornerNet-style focal loss on sigmoided heatmaps out/target [B, H, W, C]."""
+    """CornerNet-style focal loss on sigmoided heatmaps out/target [B, H, W, C],
+    over the global batch's positive count."""
     m = mask.to(torch.float32)
     gt_weight = torch.pow(1 - target, 4)
     neg_loss = (torch.log(torch.clamp(1 - out, min=eps)) * torch.square(out) * gt_weight).sum()
     pos_pred = torch.gather(_gather_feat(out, ind), 2, cat.long()[..., None])[..., 0]
-    num_pos = m.sum()
+    num_pos = ddp.global_sum(m.sum())
     pos_loss = (torch.log(torch.clamp(pos_pred, min=eps)) * torch.square(1 - pos_pred) * m).sum()
     return torch.where(num_pos == 0, -neg_loss,
                        -(pos_loss + neg_loss) / torch.clamp(num_pos, min=1.0))
@@ -174,11 +180,11 @@ def fast_focal_loss(out, target, ind, mask, cat, eps: float = 1e-12) -> torch.Te
 
 def reg_loss(output, mask, ind, target) -> torch.Tensor:
     """Gathered L1 regression loss → per-dim vector [D]. output [B, H, W, D],
-    target [B, M, D]."""
+    target [B, M, D]; over the global batch's mask sum."""
     pred = _gather_feat(output, ind)
     m = mask.to(torch.float32)[..., None]
     loss = torch.abs(pred * m - target * m)
-    loss = loss / (m.sum() + 1e-4)
+    loss = loss / (ddp.global_sum(m.sum()) + 1e-4)
     return loss.sum(dim=(0, 1))
 
 

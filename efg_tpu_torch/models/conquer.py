@@ -25,6 +25,7 @@ from torch.func import functional_call
 from efg_tpu_torch.engine.train_state import ModelDef
 from efg_tpu_torch.geometry.box_ops_torch import aligned_giou_3d_pairs
 from efg_tpu_torch.models import voxel_detr as VD
+from efg_tpu_torch.parallel import ddp
 
 
 class _ProjMLP(nn.Module):
@@ -69,7 +70,9 @@ def prepare_cdn(gt_boxes_norm: torch.Tensor, gt_labels: torch.Tensor, gt_mask: t
 
     The noise is drawn from `generator`, on the boxes' device: flip [B, P]
     (a label replaced w.p. ratio/2), rand_lbl [B, P], sign [B, P, 7] ±1 and
-    rand [B, P, 7] uniform. `noise_override` (tests) gives those four
+    rand [B, P, 7] uniform. Under data parallelism each is drawn for the
+    global batch and this rank's rows are taken, so rank r gets the r-th
+    slice of what one process draws for the whole batch. `noise_override` (tests) gives those four
     tensors instead, so the construction can be held bit for bit against
     efg_tpu's under its own draws."""
     b, g, _ = gt_boxes_norm.shape
@@ -86,10 +89,14 @@ def prepare_cdn(gt_boxes_norm: torch.Tensor, gt_labels: torch.Tensor, gt_mask: t
         flip, rand_lbl = noise_override["flip"], noise_override["rand_lbl"]
         sign, rand = noise_override["sign"].to(dtype), noise_override["rand"]
     else:
-        flip = torch.rand((b, p), generator=generator, device=dev) < label_noise_ratio * 0.5
-        rand_lbl = torch.randint(0, num_classes, (b, p), generator=generator, device=dev)
-        sign = torch.randint(0, 2, (b, p, 7), generator=generator, device=dev).to(dtype) * 2 - 1
-        rand = torch.rand((b, p, 7), generator=generator, device=dev, dtype=dtype)
+        bg, r0 = ddp.global_batch(b)
+        rows = slice(r0, r0 + b)
+        flip = (torch.rand((bg, p), generator=generator, device=dev)[rows]
+                < label_noise_ratio * 0.5)
+        rand_lbl = torch.randint(0, num_classes, (bg, p), generator=generator, device=dev)[rows]
+        sign = (torch.randint(0, 2, (bg, p, 7), generator=generator, device=dev)[rows].to(dtype)
+                * 2 - 1)
+        rand = torch.rand((bg, p, 7), generator=generator, device=dev, dtype=dtype)[rows]
     noised_labels = torch.where(flip.bool(), rand_lbl.to(labels.dtype), labels)
 
     # box noise in corner form for xyz, direct for the rest; negatives pushed out
@@ -163,7 +170,8 @@ def query_contrast_loss(pred_logits: torch.Tensor, pred_boxes: torch.Tensor,
     noised copies of the same GT) and the matched queries' embeddings
     (reference `voxel_detr.py:222-254`). pred_* [B, Q, ·] of one decoder
     layer, gt_* [B, (dn+1)·G, ·], assign [B, G] (−1 at padding). The GT
-    branch's input is detached; the projector still learns from it."""
+    branch's input is detached; the projector still learns from it. The
+    sum is over the global batch's GT count (`ddp.global_sum`)."""
     b, q, _ = pred_logits.shape
     g = assign.shape[1]
     gt_proj = projector(torch.cat([gt_logits, gt_boxes_out], dim=-1).detach())
@@ -187,7 +195,7 @@ def query_contrast_loss(pred_logits: torch.Tensor, pred_boxes: torch.Tensor,
         neg_exp = (torch.exp(row) * neg_mask[:, None, :].to(row.dtype)).sum(-1)
         loss = torch.log(torch.exp(pos) + neg_exp) - pos
         total = total + (loss * ok.to(loss.dtype)).sum() / dn_number
-    return total / torch.clamp(gt_mask.sum().to(sim.dtype), min=1.0)
+    return total / torch.clamp(ddp.global_sum(gt_mask.sum().to(sim.dtype)), min=1.0)
 
 
 # ---------------------------------------------------------------------------

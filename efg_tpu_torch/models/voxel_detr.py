@@ -31,6 +31,7 @@ from efg_tpu_torch.models.centerpoint import resolve_device
 from efg_tpu_torch.ops import box_attention as BA
 from efg_tpu_torch.ops.matcher import hungarian_match
 from efg_tpu_torch.ops.voxelize import grid_size
+from efg_tpu_torch.parallel import ddp
 
 # flax's LayerNorm and GroupNorm epsilon (torch's default is 1e-5)
 FLAX_NORM_EPS = 1e-6
@@ -521,11 +522,12 @@ def detr_set_loss(pred_logits, pred_boxes, tgt_boxes, tgt_labels, tgt_mask, num_
 
 def targets(batch: Dict[str, Any], model_cfg: Dict[str, Any]):
     """(tgt_boxes [B, G, 7] normalized, tgt_labels [B, G] 0-based, tgt_mask
-    [B, G], num_boxes = max(#GT, 1))."""
+    [B, G], num_boxes = max(#GT, 1)); #GT over the global batch under data
+    parallelism, so the ranks' losses add up to the global batch's."""
     coder = VoxelBoxCoder3D(model_cfg["voxel_size"], model_cfg["pc_range"])
     tgt_mask = batch["gt_mask"].bool()
     return (coder.encode(batch["gt_boxes"]), torch.clamp(batch["gt_classes"].long() - 1, min=0),
-            tgt_mask, torch.clamp(tgt_mask.sum().float(), min=1.0))
+            tgt_mask, torch.clamp(ddp.global_sum(tgt_mask.sum().float()), min=1.0))
 
 
 def compute_loss(preds: Dict[str, Any], batch: Dict[str, Any], *, model_cfg: Dict[str, Any],

@@ -1,10 +1,9 @@
 """Event storage and metric writers (port of `efg_tpu/utils/events.py`):
-an in-memory `EventStorage` of scalars with smoothing windows, a JSON-lines
-writer and a console printer with ETA, losses, lr and step time. Metrics
-enter as Python floats, so the storage stays on the host.
-
-The TensorBoard writer and the image and histogram queues that feed it
-are not ported yet (ROADMAP queue 1).
+an in-memory `EventStorage` of scalars with smoothing windows and queues
+of images and histograms, a JSON-lines writer, a TensorBoard writer
+(`torch.utils.tensorboard`, which needs the `tensorboard` package) and a
+console printer with ETA, losses, lr and step time. Metrics enter as
+Python floats and arrays as numpy, so the storage stays on the host.
 """
 
 from __future__ import annotations
@@ -15,6 +14,8 @@ import logging
 import os
 from collections import defaultdict
 from typing import Dict, List, Optional
+
+import numpy as np
 
 from efg_tpu_torch.utils.history_buffer import HistoryBuffer
 from efg_tpu_torch.utils.logger import LOGGER_NAME
@@ -28,7 +29,7 @@ def get_event_storage() -> "EventStorage":
 
 
 class EventStorage:
-    """Scalar store scoped to a training run."""
+    """Scalar, image and histogram store scoped to a training run."""
 
     def __init__(self, start_iter: int = 0, window_size: int = 20):
         self._history: Dict[str, HistoryBuffer] = defaultdict(HistoryBuffer)
@@ -36,6 +37,31 @@ class EventStorage:
         self._latest_scalars: Dict[str, float] = {}
         self._iter = start_iter
         self._window_size = window_size
+        self._vis_data: List[tuple] = []
+        self._histograms: List[dict] = []
+
+    def put_image(self, img_name: str, img_tensor) -> None:
+        """Queue an image for TensorBoard: [C, H, W] or [H, W, C], uint8 or
+        float, stored as a host array and drained by the TensorBoard
+        writer at its next write."""
+        self._vis_data.append((img_name, np.asarray(img_tensor), self._iter))
+
+    def put_histogram(self, hist_name: str, hist_tensor, bins: int = 1000) -> None:
+        """Queue a histogram for TensorBoard, its `add_histogram_raw`
+        parameters computed here on the host."""
+        x = np.asarray(hist_tensor, dtype=np.float64).reshape(-1)
+        ht_min, ht_max = float(x.min()), float(x.max())
+        counts, edges = np.histogram(x, bins=bins, range=(ht_min, ht_max))
+        self._histograms.append(dict(
+            tag=hist_name, min=ht_min, max=ht_max, num=len(x), sum=float(x.sum()),
+            sum_squares=float((x ** 2).sum()), bucket_limits=edges[1:].tolist(),
+            bucket_counts=counts.tolist(), global_step=self._iter))
+
+    def clear_images(self) -> None:
+        self._vis_data = []
+
+    def clear_histograms(self) -> None:
+        self._histograms = []
 
     def put_scalar(self, name: str, value: float, smoothing_hint: bool = True) -> None:
         value = float(value)
@@ -117,6 +143,37 @@ class JSONWriter(EventWriter):
 
     def close(self) -> None:
         self._file.close()
+
+
+class TensorboardWriter(EventWriter):
+    """The latest (smoothed) scalars, and the queued images and
+    histograms, into a TensorBoard event file under `log_dir`. Building
+    one without the `tensorboard` package raises its ImportError."""
+
+    def __init__(self, log_dir: str, window_size: int = 20):
+        from torch.utils.tensorboard import SummaryWriter
+
+        self._window_size = window_size
+        self._writer = SummaryWriter(log_dir)
+
+    def write(self) -> None:
+        import torch
+
+        storage = get_event_storage()
+        for k, v in storage.latest_with_smoothing_hint(self._window_size).items():
+            self._writer.add_scalar(k, v, storage.iter)
+        if storage._vis_data:
+            for img_name, img, step_num in storage._vis_data:
+                fmt = "HWC" if img.ndim == 3 and img.shape[-1] in (1, 3, 4) else "CHW"
+                self._writer.add_image(img_name, torch.as_tensor(img), step_num, dataformats=fmt)
+            storage.clear_images()
+        if storage._histograms:
+            for params in storage._histograms:
+                self._writer.add_histogram_raw(**params)
+            storage.clear_histograms()
+
+    def close(self) -> None:
+        self._writer.close()
 
 
 class CommonMetricPrinter(EventWriter):

@@ -6,16 +6,21 @@ loader; the loaders agree bit for bit, tests/test_torch_data.py).
 
 efg_tpu runs in a subprocess on one CPU device at the experiment's bs=2,
 so its batch statistics are those of the whole batch, as in one port
-process. Both compute every conv in f32, monkeypatched as
+process. Its run is made once per test session (`jax_trainer_output`):
+tests/test_torch_ddp_trainer.py holds two ranks to the same records, and
+the test workers share the run's directory under a file lock. Both
+compute every conv in f32, monkeypatched as
 tests/test_torch_train.py does, and are held to that file's whole-model
 tolerances (observed: step 1 ≤ 8.1e-7 and grad_norm 1.4e-6; step 2 ≤
 8.4e-6 and 8.3e-4; step 3 ≤ 1.4e-3 and 1.1e-2). Every stage cap stays
 above occupancy: efg_tpu's XLA rule9 misreads a tap at full capacity,
 which moved step 1 by 1.9e-5 when down1 was full."""
 
+import fcntl
 import json
 import os
 import pickle
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -127,16 +132,36 @@ def _jax_trainer(out_dir: Path) -> dict:
     return json.loads(out.stdout.strip().splitlines()[-1])
 
 
+def jax_trainer_output(tmp_path_factory, config) -> Path:
+    """The directory of efg_tpu's run (variables.pkl, metrics.json and its
+    info.json), made by the first test of the session that asks for it:
+    the test workers share the session's temp root, and a file lock makes
+    a second asker wait for the first one's run instead of repeating it."""
+    root = tmp_path_factory.getbasetemp()
+    if hasattr(config, "workerinput"):  # a worker of the parallel runner
+        root = root.parent
+    out = root / "efg_tpu_trainer_parity"
+    with open(root / "efg_tpu_trainer_parity.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not (out / "info.json").exists():
+            shutil.rmtree(out, ignore_errors=True)
+            info = _jax_trainer(out)
+            (out / "info.json").write_text(json.dumps(info))
+    return out
+
+
 def _records(path):
     with open(path) as f:
         return [json.loads(line) for line in f]
 
 
-def test_port_trainer_matches_efg_tpu_trainer(tmp_path, monkeypatch):
+def test_port_trainer_matches_efg_tpu_trainer(tmp_path, tmp_path_factory, request,
+                                              monkeypatch):
     monkeypatch.setattr(K, "COMPUTE_DTYPE", torch.float32)
-    info = _jax_trainer(tmp_path / "jax")
+    jax_dir = jax_trainer_output(tmp_path_factory, request.config)
+    info = json.loads((jax_dir / "info.json").read_text())
     assert info == {"mesh": {"data": 1, "model": 1}, "step": ITERS}
-    with open(tmp_path / "jax" / "variables.pkl", "rb") as f:
+    with open(jax_dir / "variables.pkl", "rb") as f:
         variables = pickle.load(f)
 
     tnet = cli.load_experiment_module(CONFIG)
@@ -161,7 +186,7 @@ def test_port_trainer_matches_efg_tpu_trainer(tmp_path, monkeypatch):
     tt.max_iters = ITERS
     tt.train()
 
-    want = _records(tmp_path / "jax" / "metrics.json")
+    want = _records(jax_dir / "metrics.json")
     got = _records(tmp_path / "torch" / "metrics.json")
     assert [r["iteration"] for r in got] == [r["iteration"] for r in want] == list(range(ITERS + 1))
     assert set().union(*map(set, got)) == set().union(*map(set, want))
