@@ -171,6 +171,24 @@ either. Phases (each prints JSON lines; any failure exits 1):
              = 1.0). (c) A small ConQueR (DETR_SMALL with its caps above
              occupancy), 2 ranks × bs 1 against one process at bs 2: loss
              parts within 5e-2, leaves by direction.
+16. waymo  — the flagship config's own pipeline from Waymo-format files:
+             frames in the decoder's pickle schema (160k-point clouds, boxes
+             of the three classes with points inside) through the port's
+             create_data (infos at 1 and 4 sweeps, the GT database); a
+             reference-format CenterPoint checkpoint at the flagship's width
+             imported through `model.weights` (`weights_format:
+             centerpoint`; every tensor assigned, each kind read back);
+             task=train of the flagship config as written (DatabaseSampling
+             first; bs 5, as the config's 6 puts the grid's linear keys
+             past the rank kernel's 2^29; 4 iterations: launches 12/21/21/0
+             a step, GT pasted into every item, iteration, data and
+             DatabaseSampling times, peak memory); the first step's rank,
+             gather-GEMM and stacked calls against their plain versions
+             (kernel rows `*@waymo`); task=val through WaymoDetEvaluator
+             ((8, 21) a batch); forward_double_flip on a val batch (4 ×
+             (8, 21), its time beside one forward's); the 4f config's val
+             batch (4 sweeps, 6 features, 400000 points and voxels: (8,
+             21), peak memory).
 
 The second-to-last line lists every kernel as JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", ...}}.
@@ -2021,10 +2039,10 @@ class LoopProbe:
         return [a.elapsed_time(b) for a, b in self.step_events]
 
 
-def _engine_run(argv, out_dir, device):
-    """One in-process CLI run with the launch counts reset before it;
-    returns (its metrics.json records from this run, launch counts,
-    probe)."""
+def _engine_run(argv, out_dir, device, config=ENGINE_CONFIG):
+    """One in-process CLI run of `config` with the launch counts reset
+    before it; returns (its metrics.json records from this run, launch
+    counts, probe)."""
     from efg_tpu_torch.cli import main as cli
     from efg_tpu_torch.ops.cuda import sparse_kernels as K
 
@@ -2032,8 +2050,7 @@ def _engine_run(argv, out_dir, device):
     n_before = sum(1 for _ in open(metrics)) if os.path.exists(metrics) else 0
     K.reset_launches()
     with LoopProbe() as probe:
-        rc = cli.main(["--config", os.path.join(HERE, ENGINE_CONFIG), "--device", device,
-                       *argv])
+        rc = cli.main(["--config", os.path.join(HERE, config), "--device", device, *argv])
     counts = dict(K.launches)
     if rc != 0:
         raise AssertionError(f"engine: the CLI returned {rc} for {argv}")
@@ -3660,6 +3677,573 @@ def _ddp_cli(card: str, device: str, small=()):
         shutil.rmtree(cache, ignore_errors=True)
 
 
+# phase waymo: the flagship config's own pipeline from Waymo-format files.
+# Frames in the decoder's pickle schema (`lidar_frames` clouds at N_POINTS,
+# pc 70, each with boxes of the three classes and points inside every box)
+# go through the port's create_data; the flagship and 4f configs are read
+# as written with their `dataset.source` written out (the Waymo configs do
+# not resolve in either package as written).
+WAYMO_DIR = "playground/detection.3d/waymo/center_point"
+WAYMO_FLAGSHIP = "centerpoint.waymo.voxelnet.gt_aug.onecycle.adamw.bs48.36e"
+WAYMO_4F = "centerpoint.waymo.voxelnet.4f.36e"
+WAYMO_TRAIN = (2, 3)  # train split: 2 sequences of 3 frames
+# val split: one sequence of 7 frames. create_data gives a sequence's first
+# nsweeps - 1 frames fewer sweeps and WaymoDetectionDataset refuses those at
+# nsweeps 4 (efg_tpu's too), so the 4f batch reads the last 4 frames' infos
+WAYMO_VAL = 7
+# (decoder label, boxes a frame, dims): below the config's sample_groups
+# quotas (15 / 10 / 10), so DatabaseSampling tops every class up
+WAYMO_OBJECTS = ((1, 8, (4.7, 2.1, 1.7)), (2, 4, (0.9, 0.85, 1.7)), (4, 4, (1.8, 0.8, 1.7)))
+WAYMO_ITERS = 4
+# The configs' batch_size 6 does not fit the rank kernel's keys on one card:
+# 6 × 41 × 1504 × 1504 grid cells reach INVALID_Q = 2^29, which the port
+# refuses (`_check_key_range`). 5 is the largest batch that fits; memory
+# is not the limit (bs 4 trains in 11 GB).
+WAYMO_BATCH = 5
+WAYMO_REF_SEED = 17  # the reference-format checkpoint's values
+WAYMO_TIMED = 3  # timed runs of a serving batch (post-processing of 6 frames takes seconds)
+
+
+def write_waymo_frames(root, split, n_seq, n_frames, seed, n_points=N_POINTS, pc=70.0):
+    """Frame and anno pickles in the schema the port's tfrecord_decoder
+    writes: `lidar_frames` clouds, WAYMO_OBJECTS' boxes (velocity in
+    [6:8], heading in [8]) each holding 30-150 of the cloud's points, and
+    a pose that advances along the sequence."""
+    import pickle
+
+    for d in ("lidar", "annos"):
+        os.makedirs(os.path.join(root, split, d), exist_ok=True)
+    for s in range(n_seq):
+        for f in range(n_frames):
+            frame_seed = seed * 1000 + s * 100 + f
+            pts = lidar_frames(n_points, 1, frame_seed, pc=pc)["points"][0]
+            rs = np.random.RandomState(frame_seed + 7)
+            objects, start = [], 0
+            for label, count, dims in WAYMO_OBJECTS:
+                for _ in range(count):
+                    d = np.abs(np.asarray(dims) + rs.randn(3) * 0.1)
+                    box = np.zeros(9, np.float32)
+                    box[:2] = rs.uniform(-0.8 * pc, 0.8 * pc, 2)
+                    box[2] = rs.uniform(-0.5, 1.0)
+                    box[3:6] = d
+                    box[6:8] = rs.randn(2)
+                    box[8] = rs.uniform(-np.pi, np.pi)
+                    n_in = int(rs.randint(30, 150))
+                    local = rs.uniform(-0.45, 0.45, (n_in, 3)) * d
+                    c, sn = np.cos(box[8]), np.sin(box[8])
+                    pts[start:start + n_in, 0] = local[:, 0] * c - local[:, 1] * sn + box[0]
+                    pts[start:start + n_in, 1] = local[:, 0] * sn + local[:, 1] * c + box[1]
+                    pts[start:start + n_in, 2] = local[:, 2] + box[2]
+                    start += n_in
+                    objects.append({
+                        "id": len(objects), "name": f"{split}-{s}-{f}-{len(objects)}",
+                        "label": label, "box": box, "num_points": n_in,
+                        "detection_difficulty_level": 0, "combined_difficulty_level": 1,
+                        "global_speed": box[6:8].copy(), "global_accel": np.zeros(2, np.float32)})
+            yaw = 0.3 * s + 0.05 * f
+            pose = np.eye(4)
+            pose[:2, :2] = [[np.cos(yaw), -np.sin(yaw)], [np.sin(yaw), np.cos(yaw)]]
+            pose[:3, 3] = [100.0 * s + 1.5 * f, 0.4 * f, 0.02 * f]
+            name = f"seq_{s}_frame_{f}.pkl"
+            head = {"scene_name": f"{split}{s}", "frame_name": f"{split}{s}_{f}", "frame_id": f}
+            with open(os.path.join(root, split, "lidar", name), "wb") as fh:
+                pickle.dump({**head, "lidars": {"points_xyz": np.ascontiguousarray(pts[:, :3]),
+                                                "points_feature": np.ascontiguousarray(pts[:, 3:])}},
+                            fh)
+            with open(os.path.join(root, split, "annos", name), "wb") as fh:
+                pickle.dump({**head, "veh_to_global": pose.reshape(-1), "objects": objects}, fh)
+
+
+def prepare_waymo(root, n_points=N_POINTS, pc=70.0):
+    """The fixture dataset through the port's create_data: the frames, the
+    infos at 1 and 4 sweeps of both splits (the 4-sweep val infos keep the
+    frames that have 3 sweeps) and the train split's GT database."""
+    import pickle
+
+    from efg_tpu_torch.cli.data_preparation.waymo import create_data
+
+    write_waymo_frames(root, "train", *WAYMO_TRAIN, seed=1, n_points=n_points, pc=pc)
+    write_waymo_frames(root, "val", 1, WAYMO_VAL, seed=2, n_points=n_points, pc=pc)
+    out = {}
+    for split in ("train", "val"):
+        for nsweeps in (1, 4):
+            infos = create_data.build_infos(root, split, nsweeps)
+            if split == "val" and nsweeps == 4:
+                infos = [i for i in infos if len(i["sweeps"]) == nsweeps - 1]
+            with open(os.path.join(root, f"infos_{split}_{nsweeps:02d}sweeps_sampled.pkl"),
+                      "wb") as fh:
+                pickle.dump(infos, fh)
+            out[f"{split}_{nsweeps:02d}sweeps"] = len(infos)
+            if split == "train" and nsweeps == 1:
+                db = create_data.build_gt_database(
+                    root, infos, "gt_database_train_01sweeps_withvelo_sampled")
+                out["gt_database"] = {k: len(v) for k, v in db.items()}
+                out["gt_database_min_points"] = {k: min(i["num_points_in_gt"] for i in v)
+                                                 for k, v in db.items()}
+    return out
+
+
+def waymo_config(out_root, exp, data_root, nsweeps):
+    """The experiment's config.yaml as written, its `dataset.source` written
+    out and `misc.seed` set, at `<out_root>/playground/<its path>` (so the
+    CLI finds the port's net.py)."""
+    import yaml
+
+    with open(os.path.join(HERE, WAYMO_DIR, exp, "config.yaml")) as fh:
+        cfg = yaml.safe_load(fh)
+    cfg.pop("includes")
+    cfg["dataset"]["source"] = {
+        "root": data_root, "train": f"/infos_train_{nsweeps:02d}sweeps_sampled.pkl",
+        "val": f"/infos_val_{nsweeps:02d}sweeps_sampled.pkl",
+        "test": f"/infos_val_{nsweeps:02d}sweeps_sampled.pkl",
+        "gt_database": "/gt_database_train_01sweeps_withvelo_sampled_infos"}
+    cfg["misc"] = {"seed": 0}
+    path = os.path.join(out_root, WAYMO_DIR, exp, "config.yaml")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as fh:
+        yaml.safe_dump(cfg, fh)
+    return path
+
+
+def reference_checkpoint(seed, neck_cfg, num_input=5, bev_channels=256, num_classes=3):
+    """A reference-format CenterPoint VoxelNet state dict (the reference's
+    key names, spconv 2.x sparse weights [Cout, kd, kh, kw, Cin], torch
+    ConvTranspose2d [I, O, kh, kw]), values from a seeded numpy generator on
+    the scales of `seeded_weights`: {name: numpy array}."""
+    neck = dict(neck_cfg)
+    rs = np.random.RandomState(seed)
+    sd = {}
+
+    def uni(shape, lo, hi):
+        return rs.uniform(lo, hi, shape).astype(np.float32)
+
+    def bn(prefix, c):
+        sd.update({f"{prefix}.weight": uni(c, 0.8, 1.2), f"{prefix}.bias": uni(c, -0.1, 0.1),
+                   f"{prefix}.running_mean": uni(c, -0.1, 0.1),
+                   f"{prefix}.running_var": uni(c, 0.8, 1.5),
+                   f"{prefix}.num_batches_tracked": np.array(1000, np.int64)})
+
+    def he(name, shape, fan_in):
+        b = (6.0 / fan_in) ** 0.5
+        sd[name] = uni(shape, -b, b)
+
+    def sparse(name, cin, cout, k):
+        he(name, (cout, *k, cin), cin * int(np.prod(k)))
+
+    def block(prefix, c):
+        for j in (1, 2):
+            sparse(f"{prefix}.conv{j}.weight", c, c, (3, 3, 3))
+            sd[f"{prefix}.conv{j}.bias"] = uni(c, -0.1, 0.1)
+            bn(f"{prefix}.bn{j}", c)
+
+    sparse("backbone.conv_input.0.weight", num_input, 16, (3, 3, 3))
+    bn("backbone.conv_input.1", 16)
+    block("backbone.conv1.0", 16)
+    block("backbone.conv1.1", 16)
+    for s, (cin, cout) in enumerate(((16, 32), (32, 64), (64, 128)), start=2):
+        sparse(f"backbone.conv{s}.0.weight", cin, cout, (3, 3, 3))
+        bn(f"backbone.conv{s}.1", cout)
+        block(f"backbone.conv{s}.3", cout)
+        block(f"backbone.conv{s}.4", cout)
+    sparse("backbone.extra_conv.0.weight", 128, 128, (3, 1, 1))
+    bn("backbone.extra_conv.1", 128)
+    cin = bev_channels
+    for i, (n_layers, nf) in enumerate(zip(neck["layer_nums"], neck["ds_num_filters"])):
+        he(f"neck.blocks.{i}.1.weight", (nf, cin, 3, 3), cin * 9)
+        bn(f"neck.blocks.{i}.2", nf)
+        for j in range(n_layers):
+            he(f"neck.blocks.{i}.{4 + 3 * j}.weight", (nf, nf, 3, 3), nf * 9)
+            bn(f"neck.blocks.{i}.{5 + 3 * j}", nf)
+        stride, uf = neck["us_layer_strides"][i], neck["us_num_filters"][i]
+        if stride > 1:
+            he(f"neck.deblocks.{i}.0.weight", (nf, uf, stride, stride), nf)
+        else:
+            he(f"neck.deblocks.{i}.0.weight", (uf, nf, 1, 1), nf)
+        bn(f"neck.deblocks.{i}.1", uf)
+        cin = nf
+    he("center_head.shared_conv.0.weight", (64, sum(neck["us_num_filters"]), 3, 3),
+       sum(neck["us_num_filters"]) * 9)
+    sd["center_head.shared_conv.0.bias"] = uni(64, -0.1, 0.1)
+    bn("center_head.shared_conv.1", 64)
+    for name, (ch, _) in (*COMMON_HEADS, ("hm", (num_classes, 2))):
+        he(f"center_head.tasks.0.{name}.0.weight", (64, 64, 3, 3), 64 * 9)
+        sd[f"center_head.tasks.0.{name}.0.bias"] = uni(64, -0.1, 0.1)
+        bn(f"center_head.tasks.0.{name}.1", 64)
+        he(f"center_head.tasks.0.{name}.3.weight", (ch, 64, 3, 3), 64 * 9)
+        sd[f"center_head.tasks.0.{name}.3.bias"] = uni(ch, -0.1, 0.1) - (2.19 if name == "hm" else 0)
+    return sd
+
+
+# (port tensor, reference key, the layout map) read back after the import
+def _sparse_map(w):
+    w = w.transpose(1, 2, 3, 4, 0)  # spconv 2.x [Cout, kd, kh, kw, Cin] → [kd, kh, kw, Cin, Cout]
+    return w.reshape(-1, w.shape[3], w.shape[4])
+
+
+WAYMO_READ_BACK = (
+    ("backbone.conv_input.weight", "backbone.conv_input.0.weight", _sparse_map),
+    ("backbone.down1.weight", "backbone.conv2.0.weight", _sparse_map),
+    ("backbone.res2b.conv2.weight", "backbone.conv3.4.conv2.weight", _sparse_map),
+    ("backbone.extra_conv.weight", "backbone.extra_conv.0.weight", _sparse_map),
+    ("backbone.res0a.conv1.bias", "backbone.conv1.0.conv1.bias", None),
+    ("backbone.bn_down3.bn.running_var", "backbone.conv4.1.running_var", None),
+    ("backbone.res3a.bn1.bn.weight", "backbone.conv4.3.bn1.weight", None),
+    ("neck.block0_in.Conv_0.weight", "neck.blocks.0.1.weight", None),
+    ("neck.block1_conv0.BatchNorm_0.running_mean", "neck.blocks.1.5.running_mean", None),
+    ("neck.deblock0_conv.weight", "neck.deblocks.0.0.weight", None),
+    ("neck.deblock1_deconv.weight", "neck.deblocks.1.0.weight", None),  # unflipped
+    ("head.shared_conv.weight", "center_head.shared_conv.0.weight", None),
+    ("head.task0.hm_bn0.bias", "center_head.tasks.0.hm.1.bias", None),
+    ("head.task0.hm_final.bias", "center_head.tasks.0.hm.3.bias", None),
+    ("head.task0.rot_final.weight", "center_head.tasks.0.rot.3.weight", None),
+)
+
+
+class ImportProbe:
+    """Wraps the trainer's `.pth` import for one CLI run: the (count,
+    skipped) it returns and the model's tensors right after it (on the
+    host)."""
+
+    def __enter__(self):
+        from efg_tpu_torch.utils import torch_import as TI
+
+        self.results, self.states = [], []
+        self._orig = TI.import_centerpoint_voxelnet
+
+        def imp(sd, module, **kw):
+            res = self._orig(sd, module, **kw)
+            self.results.append(res)
+            self.states.append({k: v.detach().cpu().clone() for k, v in module.state_dict().items()})
+            return res
+
+        TI.import_centerpoint_voxelnet = imp
+        return self
+
+    def __exit__(self, *exc):
+        from efg_tpu_torch.utils import torch_import as TI
+
+        TI.import_centerpoint_voxelnet = self._orig
+        return False
+
+
+class SamplingProbe:
+    """Wraps `DatabaseSampling` for one CLI run: each item's GT count before
+    and after it and its host seconds (the loader's worker threads call
+    it)."""
+
+    def __enter__(self):
+        from efg_tpu_torch.data.processors import extend_3d as E
+
+        self.items = []
+        self._orig = E.DatabaseSampling.__call__
+        call0, items = self._orig, self.items
+
+        def call(proc, points, info):
+            n0 = len(info["annotations"]["gt_boxes"])
+            t0 = time.perf_counter()
+            points, info = call0(proc, points, info)
+            items.append((n0, len(info["annotations"]["gt_boxes"]), time.perf_counter() - t0))
+            return points, info
+
+        E.DatabaseSampling.__call__ = call
+        return self
+
+    def __exit__(self, *exc):
+        from efg_tpu_torch.data.processors import extend_3d as E
+
+        E.DatabaseSampling.__call__ = self._orig
+        return False
+
+
+class FirstStepCapture:
+    """Records, in the trainer loop's first `train_step`, the forward's
+    gather-GEMM calls (`Capture`) and the rank and stacked calls and conv
+    backwards (`BackwardCapture`)."""
+
+    def __enter__(self):
+        from efg_tpu_torch.engine import trainer as T
+        from efg_tpu_torch.ops.cuda import sparse_kernels as K
+
+        self.forward = self.backward = None
+        self._orig = T.train_step
+        step0 = self._orig
+
+        def step(*args, **kwargs):
+            if self.forward is not None:
+                return step0(*args, **kwargs)
+            with BackwardCapture(K) as backward, Capture(K) as forward:
+                out = step0(*args, **kwargs)
+            self.forward, self.backward = forward, backward
+            return out
+
+        T.train_step = step
+        return self
+
+    def __exit__(self, *exc):
+        from efg_tpu_torch.engine import trainer as T
+
+        T.train_step = self._orig
+        return False
+
+
+def _event_ms(fn, runs=WAYMO_TIMED):
+    """CUDA-event milliseconds of `runs` calls of `fn` after one warm-up."""
+    import torch
+
+    fn()
+    out = []
+    for _ in range(runs):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b))
+    return out
+
+
+def phase_waymo(card: str, device="cuda", n_points=N_POINTS, pc=70.0, small=(), small_4f=()):
+    """The flagship config's own pipeline on the card, output under a
+    temporary EFG_CACHE_DIR:
+    1. Waymo-format frames through the port's create_data: 6 train frames
+       in 2 sequences, 7 val frames in one, infos at 1 and 4 sweeps, the GT
+       database (every class with crops of at least min_points 5);
+    2. a reference-format CenterPoint checkpoint at the flagship's width
+       (torch.save of numpy values) imported through `model.weights`
+       (`weights_format: centerpoint`): every tensor assigned, nothing
+       skipped, each kind read back against its layout map;
+    3. task=train of the flagship config as written (DatabaseSampling →
+       RandomFlip3D → GlobalRotation → GlobalScaling → FilterByRange →
+       PointShuffle → PadPoints 180000; 2 loader threads) at bs
+       WAYMO_BATCH (the config's 6 exceeds the rank kernel's keys) for
+       WAYMO_ITERS iterations: launches 12/21/21/0 a step, finite losses,
+       every item's GT count above its frame's and at most max_gt; the
+       iteration, step and data times, DatabaseSampling's host time, peak
+       memory;
+    4. the first step's rank, gather-GEMM and stacked calls (augmented,
+       GT-sampled clouds) through the kernels against their plain versions;
+    5. task=val of the val frames through WaymoDetEvaluator: (8, 21) a
+       batch, finite waymo/* metrics;
+    6. forward_double_flip on one val batch from the trained weights:
+       4 × (8, 21), finite merged maps, predict on them; its time beside
+       one forward's;
+    7. the 4f config's val split (4 sweeps, 6 features, 400000 padded
+       points, 400000 voxels): one batch (4 frames), fresh weights,
+       (8, 21), peak memory.
+    Returns the kernel rows. `small` / `small_4f` overrides shrink the
+    runs for a rehearsal on the CPU."""
+    import pickle
+    import shutil
+    import tempfile
+
+    import torch
+
+    from efg_tpu_torch.cli.main import experiment_relpath, load_experiment_module
+    from efg_tpu_torch.config import Configuration
+    from efg_tpu_torch.data import build_dataloader, build_dataset
+    from efg_tpu_torch.models import centerpoint as CP
+    from efg_tpu_torch.ops.cuda import sparse_kernels as K
+
+    base = tempfile.mkdtemp(prefix="chip_smoke_waymo_")
+    old_cache, old_cwd = os.environ.get("EFG_CACHE_DIR"), os.getcwd()
+    os.environ["EFG_CACHE_DIR"] = os.path.join(base, "cache")
+    try:
+        # 1. the dataset
+        root = os.path.join(base, "waymo")
+        t0 = time.perf_counter()
+        prepared = prepare_waymo(root, n_points=n_points, pc=pc)
+        prep_s = time.perf_counter() - t0
+        flag_cfg = waymo_config(os.path.join(base, "exp"), WAYMO_FLAGSHIP, root, 1)
+        fourf_cfg = waymo_config(os.path.join(base, "exp"), WAYMO_4F, root, 4)
+        emit({"phase": "waymo", "part": "data", "card": card, "prepare_s": prep_s,
+              "points_per_frame": n_points, "prepared": prepared})
+        if sorted(prepared["gt_database"]) != ["CYCLIST", "PEDESTRIAN", "VEHICLE"] or \
+                min(prepared["gt_database_min_points"].values()) < 5:
+            raise AssertionError(f"waymo: GT database {prepared}")
+
+        # 2. + 3. the reference checkpoint, imported by task=train
+        small = [f"dataloader.batch_size={WAYMO_BATCH}", *small]
+        small_4f = [f"dataloader.batch_size={WAYMO_BATCH}", *small_4f]
+        cfg = Configuration(config_file=flag_cfg, opts=["task=train", *small]).get_config()
+        neck = tuple((k, tuple(v) if isinstance(v, list) else v) for k, v in cfg.model.neck.items())
+        sd = reference_checkpoint(WAYMO_REF_SEED, neck)
+        pth = os.path.join(base, "centerpoint_voxelnet_ref.pth")
+        torch.save({"model": {k: torch.from_numpy(v) for k, v in sd.items()}}, pth)
+        out_dir = os.path.join(base, "cache", "EFG_torch", experiment_relpath(flag_cfg))
+        os.makedirs(out_dir, exist_ok=True)
+        argv = ["task=train", "trainer.evaluators=", f"solver.lr_scheduler.max_iters={WAYMO_ITERS}",
+                "trainer.log_interval=1", "trainer.window_size=1",
+                "trainer.checkpoint_epoch=1000", f"model.weights={pth}",
+                "model.weights_format=centerpoint", *small]
+        if device == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        with ImportProbe() as imp, SamplingProbe() as sampling, FirstStepCapture() as first:
+            records, counts, probe = _engine_run(argv, out_dir, device, config=flag_cfg)
+        peak = torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else None
+        run = _losses(records)
+
+        (n, skipped), = imp.results
+        dropped = sum(k.endswith("num_batches_tracked") for k in sd)
+        state = imp.states[0]
+        read_back = {}
+        for port, ref, layout in WAYMO_READ_BACK:
+            want = sd[ref] if layout is None else layout(sd[ref])
+            read_back[port] = bool(np.array_equal(state[port].float().numpy(), want))
+        emit({"phase": "waymo", "part": "import", "card": card, "checkpoint_keys": len(sd),
+              "assigned": n, "skipped": skipped, "num_batches_tracked_dropped": dropped,
+              "port_tensors": len(state), "read_back_equal": read_back})
+        if skipped or n != len(sd) or len(sd) - dropped != len(state) or not all(read_back.values()):
+            raise AssertionError(f"waymo import: {n} of {len(sd)} assigned, skipped {skipped}, "
+                                 f"{len(state)} port tensors, read back {read_back}")
+
+        bs = int(cfg.dataloader.batch_size)
+        expected = _steps_of(TRAIN_LAUNCHES, WAYMO_ITERS)
+        times = [r["time"] for r in records if "time" in r and r["iteration"] < WAYMO_ITERS]
+        items = sampling.items
+        db_ms = [1e3 * s for _, _, s in items]
+        emit({"phase": "waymo", "part": "train", "card": card, "batch_size": bs,
+              "iterations": WAYMO_ITERS, "records": sorted(run),
+              "losses": {i: {k: run[i][k] for k in ("loss", "0_hm_loss", "0_loc_loss", "grad_norm")}
+                         for i in sorted(run)},
+              "iteration_time_ms": [1e3 * t for t in times],
+              "loop_step_ms_cuda_events": probe.step_ms(),
+              "data_time_ms": [1e3 * t for t in probe.data_s],
+              "database_sampling_ms_per_item": db_ms,
+              "database_sampling_ms_per_batch_mean": float(np.mean(db_ms)) * bs if db_ms else None,
+              "gt_per_item_before_after": [(a, b) for a, b, _ in items],
+              "peak_mem_gb": peak, "launches": counts, "launches_expected": expected})
+        if sorted(run) != list(range(1, WAYMO_ITERS + 1)):
+            raise AssertionError(f"waymo train: records {sorted(run)}")
+        if counts != expected:
+            raise AssertionError(f"waymo train: launches {counts}, expected {expected}")
+        max_gt = int(cfg.dataset.max_gt)
+        if len(items) < WAYMO_ITERS * bs or not all(b > a and b <= max_gt for a, b, _ in items):
+            raise AssertionError(f"waymo train: GT per item (frame, after sampling) "
+                                 f"{[(a, b) for a, b, _ in items]}, max_gt {max_gt}")
+
+        # 4. the first step's kernel calls against their plain versions
+        rows = phase_waymo_kernels(first.forward, first.backward, card, counts, device)
+        del first
+
+        # 5. task=val through WaymoDetEvaluator
+        argv = ["task=val", *small]
+        vcfg = Configuration(config_file=flag_cfg, opts=argv).get_config()
+        counts, vprobe = _cli_eval_run(argv, device, config=flag_cfg)
+        n_batches = -(-WAYMO_VAL // int(vcfg.dataloader.batch_size))
+        expected = _steps_of(SERVE_LAUNCHES, n_batches)
+        (_, res, evaluate_s), = vprobe.evaluations
+        emit({"phase": "waymo", "part": "val", "card": card, "frames": WAYMO_VAL,
+              "batch_size": int(vcfg.dataloader.batch_size), "weights": "trained (model_final)",
+              "eval_step_ms_cuda_events": vprobe.step_ms(), "data_ms": [1e3 * d for d in vprobe.data_s],
+              "evaluate_s": evaluate_s, "results": res, "launches": counts,
+              "launches_expected": expected})
+        _check_waymo_results("waymo val", res, list(vcfg.dataset.classes))
+        if len(vprobe.step_ms()) != n_batches or counts != expected:
+            raise AssertionError(f"waymo val: {len(vprobe.step_ms())} batches, launches {counts}, "
+                                 f"expected {n_batches} and {expected}")
+
+        # 6. double-flip serving of one val batch
+        md = load_experiment_module(flag_cfg).build_model(vcfg, device=device)
+        ckpt = torch.load(os.path.join(out_dir, "model_final"), map_location=device,
+                          weights_only=True)
+        md.module.load_state_dict(ckpt["model"])
+        batch = next(iter(build_dataloader(vcfg, build_dataset(vcfg), train=False)))
+        pts = torch.from_numpy(batch["points"]).to(device)
+        mask = torch.from_numpy(batch["points_mask"]).to(device)
+        with torch.no_grad():
+            K.reset_launches()
+            merged = CP.forward_double_flip(md.module, pts, mask)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            counts = dict(K.launches)
+            finite = all(bool(torch.isfinite(v).all()) for t in merged for v in t.values())
+            det = md.predict_fn(merged, None)
+            n_det = int(det["valid"].sum())
+            flip_ms = _event_ms(lambda: CP.forward_double_flip(md.module, pts, mask))
+            one_ms = _event_ms(lambda: md.module(pts, mask))
+            predict_ms = _event_ms(lambda: md.predict_fn(merged, None))
+        expected = _steps_of(SERVE_LAUNCHES, 4)
+        emit({"phase": "waymo", "part": "double_flip", "card": card, "batch_size": pts.shape[0],
+              "double_flip_forward_ms": flip_ms, "one_forward_ms": one_ms,
+              "predict_ms": predict_ms, "merged_finite": finite, "detections": n_det,
+              "launches": counts, "launches_expected": expected})
+        if counts != expected or not finite:
+            raise AssertionError(f"waymo double flip: launches {counts}, expected {expected}; "
+                                 f"finite {finite}")
+        del md, merged, pts, mask
+
+        # 7. the 4f widths: one val batch; sweep paths are relative to the root
+        os.chdir(root)
+        argv = ["task=val", *small_4f]
+        fcfg = Configuration(config_file=fourf_cfg, opts=argv).get_config()
+        with open(os.path.join(root, "infos_val_04sweeps_sampled.pkl"), "rb") as fh:
+            frames = len(pickle.load(fh))
+        if device == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        counts, fprobe = _cli_eval_run(argv, device, config=fourf_cfg)
+        peak = torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else None
+        expected = _steps_of(SERVE_LAUNCHES, 1)
+        (_, res, evaluate_s), = fprobe.evaluations
+        shape = tuple(fprobe.batches[0]["points"].shape) if fprobe.batches else None
+        emit({"phase": "waymo", "part": "val_4f", "card": card, "frames": frames,
+              "batch_size": int(fcfg.dataloader.batch_size), "points_shape": shape,
+              "max_voxels": int(fcfg.model.max_voxels), "stage_caps": list(fcfg.model.stage_caps),
+              "weights": "fresh (misc.seed)", "eval_step_ms_cuda_events": fprobe.step_ms(),
+              "data_ms": [1e3 * d for d in fprobe.data_s], "peak_mem_gb": peak, "results": res,
+              "launches": counts, "launches_expected": expected})
+        if frames != 4 or counts != expected or len(fprobe.step_ms()) != 1:
+            raise AssertionError(f"waymo 4f: {frames} frames, launches {counts}, expected {expected}")
+        if shape is not None and shape[2] != 6:
+            raise AssertionError(f"waymo 4f: points {shape}, expected 6 features")
+        _check_waymo_results("waymo 4f", res, list(fcfg.dataset.classes))
+        return rows
+    finally:
+        os.chdir(old_cwd)
+        if old_cache is None:
+            os.environ.pop("EFG_CACHE_DIR", None)
+        else:
+            os.environ["EFG_CACHE_DIR"] = old_cache
+        shutil.rmtree(base, ignore_errors=True)
+
+
+def phase_waymo_kernels(forward, backward, card: str, step_counts: dict, device="cuda"):
+    """The rank, gather-GEMM and stacked calls of phase waymo's first
+    training step through the kernels and their plain versions (as phases
+    kernels and train_kernels do); returns their kernel rows."""
+    if len(backward.rank) != len(RANK_TRAIN_LABELS) or len(forward.gemm) != 21 or \
+            len(backward.stacked) != 21:
+        raise AssertionError(f"waymo: captured {len(backward.rank)} rank, {len(forward.gemm)} "
+                             f"gather-GEMM and {len(backward.stacked)} stacked calls")
+    if device != "cuda":
+        return []
+    rank_rows = [_rank_row(lbl, k, q) for lbl, (k, q) in zip(RANK_TRAIN_LABELS, backward.rank)]
+    gemm_rows = [_gemm_row(gemm_label(i), *call)[0] for i, call in enumerate(forward.gemm)]
+    st_rows = [_gemm_row(backward_label(i, call[0], conv), *call, emit=True)[0]
+               for i, (call, conv) in enumerate(zip(backward.stacked, backward.convs))]
+    emit({"phase": "waymo_kernels", "card": card, "rank_calls": rank_rows,
+          "gemm_calls": gemm_rows, "stacked_calls": st_rows})
+    per = (f"sum over the calls of the first bs={WAYMO_BATCH} training step of the flagship "
+           "config's own "
+           "pipeline (DatabaseSampling, augmentations) through the CLI, {}")
+    return [
+        kernel_row("rank_flags@waymo", "rank_flags.cu", 882, step_counts["rank_flags"], rank_rows,
+                   library_call="torch.searchsorted (count field only)", tolerance="exact",
+                   per=per.format("8 forward + 4 inverse rulebooks; launches over its "
+                                  f"{WAYMO_ITERS} steps"), card=card),
+        kernel_row("gather_gemm@waymo", "gather_gemm.cu", 259, step_counts["gather_gemm"],
+                   gemm_rows, tolerance="1e-3 * max|ref|",
+                   per=per.format(f"21 forward convs; launches over its {WAYMO_ITERS} steps"),
+                   card=card),
+        kernel_row("gather_gemm_stacked@waymo", "gather_gemm.cu", 259,
+                   step_counts["gather_gemm_stacked"], st_rows,
+                   tolerance="taps bit-exact, out 1e-3 * max|ref|",
+                   per=per.format(f"one per conv backward; launches over its {WAYMO_ITERS} steps"),
+                   card=card),
+    ]
+
+
 def main() -> int:
     try:
         import torch
@@ -3701,6 +4285,7 @@ def main() -> int:
         detr = phase_detr(card)
         detr_train = phase_detr_train(card)
         phase_ddp(card)
+        waymo = phase_waymo(card)
         # a rank kernel's row is the training step's (its forward rulebooks
         # and the inverse ones); the serving forward's is in the kernels line
         train["rank_flags"]["launches_serve"] = serve["rank_flags"]["launches"]
@@ -3711,7 +4296,7 @@ def main() -> int:
         for name in ("rank_flags_seq4", "rank_flags_hostwin"):
             variants[name]["launches_serve"] = serve_counts[name]
         kernels = [train["rank_flags"], serve["gather_gemm"], detr, train["gather_gemm_stacked"],
-                   *detr_train, train["gather_dw"], *variants.values()]
+                   *detr_train, train["gather_dw"], *variants.values(), *waymo]
     except Exception:  # report every phase failure and exit non-zero
         traceback.print_exc()
         return 1

@@ -16,6 +16,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from efg_tpu_torch.engine.train_state import ModelDef
 from efg_tpu_torch.modeling.backbones.rpn import RPN
 from efg_tpu_torch.modeling.backbones.sparse_net import SpMiddleResNetFHD
 from efg_tpu_torch.modeling.heads.center_head import (
@@ -117,6 +118,46 @@ def compute_loss(
     return losses
 
 
+def forward_double_flip(module: nn.Module, points: torch.Tensor,
+                        points_mask: torch.Tensor) -> List[Dict[str, torch.Tensor]]:
+    """Double-flip test-time augmentation (efg_tpu's `forward_double_flip`):
+    the model in eval mode on the cloud and on its y-, x- and xy-flipped
+    copies, each prediction map un-flipped and the four averaged. Maps are
+    [B, H(y), W(x), C]; on a flipped axis the sub-pixel offset `reg`
+    mirrors to 1 − off, `rot` (sin, cos) negates sin for a y-flip and cos
+    for an x-flip, and `vel` negates the flipped component. Returns the
+    averaged per-task pred dicts."""
+    module.eval()
+    variants = ((False, False), (True, False), (False, True), (True, True))
+    sign = {False: 1.0, True: -1.0}
+    all_preds = []
+    for fy, fx in variants:
+        scale = points.new_tensor([sign[fx], sign[fy]] + [1.0] * (points.shape[-1] - 2))
+        all_preds.append(module(points * scale, points_mask))
+
+    def unflip(key, a, fy, fx):
+        dims = [d for d, f in ((1, fy), (2, fx)) if f]
+        if dims:
+            a = torch.flip(a, dims)
+        if key == "reg":  # (x, y) offsets
+            a = torch.cat([1.0 - a[..., 0:1] if fx else a[..., 0:1],
+                           1.0 - a[..., 1:2] if fy else a[..., 1:2]], dim=-1)
+        elif key == "rot":  # (sin, cos): y → −y is θ → −θ, x → −x is θ → π − θ
+            a = torch.cat([-a[..., 0:1] if fy else a[..., 0:1],
+                           -a[..., 1:2] if fx else a[..., 1:2]], dim=-1)
+        elif key == "vel":
+            a = torch.cat([-a[..., 0:1] if fx else a[..., 0:1],
+                           -a[..., 1:2] if fy else a[..., 1:2]], dim=-1)
+        return a
+
+    merged = []
+    for t in range(len(all_preds[0])):
+        merged.append({key: sum(unflip(key, preds[t][key], fy, fx)
+                                for (fy, fx), preds in zip(variants, all_preds)) / len(variants)
+                       for key in all_preds[0][t]})
+    return merged
+
+
 def predict(
     preds: List[Dict[str, torch.Tensor]],
     *,
@@ -155,3 +196,47 @@ def predict(
         labels=torch.cat(all_labels, dim=1),
         valid=torch.cat(all_valid, dim=1),
     )
+
+
+def _model_cfg(config):
+    m = config.model
+    return dict(
+        pc_range=tuple(config.dataset.pc_range),
+        voxel_size=tuple(config.dataset.voxel_size),
+        tasks=[dict(t) for t in m.head.tasks],
+        common_heads=tuple((k, tuple(v)) for k, v in m.head.common_heads.items()),
+        loss=dict(m.loss),
+    )
+
+
+def build_model(config, device="cuda", generator=None) -> ModelDef:
+    """The `build_model` of the CenterPoint VoxelNet experiments' `net.py`
+    (efg_tpu's synthetic and Waymo ones are one body): the model from the
+    experiment's config, as a ModelDef on `device`, its initial weights
+    drawn from `generator`."""
+    cfg = _model_cfg(config)
+    module = VoxelNet(
+        pc_range=cfg["pc_range"],
+        voxel_size=cfg["voxel_size"],
+        max_voxels=int(config.model.max_voxels),
+        num_input_features=int(config.model.reader.num_input_features),
+        stage_caps=tuple(config.model.stage_caps),
+        act_dtype=str(config.model.get("act_dtype", "")),
+        tasks=tuple(cfg["tasks"]),
+        common_heads=cfg["common_heads"],
+        neck_cfg=tuple((k, tuple(v) if isinstance(v, list) else v)
+                       for k, v in config.model.neck.items()),
+        device=device,
+        generator=generator,
+    )
+
+    def apply_args(batch):
+        return dict(points=batch["points"], points_mask=batch["points_mask"])
+
+    def loss_fn(preds, batch):
+        return compute_loss(preds, batch, model_cfg=cfg)
+
+    def predict_fn(preds, batch):
+        return predict(preds, post_cfg=dict(config.model.post_process), model_cfg=cfg)
+
+    return ModelDef(module, apply_args, loss_fn, predict_fn)

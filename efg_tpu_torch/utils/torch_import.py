@@ -1,0 +1,197 @@
+"""Reference checkpoint import (port of `efg_tpu/utils/torch_import.py`, its
+CenterPoint format).
+
+Loads a `.pth` / `.pkl` state dict into numpy arrays, strips DDP's
+`module.` prefix, and writes a reference-format CenterPoint VoxelNet state
+dict into the port's `VoxelNet` by module name. efg_tpu maps the same
+names into flax variables; the port names its modules like those flax
+modules, so each reference key lands on the parameter or buffer that
+`utils/jax_import.py` fills from efg_tpu's leaf:
+
+- sparse conv weights: spconv 2.x `[Cout, kd, kh, kw, Cin]` or spconv 1.x
+  `[kd, kh, kw, Cin, Cout]` → `[K, Cin, Cout]`, offsets in (δz, δy, δx)
+  raster;
+- dense conv weights `[O, I, kh, kw]` and biases as they are;
+- `ConvTranspose2d` weights `[I, O, kh, kw]` as they are: the port's
+  deconv is torch's (`F.conv_transpose2d`), where efg_tpu flips the
+  kernel spatially for flax;
+- BatchNorm weight / bias / running_mean / running_var as they are;
+  `num_batches_tracked` is counted and dropped, as in efg_tpu.
+
+efg_tpu's other two formats, torchvision ResNet and mmdet Swin, map into
+models the port does not have yet (ROADMAP queue 1 items 10 and 11).
+"""
+
+from __future__ import annotations
+
+import pickle
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+
+def load_state_dict(path: str) -> Dict[str, np.ndarray]:
+    """A torch `.pth` or a detectron2 `.pkl` → {name: numpy array}.
+
+    `.pth` files are read with `torch.load(weights_only=False)`, as efg_tpu
+    reads them: reference checkpoints hold non-tensor objects beside the
+    weights (the optimizer and scheduler state, the iteration, the config),
+    which the weights-only unpickler refuses. Load only checkpoints whose
+    origin you trust. `.pkl` files are Caffe2/detectron2 pickles of numpy
+    arrays written by Python 2, read as latin1."""
+    if path.endswith(".pkl"):
+        with open(path, "rb") as f:
+            data = pickle.load(f, encoding="latin1")
+        sd = data.get("model", data)
+        return {k: np.asarray(v) for k, v in sd.items() if isinstance(v, np.ndarray)}
+    data = torch.load(path, map_location="cpu", weights_only=False)
+    sd = data.get("model", data.get("state_dict", data))
+    return {k: v.detach().numpy() for k, v in sd.items() if hasattr(v, "numpy")}
+
+
+def strip_prefix(sd: Dict[str, np.ndarray], prefix: str = "module.") -> Dict[str, np.ndarray]:
+    """Strip DDP 'module.' prefixes (when every key has one)."""
+    if all(k.startswith(prefix) for k in sd):
+        return {k[len(prefix):]: v for k, v in sd.items()}
+    return sd
+
+
+def sparse_weight(v: np.ndarray, layout: str) -> np.ndarray:
+    """spconv weight → the port's [K, Cin, Cout] (offsets row-major over
+    (kd, kh, kw)). spconv 2.x stores [Cout, kd, kh, kw, Cin]; spconv 1.x
+    [kd, kh, kw, Cin, Cout]."""
+    if v.ndim != 5:
+        raise ValueError(f"expected 5-dim sparse conv weight, got {v.shape}")
+    if layout == "spconv2":
+        v = v.transpose(1, 2, 3, 4, 0)
+    elif layout != "spconv1":
+        raise ValueError(f"sparse_layout={layout!r}: expected spconv1|spconv2")
+    return np.ascontiguousarray(v.reshape(-1, v.shape[3], v.shape[4]))
+
+
+# reference BN leaf → the port's (torch's) leaf
+_BN_LEAF = {"weight": "weight", "bias": "bias",
+            "running_mean": "running_mean", "running_var": "running_var"}
+
+
+def _block_inner(base: str, rest: list) -> Optional[Tuple[str, str]]:
+    """SparseBasicBlock member → (port module path, kind)."""
+    name, leaf = rest[0], rest[1]
+    if name in ("conv1", "conv2"):
+        return f"{base}.{name}", "sparse" if leaf == "weight" else "plain"
+    if name == "bn1":
+        return f"{base}.bn1.bn", "bn"
+    if name == "bn2":
+        return f"{base}.bn2", "bn"
+    return None
+
+
+def _rename(key: str, head_max: Dict[Tuple[str, str], int], neck: nn.Module):
+    """Reference key → (port module path, kind), ("", "drop") or None.
+
+    Reference naming: trunk SpMiddleResNetFHD (`conv_input` / `conv1..4`
+    SparseSequentials / `extra_conv`); neck `blocks.{i}` (ZeroPad, Conv,
+    BN, ReLU, then 3 entries a layer) and `deblocks.{i}` (ConvTranspose2d
+    or Conv2d, BN, ReLU); head `shared_conv` and `tasks.{t}.{head}` SepHead
+    Sequentials whose last index is the final conv, hidden convs at 3j and
+    their BNs at 3j+1."""
+    parts = key.split(".")
+    if parts[-1] == "num_batches_tracked":
+        return "", "drop"
+    if parts[0] == "backbone":
+        p = parts[1:]
+        if p[0] == "conv_input":
+            return ("backbone.conv_input", "sparse") if p[1] == "0" else ("backbone.bn_input.bn", "bn")
+        if p[0] == "extra_conv":
+            return ("backbone.extra_conv", "sparse") if p[1] == "0" else ("backbone.bn_extra.bn", "bn")
+        if p[0] == "conv1":  # stage 0: blocks only
+            return _block_inner(f"backbone.res0{'ab'[int(p[1])]}", p[2:])
+        if p[0] in ("conv2", "conv3", "conv4"):
+            s = int(p[0][4:]) - 1
+            idx = int(p[1])
+            if idx == 0:
+                return f"backbone.down{s}", "sparse"
+            if idx == 1:
+                return f"backbone.bn_down{s}.bn", "bn"
+            if idx in (3, 4):
+                return _block_inner(f"backbone.res{s}{'ab'[idx - 3]}", p[2:])
+        return None
+    if parts[0] == "neck":
+        p = parts[1:]
+        if p[0] == "blocks":
+            i, j = int(p[1]), int(p[2])
+            if j == 1:
+                return f"neck.block{i}_in.Conv_0", "plain"
+            if j == 2:
+                return f"neck.block{i}_in.BatchNorm_0", "bn"
+            if j >= 4 and (j - 4) % 3 == 0:
+                return f"neck.block{i}_conv{(j - 4) // 3}.Conv_0", "plain"
+            if j >= 5 and (j - 5) % 3 == 0:
+                return f"neck.block{i}_conv{(j - 5) // 3}.BatchNorm_0", "bn"
+        if p[0] == "deblocks":
+            i, j = int(p[1]), int(p[2])
+            if j == 0:  # stride > 1: ConvTranspose2d; else a plain Conv2d
+                if hasattr(neck, f"deblock{i}_deconv"):
+                    return f"neck.deblock{i}_deconv", "plain"
+                return f"neck.deblock{i}_conv", "plain"
+            if j == 1:
+                return f"neck.deblock{i}_bn", "bn"
+        return None
+    if parts[0] == "center_head":
+        p = parts[1:]
+        if p[0] == "shared_conv":
+            return ("head.shared_conv", "plain") if p[1] == "0" else ("head.shared_bn", "bn")
+        if p[0] == "tasks":
+            t, h, idx = p[1], p[2], int(p[3])
+            if idx == head_max[(t, h)]:
+                return f"head.task{t}.{h}_final", "plain"
+            if idx % 3 == 0:
+                return f"head.task{t}.{h}_conv{idx // 3}", "plain"
+            if idx % 3 == 1:
+                return f"head.task{t}.{h}_bn{idx // 3}", "bn"
+    return None
+
+
+def import_centerpoint_voxelnet(
+    sd: Dict[str, np.ndarray], module: nn.Module, *, sparse_layout: str = "spconv2",
+) -> Tuple[int, list]:
+    """Write a reference-format CenterPoint VoxelNet state dict into the
+    port's `VoxelNet` `module` in place. A key that maps to no tensor of
+    the module, or to one of another shape, is skipped (efg_tpu's
+    `assign_into_tree`). Returns (n_assigned, skipped_keys); the dropped
+    `num_batches_tracked` keys count as assigned, as in efg_tpu."""
+    sd = strip_prefix(sd)
+    head_max: Dict[Tuple[str, str], int] = {}
+    for key in sd:
+        parts = key.split(".")
+        if len(parts) >= 5 and parts[0] == "center_head" and parts[1] == "tasks":
+            t, h = parts[2], parts[3]
+            head_max[(t, h)] = max(head_max.get((t, h), -1), int(parts[4]))
+
+    target = module.state_dict()
+    n, skipped = 0, []
+    for key, val in sd.items():
+        r = _rename(key, head_max, module.neck)
+        if r is None:
+            skipped.append(key)
+            continue
+        base, kind = r
+        if kind == "drop":
+            n += 1
+            continue
+        leaf = key.split(".")[-1]
+        if kind == "bn":
+            leaf = _BN_LEAF.get(leaf)
+        elif kind == "sparse":
+            val = sparse_weight(val, sparse_layout)
+        name = f"{base}.{leaf}"
+        t = target.get(name) if leaf else None
+        if t is None or tuple(t.shape) != tuple(val.shape):
+            skipped.append(key)
+            continue
+        with torch.no_grad():
+            t.copy_(torch.from_numpy(np.ascontiguousarray(val)).to(t.dtype))
+        n += 1
+    return n, skipped

@@ -351,7 +351,9 @@ def test_sigterm_preemption_checkpoint_and_resume(tmp_path):
     pytest.param(["mesh.shape=[2,1]"], AssertionError, r"mesh shape \[2, 1\] != 1 devices",
                  id="opts1-mesh does not fit the ranks"),
     pytest.param(["model.weights=/some/backbone.pth"], NotImplementedError,
-                 "weight import.*item 4", id="opts2-weight import"),
+                 "weight import.*item 10", id="opts2-weight import"),
+    pytest.param(["model.weights=/some/backbone.pth", "model.weights_format=swin"],
+                 NotImplementedError, "weight import.*item 11", id="opts2-weight import swin"),
     pytest.param(["mesh.shape=[1,2]"], NotImplementedError, "tensor parallelism.*item 5",
                  id="opts3-tensor parallelism"),
 ])
@@ -369,7 +371,7 @@ def test_cli_refusals(tmp_path, monkeypatch):
         cli.main(base + ["task=predict"])
     with pytest.raises(ValueError, match="--num-machines 2 needs --dist-url"):
         cli.main(base + ["--num-machines", "2", "task=train"])
-    other = ROOT / "playground/detection.3d/waymo/center_point/centerpoint.waymo.voxelnet.4f.36e/config.yaml"
+    other = ROOT / "playground/detection.3d/nuscenes/centerpoint/centerpoint.pillar.nusc_mini.1sweep/config.yaml"
     with pytest.raises(NotImplementedError, match="not ported yet"):
         cli.load_experiment_module(str(other))
     t = _trainer(tmp_path, ["model.weights=/some/backbone.pth"])
