@@ -189,6 +189,25 @@ either. Phases (each prints JSON lines; any failure exits 1):
              (8, 21), its time beside one forward's); the 4f config's val
              batch (4 sweeps, 6 features, 400000 points and voxels: (8,
              21), peak memory).
+17. waymo_detr — the two Waymo DETR experiments' configs as written on
+             phase waymo's frames: Voxel-DETR task=train (bs 2, 3
+             iterations; launches 18/13+5/12+5/0 a step), its first step's
+             5 forward and 5 stacked calls at 256 channels against their
+             plain versions (kernel rows `*_256@waymo_detr`), task=val at
+             bs 5 through WaymoDetEvaluator; ConQueR task=train (bs 2, its
+             config including its sibling's, `trainer.fade` dropping the GT
+             sampling at iteration 2).
+18. nusc   — nuScenes-format data (2 scenes of 4 key frames after 9 sweeps
+             each, 30000 points a sweep) through the port's create_data,
+             and a GT database chip_smoke writes (neither package writes
+             one for nuScenes); centerpoint.nusc.voxelnet.cbgs.20e as
+             written at bs 4 (task=train 4 iterations: launches 12/21/21/0
+             a step; its first step's calls against their plain versions,
+             kernel rows `*@nusc`; task=val through nuScenesDetEvaluator);
+             centerpoint.pillar.nusc_mini.1sweep as written (task=train 4
+             iterations and task=val, no sparse kernel launched); GT boxes
+             as predictions through nuScenesDetEvaluator (the perfect mAP,
+             translation, scale, orientation and velocity errors 0).
 
 The second-to-last line lists every kernel as JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", ...}}.
@@ -201,8 +220,10 @@ import functools
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -2059,14 +2080,14 @@ def _engine_run(argv, out_dir, device, config=ENGINE_CONFIG):
     return records, counts, probe
 
 
-def _losses(records):
+def _losses(records, label="engine"):
     """{iteration: record} of the records that carry a loss; every loss
-    must be finite."""
+    part and the gradient norm must be finite."""
     out = {int(r["iteration"]): r for r in records if "loss" in r}
-    bad = {it: r for it, r in out.items()
-           if not all(np.isfinite(r[k]) for k in ("loss", "0_hm_loss", "0_loc_loss", "grad_norm"))}
+    bad = {it: k for it, r in out.items() for k, v in r.items()
+           if ("loss" in k or k == "grad_norm") and not np.isfinite(v)}
     if bad:
-        raise AssertionError(f"engine: non-finite losses {bad}")
+        raise AssertionError(f"{label}: non-finite losses {bad}")
     return out
 
 
@@ -2223,13 +2244,21 @@ def phase_engine(card: str, bare_step_ms, device="cuda", small=()):
         shutil.rmtree(cache, ignore_errors=True)
 
 
+def _evaluator_classes():
+    from efg_tpu_torch.evaluator.nuscenes_evaluator import nuScenesDetEvaluator
+    from efg_tpu_torch.evaluator.waymo_evaluator import WaymoDetEvaluator
+
+    return [WaymoDetEvaluator, nuScenesDetEvaluator]
+
+
 class EvalProbe:
     """Wraps, for one CLI run, what `DefaultTrainer.evaluate` runs: each
     `evaluate` call (trainer iteration, results, host seconds), each
     `eval_step` (CUDA-event milliseconds, from its first launch to its last
     kernel), each eval batch's host seconds in the val loader's `next`, and
-    the host seconds of `WaymoDetEvaluator.process` (per batch) and
-    `evaluate`. Training loaders (drop_last) are not timed."""
+    the host seconds of the evaluators' `process` (per batch) and
+    `evaluate` (WaymoDetEvaluator, nuScenesDetEvaluator). Training loaders
+    (drop_last) are not timed."""
 
     def __init__(self):
         self.evaluations, self.step_events = [], []
@@ -2240,11 +2269,10 @@ class EvalProbe:
 
         from efg_tpu_torch.data import builder as DB
         from efg_tpu_torch.engine import trainer as T
-        from efg_tpu_torch.evaluator.waymo_evaluator import WaymoDetEvaluator as W
 
-        self._orig = (T.eval_step, T.DefaultTrainer.evaluate, DB.DataLoader.__iter__, W.process,
-                      W.evaluate)
-        step0, evaluate0, iter0, process0, wevaluate0 = self._orig
+        self._orig = (T.eval_step, T.DefaultTrainer.evaluate, DB.DataLoader.__iter__)
+        self._orig_ev = [(E, E.process, E.evaluate) for E in _evaluator_classes()]
+        step0, evaluate0, iter0 = self._orig
         probe = self
 
         def step(*args, **kwargs):
@@ -2275,29 +2303,33 @@ class EvalProbe:
                 probe.data_s.append(time.perf_counter() - t0)
                 yield batch
 
-        def process(ev, inputs, outputs):
-            t0 = time.perf_counter()
-            process0(ev, inputs, outputs)
-            probe.process_s.append(time.perf_counter() - t0)
-            probe.batches.append(inputs)
+        def wrap(process0, evaluate0):
+            def process(ev, inputs, outputs):
+                t0 = time.perf_counter()
+                process0(ev, inputs, outputs)
+                probe.process_s.append(time.perf_counter() - t0)
+                probe.batches.append(inputs)
 
-        def wevaluate(ev):
-            t0 = time.perf_counter()
-            res = wevaluate0(ev)
-            probe.evaluator_s.append(time.perf_counter() - t0)
-            return res
+            def ev_evaluate(ev):
+                t0 = time.perf_counter()
+                res = evaluate0(ev)
+                probe.evaluator_s.append(time.perf_counter() - t0)
+                return res
 
-        (T.eval_step, T.DefaultTrainer.evaluate, DB.DataLoader.__iter__, W.process,
-         W.evaluate) = step, evaluate, iter_, process, wevaluate
+            return process, ev_evaluate
+
+        T.eval_step, T.DefaultTrainer.evaluate, DB.DataLoader.__iter__ = step, evaluate, iter_
+        for E, process0, ev_evaluate0 in self._orig_ev:
+            E.process, E.evaluate = wrap(process0, ev_evaluate0)
         return self
 
     def __exit__(self, *exc):
         from efg_tpu_torch.data import builder as DB
         from efg_tpu_torch.engine import trainer as T
-        from efg_tpu_torch.evaluator.waymo_evaluator import WaymoDetEvaluator as W
 
-        (T.eval_step, T.DefaultTrainer.evaluate, DB.DataLoader.__iter__, W.process,
-         W.evaluate) = self._orig
+        T.eval_step, T.DefaultTrainer.evaluate, DB.DataLoader.__iter__ = self._orig
+        for E, process0, ev_evaluate0 in self._orig_ev:
+            E.process, E.evaluate = process0, ev_evaluate0
         return False
 
     def step_ms(self):
@@ -3783,13 +3815,13 @@ def prepare_waymo(root, n_points=N_POINTS, pc=70.0):
     return out
 
 
-def waymo_config(out_root, exp, data_root, nsweeps):
+def waymo_config(out_root, exp, data_root, nsweeps, directory=WAYMO_DIR):
     """The experiment's config.yaml as written, its `dataset.source` written
     out and `misc.seed` set, at `<out_root>/playground/<its path>` (so the
     CLI finds the port's net.py)."""
     import yaml
 
-    with open(os.path.join(HERE, WAYMO_DIR, exp, "config.yaml")) as fh:
+    with open(os.path.join(HERE, directory, exp, "config.yaml")) as fh:
         cfg = yaml.safe_load(fh)
     cfg.pop("includes")
     cfg["dataset"]["source"] = {
@@ -3798,7 +3830,7 @@ def waymo_config(out_root, exp, data_root, nsweeps):
         "test": f"/infos_val_{nsweeps:02d}sweeps_sampled.pkl",
         "gt_database": "/gt_database_train_01sweeps_withvelo_sampled_infos"}
     cfg["misc"] = {"seed": 0}
-    path = os.path.join(out_root, WAYMO_DIR, exp, "config.yaml")
+    path = os.path.join(out_root, directory, exp, "config.yaml")
     os.makedirs(os.path.dirname(path), exist_ok=True)
     with open(path, "w") as fh:
         yaml.safe_dump(cfg, fh)
@@ -4002,7 +4034,8 @@ def _event_ms(fn, runs=WAYMO_TIMED):
     return out
 
 
-def phase_waymo(card: str, device="cuda", n_points=N_POINTS, pc=70.0, small=(), small_4f=()):
+def phase_waymo(card: str, device="cuda", n_points=N_POINTS, pc=70.0, small=(), small_4f=(),
+                data_root=None):
     """The flagship config's own pipeline on the card, output under a
     temporary EFG_CACHE_DIR:
     1. Waymo-format frames through the port's create_data: 6 train frames
@@ -4031,7 +4064,8 @@ def phase_waymo(card: str, device="cuda", n_points=N_POINTS, pc=70.0, small=(), 
        points, 400000 voxels): one batch (4 frames), fresh weights,
        (8, 21), peak memory.
     Returns the kernel rows. `small` / `small_4f` overrides shrink the
-    runs for a rehearsal on the CPU."""
+    runs for a rehearsal on the CPU. With `data_root` the dataset is
+    written there and left for phase waymo_detr."""
     import pickle
     import shutil
     import tempfile
@@ -4049,7 +4083,7 @@ def phase_waymo(card: str, device="cuda", n_points=N_POINTS, pc=70.0, small=(), 
     os.environ["EFG_CACHE_DIR"] = os.path.join(base, "cache")
     try:
         # 1. the dataset
-        root = os.path.join(base, "waymo")
+        root = data_root or os.path.join(base, "waymo")
         t0 = time.perf_counter()
         prepared = prepare_waymo(root, n_points=n_points, pc=pc)
         prep_s = time.perf_counter() - t0
@@ -4123,7 +4157,11 @@ def phase_waymo(card: str, device="cuda", n_points=N_POINTS, pc=70.0, small=(), 
                                  f"{[(a, b) for a, b, _ in items]}, max_gt {max_gt}")
 
         # 4. the first step's kernel calls against their plain versions
-        rows = phase_waymo_kernels(first.forward, first.backward, card, counts, device)
+        per = (f"sum over the calls of the first bs={WAYMO_BATCH} training step of the flagship "
+               "config's own pipeline (DatabaseSampling, augmentations) through the CLI, {}; "
+               f"launches over its {WAYMO_ITERS} steps")
+        rows = first_step_kernels("waymo", first.forward, first.backward, card, counts, per,
+                                  device)
         del first
 
         # 5. task=val through WaymoDetEvaluator
@@ -4208,40 +4246,477 @@ def phase_waymo(card: str, device="cuda", n_points=N_POINTS, pc=70.0, small=(), 
         shutil.rmtree(base, ignore_errors=True)
 
 
-def phase_waymo_kernels(forward, backward, card: str, step_counts: dict, device="cuda"):
-    """The rank, gather-GEMM and stacked calls of phase waymo's first
-    training step through the kernels and their plain versions (as phases
-    kernels and train_kernels do); returns their kernel rows."""
-    if len(backward.rank) != len(RANK_TRAIN_LABELS) or len(forward.gemm) != 21 or \
-            len(backward.stacked) != 21:
-        raise AssertionError(f"waymo: captured {len(backward.rank)} rank, {len(forward.gemm)} "
-                             f"gather-GEMM and {len(backward.stacked)} stacked calls")
+def first_step_kernels(tag, forward, backward, card: str, step_counts: dict, per: str,
+                       device="cuda", res4=False):
+    """The captured calls of a config's first training step through the
+    kernels and their plain versions; returns their kernel rows. A
+    CenterPoint VoxelNet config: its 12 rank, 21 gather-GEMM and 21 stacked
+    calls, rows `<kernel>@<tag>`. With `res4`, a DETR config: its 5 forward
+    and 5 stacked calls at 256 channels (res4), rows `<kernel>_256@<tag>`.
+    `per` holds a `{}` for the calls a row sums."""
+    stacked = list(zip(backward.stacked, backward.convs))
+    if res4:
+        def wide(call):
+            return max(call[0].shape[1], call[2].shape[1]) > 128
+
+        rank, gemm = [], [c for c in forward.gemm if wide(c)]
+        labels, suffix = DETR_256_LABELS, "_256"
+        stacked = [(call, conv) for call, conv in stacked if wide(call)]
+    else:
+        rank, gemm = backward.rank, forward.gemm
+        labels, suffix = [gemm_label(i) for i in range(21)], ""
+    want = (0 if res4 else len(RANK_TRAIN_LABELS), len(labels), len(labels))
+    if (len(rank), len(gemm), len(stacked)) != want:
+        raise AssertionError(f"{tag}: captured {len(rank)} rank, {len(gemm)} gather-GEMM and "
+                             f"{len(stacked)} stacked calls{' at 256 channels' * res4}, "
+                             f"expected {want}")
     if device != "cuda":
         return []
-    rank_rows = [_rank_row(lbl, k, q) for lbl, (k, q) in zip(RANK_TRAIN_LABELS, backward.rank)]
-    gemm_rows = [_gemm_row(gemm_label(i), *call)[0] for i, call in enumerate(forward.gemm)]
+    rank_rows = [_rank_row(lbl, k, q) for lbl, (k, q) in zip(RANK_TRAIN_LABELS, rank)]
+    gemm_rows = [_gemm_row(lbl, *call)[0] for lbl, call in zip(labels, gemm)]
     st_rows = [_gemm_row(backward_label(i, call[0], conv), *call, emit=True)[0]
-               for i, (call, conv) in enumerate(zip(backward.stacked, backward.convs))]
-    emit({"phase": "waymo_kernels", "card": card, "rank_calls": rank_rows,
+               for i, (call, conv) in enumerate(stacked)]
+    emit({"phase": f"{tag}_kernels", "card": card, "rank_calls": rank_rows,
           "gemm_calls": gemm_rows, "stacked_calls": st_rows})
-    per = (f"sum over the calls of the first bs={WAYMO_BATCH} training step of the flagship "
-           "config's own "
-           "pipeline (DatabaseSampling, augmentations) through the CLI, {}")
-    return [
-        kernel_row("rank_flags@waymo", "rank_flags.cu", 882, step_counts["rank_flags"], rank_rows,
-                   library_call="torch.searchsorted (count field only)", tolerance="exact",
-                   per=per.format("8 forward + 4 inverse rulebooks; launches over its "
-                                  f"{WAYMO_ITERS} steps"), card=card),
-        kernel_row("gather_gemm@waymo", "gather_gemm.cu", 259, step_counts["gather_gemm"],
-                   gemm_rows, tolerance="1e-3 * max|ref|",
-                   per=per.format(f"21 forward convs; launches over its {WAYMO_ITERS} steps"),
-                   card=card),
-        kernel_row("gather_gemm_stacked@waymo", "gather_gemm.cu", 259,
-                   step_counts["gather_gemm_stacked"], st_rows,
+    rows = [kernel_row(f"rank_flags@{tag}", "rank_flags.cu", 882, step_counts["rank_flags"],
+                       rank_rows, library_call="torch.searchsorted (count field only)",
+                       tolerance="exact", per=per.format("8 forward + 4 inverse rulebooks"),
+                       card=card)] if rank_rows else []
+    return rows + [
+        kernel_row(f"gather_gemm{suffix}@{tag}", "gather_gemm.cu", 259,
+                   step_counts[f"gather_gemm{suffix}"], gemm_rows, tolerance="1e-3 * max|ref|",
+                   per=per.format(f"{len(labels)} forward convs"), card=card),
+        kernel_row(f"gather_gemm_stacked{suffix}@{tag}", "gather_gemm.cu", 259,
+                   step_counts[f"gather_gemm_stacked{suffix}"], st_rows,
                    tolerance="taps bit-exact, out 1e-3 * max|ref|",
-                   per=per.format(f"one per conv backward; launches over its {WAYMO_ITERS} steps"),
-                   card=card),
+                   per=per.format("one per conv backward"), card=card),
     ]
+
+
+# phase waymo_detr: the Waymo DETR experiments' own configs on phase waymo's
+# frames. Training runs bs 2: ConQueR's step at these widths peaks at 33.0 GB
+# at bs 2 (phase detr_train). Val runs bs 5: 6 frames of the 1504×1504×40
+# grid are 543M linear keys, past the rank kernel's INVALID_Q = 2^29.
+DETR_WAYMO_DIR = "playground/detection.3d/waymo/conquer"
+VOXELDETR_EXP = "voxeldetr.waymo.res18.p3.bs6.epoch6"
+CONQUER_EXP = "conquer.waymo.res18.p3.dn3.tau07.bs6.epoch6"
+WAYMO_DETR_TRAIN_BATCH = 2
+WAYMO_DETR_VAL_BATCH = 5
+WAYMO_DETR_ITERS = 3
+
+
+def phase_waymo_detr(card: str, data_root: str, device="cuda", small=()):
+    """The two Waymo DETR experiments through the CLI on phase waymo's
+    Waymo-format frames, output under a temporary EFG_CACHE_DIR:
+    1. voxeldetr.waymo.res18.p3.bs6.epoch6's config as written
+       (DatabaseSampling first, PadPoints 180000, SparseResNet-18 to res4
+       at 256 channels, 1000 queries; `dataset.source` written out),
+       task=train at bs WAYMO_DETR_TRAIN_BATCH for WAYMO_DETR_ITERS
+       iterations: launches 18/13+5/12+5/0 a step, finite losses, the loop
+       step and iteration, peak memory; the first step's res4 calls (5
+       forward, 5 stacked at 256 channels) through the kernels against
+       their plain versions;
+    2. its task=val at bs WAYMO_DETR_VAL_BATCH through WaymoDetEvaluator:
+       launches 11/13+5 a batch, the eval step a batch, finite waymo/*;
+    3. conquer.waymo.res18.p3.dn3.tau07.bs6.epoch6's config as written (it
+       includes its sibling's config.yaml by a relative path), task=train
+       likewise: denoising, the momentum decoder and the contrast losses,
+       its `trainer.fade` dropping DatabaseSampling at iteration 2.
+    Returns the kernel rows `gather_gemm_256@waymo_detr` and
+    `gather_gemm_stacked_256@waymo_detr`."""
+    import torch
+
+    from efg_tpu_torch.cli.main import experiment_relpath
+
+    base = tempfile.mkdtemp(prefix="chip_smoke_waymo_detr_")
+    old_cache = os.environ.get("EFG_CACHE_DIR")
+    os.environ["EFG_CACHE_DIR"] = os.path.join(base, "cache")
+    try:
+        exp_root = os.path.join(base, "exp")
+        configs = {VOXELDETR_EXP: waymo_config(exp_root, VOXELDETR_EXP, data_root, 1,
+                                               directory=DETR_WAYMO_DIR)}
+        configs[CONQUER_EXP] = os.path.join(exp_root, DETR_WAYMO_DIR, CONQUER_EXP, "config.yaml")
+        os.makedirs(os.path.dirname(configs[CONQUER_EXP]), exist_ok=True)
+        shutil.copy(os.path.join(HERE, DETR_WAYMO_DIR, CONQUER_EXP, "config.yaml"),
+                    configs[CONQUER_EXP])
+        rows = []
+        for exp, config in configs.items():
+            out_dir = os.path.join(base, "cache", "EFG_torch", experiment_relpath(config))
+            os.makedirs(out_dir, exist_ok=True)
+            argv = ["task=train", "trainer.evaluators=",
+                    f"solver.lr_scheduler.max_iters={WAYMO_DETR_ITERS}", "trainer.log_interval=1",
+                    "trainer.window_size=1", "trainer.checkpoint_epoch=1000",
+                    f"dataloader.batch_size={WAYMO_DETR_TRAIN_BATCH}", *small]
+            if device == "cuda":
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            first_step = FirstStepCapture() if exp == VOXELDETR_EXP else contextlib.nullcontext()
+            with first_step as first:
+                records, counts, probe = _engine_run(argv, out_dir, device, config=config)
+            peak = torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else None
+            run = _losses(records, f"waymo_detr {exp}")
+            expected = _steps_of(DETR_TRAIN_LAUNCHES, WAYMO_DETR_ITERS)
+            with open(os.path.join(out_dir, "log.txt.rank0")) as fh:
+                faded = [ln.split("INFO: ", 1)[-1].strip() for ln in fh if "Aug fade" in ln]
+            emit({"phase": "waymo_detr", "part": "train", "experiment": exp, "card": card,
+                  "batch_size": WAYMO_DETR_TRAIN_BATCH, "iterations": sorted(run),
+                  "losses": {i: {k: v for k, v in r.items() if k in ("loss", "loss_ce",
+                                                                     "loss_bbox", "grad_norm")}
+                             for i, r in run.items()},
+                  "iteration_time_ms": [1e3 * r["time"] for r in records if "time" in r],
+                  "loop_step_ms_cuda_events": probe.step_ms() if device == "cuda" else None,
+                  "data_time_ms": [1e3 * t for t in probe.data_s], "peak_mem_gb": peak,
+                  "fade": faded, "launches": counts, "launches_expected": expected})
+            if sorted(run) != list(range(1, WAYMO_DETR_ITERS + 1)) or counts != expected:
+                raise AssertionError(f"waymo_detr {exp}: records {sorted(run)}, launches "
+                                     f"{counts}, expected {expected}")
+            if faded != (["Aug fade at iter 2: dropped leading processor"]
+                         if exp == CONQUER_EXP else []):
+                raise AssertionError(f"waymo_detr {exp}: fade log {faded}")
+            if exp == CONQUER_EXP:
+                if not all(k in r for r in run.values() for k in ("loss_contrastive_dec_0",
+                                                                   "loss_ce_dn")):
+                    raise AssertionError(f"waymo_detr conquer: loss parts {sorted(run[1])}")
+                continue
+            per = (f"sum over the calls at 256 channels (res4) of the first bs="
+                   f"{WAYMO_DETR_TRAIN_BATCH} training step of {VOXELDETR_EXP} as written "
+                   f"through the CLI, {{}}; launches over its {WAYMO_DETR_ITERS} steps")
+            rows = first_step_kernels("waymo_detr", first.forward, first.backward, card, counts,
+                                      per, device, res4=True)
+            del first
+
+            argv = ["task=val", f"dataloader.batch_size={WAYMO_DETR_VAL_BATCH}", *small]
+            counts, vprobe = _cli_eval_run(argv, device, config=config)
+            n_batches = -(-WAYMO_VAL // WAYMO_DETR_VAL_BATCH)
+            expected = _steps_of(DETR_SERVE_LAUNCHES, n_batches)
+            (_, res, evaluate_s), = vprobe.evaluations
+            emit({"phase": "waymo_detr", "part": "val", "experiment": exp, "card": card,
+                  "frames": WAYMO_VAL, "batch_size": WAYMO_DETR_VAL_BATCH,
+                  "weights": "trained (model_final)",
+                  "eval_step_ms_cuda_events": vprobe.step_ms() if device == "cuda" else None,
+                  "data_ms": [1e3 * d for d in vprobe.data_s], "evaluate_s": evaluate_s,
+                  "val_frames_per_s": WAYMO_VAL / evaluate_s, "results": res,
+                  "launches": counts, "launches_expected": expected})
+            _check_waymo_results("waymo_detr val", res, ["VEHICLE", "PEDESTRIAN", "CYCLIST"])
+            if len(vprobe.step_events) != n_batches or counts != expected:
+                raise AssertionError(f"waymo_detr val: {len(vprobe.step_events)} batches, "
+                                     f"launches {counts}, expected {n_batches} and {expected}")
+        return rows
+    finally:
+        if old_cache is None:
+            os.environ.pop("EFG_CACHE_DIR", None)
+        else:
+            os.environ["EFG_CACHE_DIR"] = old_cache
+        shutil.rmtree(base, ignore_errors=True)
+
+
+# phase nusc: nuScenes-format data through the port's create_data, then the
+# two nuScenes CenterPoint experiments as written. 2 scenes of 4 key frames,
+# each after 9 sweeps, 30000 points a sweep within ±54 m.
+NUSC_DIR = "playground/detection.3d/nuscenes/centerpoint"
+NUSC_VOXEL = "centerpoint.nusc.voxelnet.cbgs.20e"
+NUSC_PILLAR = "centerpoint.pillar.nusc_mini.1sweep"
+NUSC_VERSION = "v1.0-trainval"
+NUSC_SCENES, NUSC_KEYS, NUSC_SWEEPS, NUSC_POINTS = 2, 4, 9, 30000
+NUSC_ITERS = 4
+NUSC_CLASSES = ["car", "truck", "construction_vehicle", "bus", "trailer", "barrier",
+                "motorcycle", "bicycle", "pedestrian", "traffic_cone"]
+# (category, attribute, size w, l, h, instances a scene): every detection class
+NUSC_OBJECTS = (("vehicle.car", "vehicle.moving", (1.9, 4.6, 1.7), 6),
+                ("vehicle.truck", "vehicle.parked", (2.5, 6.9, 2.8), 2),
+                ("vehicle.construction", "vehicle.parked", (2.8, 6.4, 3.2), 1),
+                ("vehicle.bus.rigid", "vehicle.moving", (2.9, 11.0, 3.5), 1),
+                ("vehicle.trailer", "vehicle.parked", (2.3, 10.0, 3.8), 1),
+                ("movable_object.barrier", None, (2.5, 0.5, 1.0), 3),
+                ("vehicle.motorcycle", "cycle.with_rider", (0.8, 2.1, 1.5), 2),
+                ("vehicle.bicycle", "cycle.without_rider", (0.6, 1.7, 1.3), 2),
+                ("human.pedestrian.adult", "pedestrian.moving", (0.7, 0.7, 1.8), 4),
+                ("movable_object.trafficcone", None, (0.4, 0.4, 1.1), 3))
+NUSC_DB_CROPS = 8  # GT-database crops a class
+NO_LAUNCHES = {k: 0 for k in TRAIN_LAUNCHES}  # PillarNet runs no sparse conv
+
+
+def _quat_yaw(yaw):
+    return [float(np.cos(yaw / 2)), 0.0, 0.0, float(np.sin(yaw / 2))]
+
+
+def write_nuscenes(root, n_points=NUSC_POINTS, pc=54.0, seed=5):
+    """nuScenes' on-disk format: the v1.0 JSON tables and `samples/` /
+    `sweeps/` LIDAR_TOP `.bin` files of 5 float32 columns (`lidar_frames`
+    clouds). Per scene NUSC_KEYS key frames 0.5 s apart, each after
+    NUSC_SWEEPS sweeps 0.05 s apart on one sample_data chain; NUSC_OBJECTS'
+    instances moving through the key frames (prev / next links for the
+    velocities, attributes), poses advancing along the scene."""
+    rs = np.random.RandomState(seed)
+    tabs = {k: [] for k in ("scene", "sample", "sample_data", "ego_pose", "calibrated_sensor",
+                            "sample_annotation", "instance", "category", "attribute")}
+    cats = [c for c, _, _, _ in NUSC_OBJECTS]
+    attrs = sorted({a for _, a, _, _ in NUSC_OBJECTS if a})
+    tabs["category"] = [dict(token=f"cat{i}", name=n) for i, n in enumerate(cats)]
+    tabs["attribute"] = [dict(token=f"attr{i}", name=n) for i, n in enumerate(attrs)]
+    for d in ("samples/LIDAR_TOP", "sweeps/LIDAR_TOP", NUSC_VERSION):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    for s in range(NUSC_SCENES):
+        keys = [f"s{s}_{k}" for k in range(NUSC_KEYS)]
+        tabs["scene"].append(dict(token=f"sc{s}", name=f"scene-{s + 1:04d}",
+                                  first_sample_token=keys[0], last_sample_token=keys[-1]))
+        insts = []
+        for cat, attr, size, count in NUSC_OBJECTS:
+            for _ in range(count):
+                tok = f"in{s}_{len(insts)}"
+                tabs["instance"].append(dict(token=tok, category_token=f"cat{cats.index(cat)}"))
+                insts.append((tok, attr, size, rs.uniform(-0.8 * pc, 0.8 * pc, 2),
+                              rs.uniform(-3, 3, 2) * (attr in ("vehicle.moving", "cycle.with_rider",
+                                                               "pedestrian.moving")),
+                              rs.uniform(-np.pi, np.pi)))
+        chain = []
+        for k, key in enumerate(keys):
+            tk = 1_500_000_000_000_000 + s * 100_000_000 + k * 500_000
+            chain += [(f"sd{s}_{k}_{j}", key, False, tk - (NUSC_SWEEPS - j) * 50_000)
+                      for j in range(NUSC_SWEEPS)]
+            chain.append((f"sd{s}_{k}_key", key, True, tk))
+            tabs["sample"].append(dict(
+                token=key, scene_token=f"sc{s}", timestamp=tk,
+                prev=keys[k - 1] if k else "", next=keys[k + 1] if k + 1 < NUSC_KEYS else "",
+                anns=[f"a{s}_{k}_{o}" for o in range(len(insts))]))
+            for o, (tok, attr, size, start, vel, yaw) in enumerate(insts):
+                xy = start + vel * 0.5 * k
+                tabs["sample_annotation"].append(dict(
+                    token=f"a{s}_{k}_{o}", sample_token=key, instance_token=tok,
+                    translation=[float(xy[0]), float(xy[1]), 1.0], size=list(size),
+                    rotation=_quat_yaw(yaw), prev=f"a{s}_{k - 1}_{o}" if k else "",
+                    next=f"a{s}_{k + 1}_{o}" if k + 1 < NUSC_KEYS else "",
+                    attribute_tokens=[f"attr{attrs.index(attr)}"] if attr else []))
+        for i, (tok, key, is_key, ts) in enumerate(chain):
+            fname = f"{'samples' if is_key else 'sweeps'}/LIDAR_TOP/{tok}.pcd.bin"
+            lidar_frames(n_points, 1, seed * 1000 + s * 100 + i, pc=pc)["points"][0].tofile(
+                os.path.join(root, fname))
+            tabs["sample_data"].append(dict(
+                token=tok, sample_token=key, filename=fname, is_key_frame=is_key, timestamp=ts,
+                channel="LIDAR_TOP", calibrated_sensor_token=f"cs{s}_{i}",
+                ego_pose_token=f"ep{s}_{i}", prev=chain[i - 1][0] if i else "",
+                next=chain[i + 1][0] if i + 1 < len(chain) else ""))
+            tabs["ego_pose"].append(dict(token=f"ep{s}_{i}", rotation=_quat_yaw(0.01 * i),
+                                         translation=[0.5 * i, 0.05 * i, 0.0]))
+            tabs["calibrated_sensor"].append(dict(token=f"cs{s}_{i}", rotation=_quat_yaw(0.0),
+                                                  translation=[0.9, 0.0, 1.8]))
+    for name, rows in tabs.items():
+        with open(os.path.join(root, NUSC_VERSION, f"{name}.json"), "w") as fh:
+            json.dump(rows, fh)
+
+
+def prepare_nuscenes(root, n_points=NUSC_POINTS, pc=54.0):
+    """The fixture dataset: the tables and clouds, the infos at 10 and 1
+    sweeps through the port's create_data (train and val both hold every
+    key frame, as its `main` writes them), and a GT database in the format
+    the port's DataBaseSampler reads. Neither package's nuScenes
+    preparation writes one: NUSC_DB_CROPS crops a class of 40-150 points
+    inside a box of the class's size, at the origin."""
+    import pickle
+
+    from efg_tpu_torch.cli.data_preparation.nuscenes import create_data
+
+    write_nuscenes(root, n_points=n_points, pc=pc)
+    out = {}
+    for ns in (10, 1):
+        infos = create_data.build_infos(root, NUSC_VERSION, ns)
+        for split in ("train", "val"):
+            with open(os.path.join(root, f"infos_{split}_{ns:02d}sweeps_withvelo_filterZero.pkl"),
+                      "wb") as fh:
+                pickle.dump(infos, fh)
+        out[f"infos_{ns:02d}sweeps"] = len(infos)
+        out[f"sweeps_per_key_{ns:02d}"] = sorted({len(i["LIDAR_TOP"]["sweeps"]) for i in infos})
+    rs = np.random.RandomState(9)
+    db = {}
+    os.makedirs(os.path.join(root, "gt_database"), exist_ok=True)
+    for (cat, _, (w, l, h), _), cls in zip(NUSC_OBJECTS, NUSC_CLASSES):
+        for i in range(NUSC_DB_CROPS):
+            n = int(rs.randint(40, 150))
+            pts = np.concatenate([rs.uniform(-0.45, 0.45, (n, 3)) * [l, w, h],
+                                  rs.uniform(0, 1, (n, 2))], 1).astype(np.float32)
+            path = f"gt_database/{cls}_{i}.bin"
+            pts.tofile(os.path.join(root, path))
+            box = np.array([*rs.uniform(-0.8 * pc, 0.8 * pc, 2), 1.0, l, w, h,
+                            *rs.uniform(-1, 1, 2), rs.uniform(-np.pi, np.pi)], np.float32)
+            db.setdefault(cls, []).append(dict(name=cls, path=path, box3d_lidar=box,
+                                               num_points_in_gt=n, difficulty=0))
+    with open(os.path.join(root, "dbinfos_train_10sweeps_withvelo.pkl"), "wb") as fh:
+        pickle.dump(db, fh)
+    out["gt_database"] = {k: len(v) for k, v in db.items()}
+    return out
+
+
+def nusc_config(out_root, exp, data_root):
+    """The experiment's config.yaml as written, its `dataset.source` and
+    `eval_source` written out (the VoxelNet config does not resolve as
+    written in either package) and `misc.seed` set, at
+    `<out_root>/playground/<its path>`."""
+    import yaml
+
+    with open(os.path.join(HERE, NUSC_DIR, exp, "config.yaml")) as fh:
+        cfg = yaml.safe_load(fh)
+    cfg.pop("includes")
+    ns = cfg["dataset"]["nsweeps"]
+    cfg["dataset"]["source"] = cfg["dataset"]["eval_source"] = {
+        "root": data_root, "train": f"/infos_train_{ns:02d}sweeps_withvelo_filterZero.pkl",
+        "val": f"/infos_val_{ns:02d}sweeps_withvelo_filterZero.pkl",
+        "gt_database": "/dbinfos_train_10sweeps_withvelo.pkl"}
+    cfg["misc"] = {"seed": 0}
+    path = os.path.join(out_root, NUSC_DIR, exp, "config.yaml")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as fh:
+        yaml.safe_dump(cfg, fh)
+    return path
+
+
+# a perfect detector's AP under the evaluator's normalisation: mean(prec −
+# 0.1) / 0.9 over its 90 recall points of precision 1 (1 + 4.4e-16 in f64)
+NUSC_PERFECT_AP = float(np.clip(np.ones(90) - 0.1, 0, None).mean() / 0.9)
+
+
+def phase_nusc(card: str, device="cuda", n_points=NUSC_POINTS, pc=54.0, small=(),
+               small_pillar=()):
+    """The nuScenes CenterPoint experiments on nuScenes-format data written
+    through the port's create_data, output under a temporary EFG_CACHE_DIR:
+    1. the data (`prepare_nuscenes`): 8 key frames of 10 sweeps, infos at
+       10 and 1 sweeps, a GT database of every class;
+    2. centerpoint.nusc.voxelnet.cbgs.20e as written (10 sweeps, CBGS:
+       its train list resampled past the 8 key frames, DatabaseSampling first, PadPoints 300000, grid 1440×1440×41, caps
+       90k/60k/35k/30k, a 6-task head with velocity; bs 4, 2 loader
+       threads), task=train for NUSC_ITERS iterations: launches 12/21/21/0
+       a step, finite losses, the loop step and iteration, peak memory; its
+       first step's rank, forward and stacked calls through the kernels
+       against their plain versions;
+    3. its task=val through nuScenesDetEvaluator: (8, 21) a batch, the eval
+       step a batch, val frames/s, finite nusc/NDS;
+    4. centerpoint.pillar.nusc_mini.1sweep as written (bs 2, 60000 points,
+       512×512 pillars): task=train for NUSC_ITERS iterations and task=val,
+       no sparse kernel launched, peak memory;
+    5. the val items' GT boxes as predictions through nuScenesDetEvaluator:
+       nusc/mAP the evaluator's perfect score exactly (NUSC_PERFECT_AP),
+       mATE = mASE = mAOE = mAVE = 0.
+    Returns the kernel rows `*@nusc`. `small` / `small_pillar` overrides
+    shrink the runs for a rehearsal on the CPU."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from efg_tpu_torch.cli.main import experiment_relpath
+    from efg_tpu_torch.config import Configuration
+    from efg_tpu_torch.data import build_dataset
+    from efg_tpu_torch.evaluator.nuscenes_evaluator import nuScenesDetEvaluator
+
+    base = tempfile.mkdtemp(prefix="chip_smoke_nusc_")
+    old_cache = os.environ.get("EFG_CACHE_DIR")
+    os.environ["EFG_CACHE_DIR"] = os.path.join(base, "cache")
+    try:
+        root = os.path.join(base, "nuscenes")
+        t0 = time.perf_counter()
+        prepared = prepare_nuscenes(root, n_points=n_points, pc=pc)
+        emit({"phase": "nusc", "part": "data", "card": card,
+              "prepare_s": time.perf_counter() - t0, "points_per_sweep": n_points,
+              "prepared": prepared, "gt_database": "written by chip_smoke (neither package's "
+              "nuScenes preparation writes one), in the port's DataBaseSampler format"})
+        if prepared["sweeps_per_key_10"] != [NUSC_SWEEPS]:
+            raise AssertionError(f"nusc: sweeps per key frame {prepared}")
+        frames = NUSC_SCENES * NUSC_KEYS
+        rows = []
+        for exp, opts in ((NUSC_VOXEL, list(small)), (NUSC_PILLAR, list(small_pillar))):
+            config = nusc_config(os.path.join(base, "exp"), exp, root)
+            cfg = Configuration(config_file=config, opts=["task=train", *opts]).get_config()
+            bs = int(cfg.dataloader.batch_size)
+            cbgs, n_train = bool(cfg.dataset.cbgs), len(build_dataset(cfg))
+            if (n_train > frames) != cbgs:
+                raise AssertionError(f"nusc {exp}: cbgs {cbgs}, {n_train} train infos from "
+                                     f"{frames} key frames")
+            out_dir = os.path.join(base, "cache", "EFG_torch", experiment_relpath(config))
+            os.makedirs(out_dir, exist_ok=True)
+            argv = ["task=train", "trainer.evaluators=",
+                    f"solver.lr_scheduler.max_iters={NUSC_ITERS}", "trainer.log_interval=1",
+                    "trainer.window_size=1", "trainer.checkpoint_epoch=1000", *opts]
+            if device == "cuda":
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            with FirstStepCapture() as first:
+                records, counts, probe = _engine_run(argv, out_dir, device, config=config)
+            peak = torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else None
+            run = _losses(records, f"nusc {exp}")
+            voxel = exp == NUSC_VOXEL
+            expected = _steps_of(TRAIN_LAUNCHES if voxel else NO_LAUNCHES, NUSC_ITERS)
+            emit({"phase": "nusc", "part": "train", "experiment": exp, "card": card,
+                  "batch_size": bs, "cbgs": cbgs, "train_infos": n_train, "key_frames": frames,
+                  "iterations": sorted(run),
+                  "losses": {i: {k: r[k] for k in ("loss", "0_hm_loss", "0_loc_loss",
+                                                    "grad_norm")} for i, r in run.items()},
+                  "positives_per_task": {i: [r[f"{t}_num_positive"] for t in range(6)]
+                                         for i, r in run.items()},
+                  "iteration_time_ms": [1e3 * r["time"] for r in records if "time" in r],
+                  "loop_step_ms_cuda_events": probe.step_ms() if device == "cuda" else None,
+                  "data_time_ms": [1e3 * t for t in probe.data_s], "peak_mem_gb": peak,
+                  "launches": counts, "launches_expected": expected})
+            if sorted(run) != list(range(1, NUSC_ITERS + 1)) or counts != expected:
+                raise AssertionError(f"nusc {exp}: records {sorted(run)}, launches {counts}, "
+                                     f"expected {expected}")
+            if voxel:
+                per = (f"sum over the calls of the first bs={bs} training step of {NUSC_VOXEL} "
+                       "as written (10 sweeps, CBGS, DatabaseSampling) through the CLI, {}; "
+                       f"launches over its {NUSC_ITERS} steps")
+                rows = first_step_kernels("nusc", first.forward, first.backward, card, counts,
+                                          per, device)
+            elif first.forward is not None and (first.forward.gemm or first.backward.rank):
+                raise AssertionError("nusc pillar: a sparse kernel wrapper was called")
+            del first
+
+            argv = ["task=val", *opts]
+            vcfg = Configuration(config_file=config, opts=argv).get_config()
+            counts, vprobe = _cli_eval_run(argv, device, config=config)
+            n_batches = -(-frames // int(vcfg.dataloader.batch_size))
+            expected = _steps_of(SERVE_LAUNCHES if voxel else NO_LAUNCHES, n_batches)
+            (_, res, evaluate_s), = vprobe.evaluations
+            emit({"phase": "nusc", "part": "val", "experiment": exp, "card": card,
+                  "frames": frames, "batch_size": int(vcfg.dataloader.batch_size),
+                  "weights": "trained (model_final)",
+                  "eval_step_ms_cuda_events": vprobe.step_ms() if device == "cuda" else None,
+                  "data_ms": [1e3 * d for d in vprobe.data_s],
+                  "evaluator_process_ms": [1e3 * d for d in vprobe.process_s],
+                  "evaluator_evaluate_ms": [1e3 * d for d in vprobe.evaluator_s],
+                  "evaluate_s": evaluate_s, "val_frames_per_s": frames / evaluate_s,
+                  "results": res, "launches": counts, "launches_expected": expected})
+            if len(vprobe.step_events) != n_batches or counts != expected or \
+                    len(res) != len(NUSC_CLASSES) + 7 or not np.isfinite(res["nusc/NDS"]):
+                raise AssertionError(f"nusc {exp} val: {len(vprobe.step_events)} batches, "
+                                     f"launches {counts}, expected {n_batches} and {expected}; "
+                                     f"results {res}")
+
+        # 5. GT boxes as predictions
+        vcfg = Configuration(config_file=nusc_config(os.path.join(base, "exp"), NUSC_VOXEL, root),
+                             opts=["task=val", *small]).get_config()
+        ds = build_dataset(vcfg)
+        ev = nuScenesDetEvaluator(SimpleNamespace(dataset=SimpleNamespace(
+            classes=NUSC_CLASSES)), ds)
+        n_gt = 0
+        for i in range(len(ds)):
+            anno = ds[i][1]["annotations"]
+            n = len(anno["labels"])
+            n_gt += n
+            ev.process({"annotations": [anno]},
+                       {"box3d": anno["gt_boxes"][None], "scores": np.ones((1, n), np.float32),
+                        "labels": anno["labels"][None], "valid": np.ones((1, n), bool)})
+        res = ev.evaluate()
+        errors = {k: res[f"nusc/{k}"] for k in ("mATE", "mASE", "mAOE", "mAVE")}
+        emit({"phase": "nusc", "part": "gt_as_predictions", "frames": len(ds), "gt_boxes": n_gt,
+              "mAP": res["nusc/mAP"], "perfect_ap": NUSC_PERFECT_AP, **errors,
+              "NDS": res["nusc/NDS"], "mAAE": res["nusc/mAAE"]})
+        if res["nusc/mAP"] != NUSC_PERFECT_AP or any(v != 0.0 for v in errors.values()) or \
+                len(ds) != frames or not n_gt:
+            raise AssertionError(f"nusc GT as predictions: {res}")
+        return rows
+    finally:
+        if old_cache is None:
+            os.environ.pop("EFG_CACHE_DIR", None)
+        else:
+            os.environ["EFG_CACHE_DIR"] = old_cache
+        shutil.rmtree(base, ignore_errors=True)
 
 
 def main() -> int:
@@ -4285,7 +4760,13 @@ def main() -> int:
         detr = phase_detr(card)
         detr_train = phase_detr_train(card)
         phase_ddp(card)
-        waymo = phase_waymo(card)
+        data = tempfile.mkdtemp(prefix="chip_smoke_data_")
+        try:  # phase waymo's frames serve phase waymo_detr
+            waymo = phase_waymo(card, data_root=os.path.join(data, "waymo"))
+            waymo_detr = phase_waymo_detr(card, os.path.join(data, "waymo"))
+        finally:
+            shutil.rmtree(data, ignore_errors=True)
+        nusc = phase_nusc(card)
         # a rank kernel's row is the training step's (its forward rulebooks
         # and the inverse ones); the serving forward's is in the kernels line
         train["rank_flags"]["launches_serve"] = serve["rank_flags"]["launches"]
@@ -4296,7 +4777,8 @@ def main() -> int:
         for name in ("rank_flags_seq4", "rank_flags_hostwin"):
             variants[name]["launches_serve"] = serve_counts[name]
         kernels = [train["rank_flags"], serve["gather_gemm"], detr, train["gather_gemm_stacked"],
-                   *detr_train, train["gather_dw"], *variants.values(), *waymo]
+                   *detr_train, train["gather_dw"], *variants.values(), *waymo, *waymo_detr,
+                   *nusc]
     except Exception:  # report every phase failure and exit non-zero
         traceback.print_exc()
         return 1

@@ -11,6 +11,7 @@ from efg_tpu_torch.data.processors import extend_3d as _e3d  # noqa: F401
 from efg_tpu_torch.data.samplers import dataset_sampler as _ds  # noqa: F401
 from efg_tpu_torch.data.datasets import synthetic as _synth  # noqa: F401
 from efg_tpu_torch.data.datasets import waymo as _waymo  # noqa: F401
+from efg_tpu_torch.data.datasets import nuscenes as _nuscenes  # noqa: F401
 
 __all__ = [
     "DATASETS", "PROCESSORS", "SAMPLERS",

@@ -151,6 +151,22 @@ def _not_ported(what: str, item: int) -> NotImplementedError:
         f"{what} is not ported to efg_tpu_torch yet (ROADMAP queue 1 item {item})")
 
 
+def check_machine_batch(batch_size: int, local_ranks: int) -> None:
+    """Refuse a machine's `dataloader.batch_size` that its local ranks
+    cannot split evenly. A deviation from efg_tpu, which checks the batch
+    against its data mesh axis, every machine's devices
+    (`efg_tpu/engine/trainer.py:86-90`): with several machines efg_tpu
+    refuses a batch that is not a multiple of all of them, though its own
+    `global_bs = bs × world_size` makes `batch_size` one machine's. The
+    port checks it against the ranks that take its slices, this
+    machine's; on one machine the two checks agree."""
+    if batch_size % local_ranks:
+        raise ValueError(
+            f"dataloader.batch_size={batch_size} must divide the data mesh axis ({local_ranks} "
+            "ranks on this machine; efg_tpu checks it against every machine's devices, the "
+            "port against this machine's ranks, which take its slices)")
+
+
 @TRAINERS.register()
 class DefaultTrainer:
     """efg_tpu's `DefaultTrainer` on this rank's device. `build_model(config,
@@ -205,10 +221,7 @@ class DefaultTrainer:
             self.max_iters = 1
         sched["max_iters"] = self.max_iters
 
-        local = comm.get_local_size()
-        if bs % local:
-            raise ValueError(f"dataloader.batch_size={bs} must divide the data mesh axis "
-                             f"({local} ranks on this machine)")
+        check_machine_batch(bs, comm.get_local_size())
 
     # ----------------------------------------------------------------- model
     def setup_optimizer(self):

@@ -1,8 +1,9 @@
-"""CenterPoint-VoxelNet (port of `efg_tpu/models/centerpoint.py`): points
-→ on-device voxelization and mean VFE → SpMiddleResNetFHD sparse trunk →
-BEV → RPN → CenterHead. `compute_loss` assigns targets and computes the
-losses for training; `predict` decodes the head maps and runs rotated NMS
-per task.
+"""CenterPoint detectors (port of `efg_tpu/models/centerpoint.py`).
+VoxelNet: points → on-device voxelization and mean VFE → SpMiddleResNetFHD
+sparse trunk → BEV → RPN → CenterHead. PillarNet: points →
+PillarFeatureNet → scatter onto the BEV canvas → RPN → CenterHead.
+`compute_loss` assigns targets and computes the losses for training;
+`predict` decodes the head maps and runs rotated NMS per task.
 
 The module trains in `train()` mode (batch statistics, running-stat
 updates: efg_tpu's `train=True, mutable=["batch_stats"]`) and serves in
@@ -26,7 +27,11 @@ from efg_tpu_torch.modeling.heads.center_head import (
     decode_boxes,
     post_process_sample,
 )
-from efg_tpu_torch.modeling.readers.voxel_reader import dynamic_mean_vfe
+from efg_tpu_torch.modeling.readers.voxel_reader import (
+    PillarFeatureNet,
+    dynamic_mean_vfe,
+    pillar_scatter,
+)
 from efg_tpu_torch.ops.voxelize import grid_size
 
 
@@ -86,6 +91,43 @@ class VoxelNet(nn.Module):
             max_voxels=self.max_voxels, num_input_features=self.num_input_features,
         )
         bev = self.backbone(feats.detach(), coords, valid)  # efg_tpu's stop_gradient
+        return self.head(self.neck(bev))
+
+
+class PillarNet(nn.Module):
+    """CenterPoint-Pillar: PillarFeatureNet + scatter + RPN + CenterHead.
+    Parameters are created on `device`, drawn on the CPU from
+    `generator`."""
+
+    def __init__(
+        self,
+        pc_range: Tuple[float, ...] = (-51.2, -51.2, -5.0, 51.2, 51.2, 3.0),
+        voxel_size: Tuple[float, ...] = (0.2, 0.2, 8.0),
+        max_pillars: int = 30000,
+        num_input_features: int = 5,
+        pfn_filters: Sequence[int] = (64,),
+        tasks: Sequence[Dict[str, Any]] = ({"num_classes": 1, "class_names": ["car"]},),
+        common_heads: Any = (("reg", (2, 2)), ("height", (1, 2)), ("dim", (3, 2)),
+                             ("rot", (2, 2)), ("vel", (2, 2))),
+        neck_cfg: Any = (),
+        device="cuda",
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        device = resolve_device(device)
+        self.nx, self.ny, _ = grid_size(pc_range, voxel_size)
+        self.reader = PillarFeatureNet(
+            num_filters=tuple(pfn_filters), num_input_features=num_input_features,
+            pc_range=pc_range, voxel_size=voxel_size, max_pillars=max_pillars,
+            generator=generator)
+        self.neck = RPN(tuple(pfn_filters)[-1], **dict(neck_cfg), generator=generator)
+        self.head = CenterHead(self.neck.num_channels, tasks, dict(common_heads),
+                               generator=generator)
+        self.to(device)
+
+    def forward(self, points: torch.Tensor, points_mask: torch.Tensor) -> List[Dict[str, torch.Tensor]]:
+        pf, coords_yx, valid = self.reader(points, points_mask)
+        bev = pillar_scatter(pf, coords_yx, valid, ny=self.ny, nx=self.nx)
         return self.head(self.neck(bev))
 
 
@@ -209,27 +251,7 @@ def _model_cfg(config):
     )
 
 
-def build_model(config, device="cuda", generator=None) -> ModelDef:
-    """The `build_model` of the CenterPoint VoxelNet experiments' `net.py`
-    (efg_tpu's synthetic and Waymo ones are one body): the model from the
-    experiment's config, as a ModelDef on `device`, its initial weights
-    drawn from `generator`."""
-    cfg = _model_cfg(config)
-    module = VoxelNet(
-        pc_range=cfg["pc_range"],
-        voxel_size=cfg["voxel_size"],
-        max_voxels=int(config.model.max_voxels),
-        num_input_features=int(config.model.reader.num_input_features),
-        stage_caps=tuple(config.model.stage_caps),
-        act_dtype=str(config.model.get("act_dtype", "")),
-        tasks=tuple(cfg["tasks"]),
-        common_heads=cfg["common_heads"],
-        neck_cfg=tuple((k, tuple(v) if isinstance(v, list) else v)
-                       for k, v in config.model.neck.items()),
-        device=device,
-        generator=generator,
-    )
-
+def _model_def(config, module, cfg) -> ModelDef:
     def apply_args(batch):
         return dict(points=batch["points"], points_mask=batch["points_mask"])
 
@@ -240,3 +262,48 @@ def build_model(config, device="cuda", generator=None) -> ModelDef:
         return predict(preds, post_cfg=dict(config.model.post_process), model_cfg=cfg)
 
     return ModelDef(module, apply_args, loss_fn, predict_fn)
+
+
+def _neck_cfg(config):
+    return tuple((k, tuple(v) if isinstance(v, list) else v) for k, v in config.model.neck.items())
+
+
+def build_model(config, device="cuda", generator=None) -> ModelDef:
+    """The `build_model` of the CenterPoint VoxelNet experiments' `net.py`
+    (efg_tpu's synthetic, Waymo and nuScenes ones are one body): the model
+    from the experiment's config, as a ModelDef on `device`, its initial
+    weights drawn from `generator`."""
+    cfg = _model_cfg(config)
+    module = VoxelNet(
+        pc_range=cfg["pc_range"],
+        voxel_size=cfg["voxel_size"],
+        max_voxels=int(config.model.max_voxels),
+        num_input_features=int(config.model.reader.num_input_features),
+        stage_caps=tuple(config.model.stage_caps),
+        act_dtype=str(config.model.get("act_dtype", "")),
+        tasks=tuple(cfg["tasks"]),
+        common_heads=cfg["common_heads"],
+        neck_cfg=_neck_cfg(config),
+        device=device,
+        generator=generator,
+    )
+    return _model_def(config, module, cfg)
+
+
+def build_pillar_model(config, device="cuda", generator=None) -> ModelDef:
+    """The `build_model` of the CenterPoint-Pillar experiment's `net.py`."""
+    m = config.model
+    cfg = _model_cfg(config)
+    module = PillarNet(
+        pc_range=cfg["pc_range"],
+        voxel_size=cfg["voxel_size"],
+        max_pillars=int(m.max_pillars),
+        num_input_features=int(m.reader.num_input_features),
+        pfn_filters=tuple(m.reader.pfn_filters),
+        tasks=tuple(cfg["tasks"]),
+        common_heads=cfg["common_heads"],
+        neck_cfg=_neck_cfg(config),
+        device=device,
+        generator=generator,
+    )
+    return _model_def(config, module, cfg)

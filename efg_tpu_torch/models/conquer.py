@@ -299,3 +299,13 @@ def make_model_def(detr_kwargs: Dict[str, Any], model_cfg: Dict[str, Any], *,
 
     return ModelDef(module, apply_args, loss_fn, predict_fn, custom_loss=custom_loss,
                     ema_init=ema_init, ema_update=ema_update)
+
+
+def build_model(config, device="cuda", generator=None) -> ModelDef:
+    """The `build_model` of the ConQueR experiments' `net.py` (the
+    synthetic one and the Waymo one): Voxel-DETR's config helpers plus the
+    config's `model.dn` and `model.contrastive`."""
+    cfg = VD.model_cfg(config)
+    cfg["dn"] = dict(config.model.dn)
+    cfg["contrastive"] = dict(config.model.contrastive)
+    return make_model_def(VD.detr_kwargs(config), cfg, device=device, generator=generator)

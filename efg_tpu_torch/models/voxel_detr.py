@@ -10,7 +10,9 @@ the flax modules'; the flax `MultiHeadDotProductAttention` is written out
 as its query / key / value / out projections. Training: the focal + L1 +
 axis-aligned GIoU3D + rad set losses under Hungarian matching
 (`compute_loss`: one host solve for the encoder layer and every decoder
-layer together, `ops/matcher.py`).
+layer together, `ops/matcher.py`). `detr_kwargs` and `model_cfg` read an
+experiment's config for every DETR experiment (Voxel-DETR's and
+ConQueR's), and `build_model` is the plain Voxel-DETR experiment's.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from efg_tpu_torch.engine.train_state import ModelDef
 from efg_tpu_torch.geometry.box_ops_torch import aligned_giou_3d_pairs, limit_period
 from efg_tpu_torch.modeling.backbones.fpn import FPN, position_embedding_sine
 from efg_tpu_torch.modeling.backbones.rpn import Conv2d
@@ -582,3 +585,69 @@ def predict(preds: Dict[str, Any], *, model_cfg: Dict[str, Any],
     out_boxes = torch.gather(boxes, 1, qidx[..., None].expand(-1, -1, 7))
     return dict(box3d=out_boxes, scores=scores, labels=labels,
                 valid=torch.ones_like(labels, dtype=torch.bool))
+
+
+# ---------------------------------------------------------------------------
+# The experiments' config → model (efg_tpu's Waymo Voxel-DETR `net.py`)
+# ---------------------------------------------------------------------------
+
+
+def detr_kwargs(config) -> Dict[str, Any]:
+    """VoxelDETR's keyword arguments from an experiment's config."""
+    m = config.model
+    return dict(
+        pc_range=tuple(config.dataset.pc_range),
+        voxel_size=tuple(config.dataset.voxel_size),
+        max_voxels=int(m.max_voxels),
+        resnet_caps=tuple(m.resnet_caps),
+        depth=int(m.sparse_resnet.depth),
+        out_features=tuple(m.sparse_resnet.out_features),
+        fpn_levels=tuple(m.fpn_levels),
+        hidden_dim=int(m.hidden_dim),
+        num_head=int(m.transformer.nhead),
+        enc_layers=int(m.transformer.enc_layers),
+        dec_layers=int(m.transformer.dec_layers),
+        dim_feedforward=int(m.transformer.dim_feedforward),
+        num_queries=int(m.transformer.num_queries),
+        num_classes=len(config.dataset.classes),
+    )
+
+
+def model_cfg(config) -> Dict[str, Any]:
+    """The loss and decode settings from an experiment's config."""
+    lw = config.model.loss
+    return dict(
+        pc_range=tuple(config.dataset.pc_range),
+        voxel_size=tuple(config.dataset.voxel_size),
+        loss_weights={
+            "class": float(lw.class_loss_coef),
+            "bbox": float(lw.bbox_loss_coef),
+            "giou": float(lw.giou_loss_coef),
+            "rad": float(lw.rad_loss_coef),
+        },
+    )
+
+
+def make_model_def(kwargs: Dict[str, Any], cfg: Dict[str, Any], *, device="cuda",
+                   generator: Optional[torch.Generator] = None) -> ModelDef:
+    """The plain Voxel-DETR ModelDef: the set losses of `compute_loss`
+    (no denoising, contrast or EMA decoder) and `predict`."""
+    module = VoxelDETR(**kwargs, device=device, generator=generator)
+
+    def apply_args(batch):
+        return dict(points=batch["points"], points_mask=batch["points_mask"])
+
+    def loss_fn(preds, batch):
+        return compute_loss(preds, batch, model_cfg=cfg)
+
+    def predict_fn(preds, batch):
+        return predict(preds, model_cfg=cfg)
+
+    return ModelDef(module, apply_args, loss_fn, predict_fn)
+
+
+def build_model(config, device="cuda", generator=None) -> ModelDef:
+    """The `build_model` of the Voxel-DETR experiment's `net.py`, on
+    `device`, its initial weights drawn from `generator`."""
+    return make_model_def(detr_kwargs(config), model_cfg(config), device=device,
+                          generator=generator)

@@ -113,3 +113,21 @@ def voxel_mean(
     sums.index_add_(0, idx, torch.where(valid_pt[:, None], features, 0).float())
     denom = torch.clamp(counts, min=1).float()[:, None]
     return (sums[:max_voxels] / denom).to(features.dtype)
+
+
+def voxel_max(
+    features: torch.Tensor, point_slot: torch.Tensor, max_voxels: int, neg_inf: float = -1e9
+) -> torch.Tensor:
+    """Segment-max point features into voxel slots ([N, C] → [V, C]);
+    points with slot −1 are left out and an empty slot gives 0 (the
+    post-ReLU convention of pillar nets). The gradient of a slot's max is
+    shared equally among the points that tie for it, as in efg_tpu."""
+    valid_pt = point_slot >= 0
+    idx = torch.where(valid_pt, point_slot, max_voxels).long()
+    c = features.shape[-1]
+    maxed = torch.full((max_voxels + 1, c), neg_inf, dtype=features.dtype,
+                       device=features.device)
+    maxed = maxed.scatter_reduce(0, idx[:, None].expand(-1, c),
+                                 torch.where(valid_pt[:, None], features, neg_inf), "amax")
+    maxed = maxed[:max_voxels]
+    return torch.where(maxed <= neg_inf / 2, torch.zeros_like(maxed), maxed)

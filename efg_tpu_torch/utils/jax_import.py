@@ -94,7 +94,8 @@ def flax_to_state_dict(module: nn.Module, variables: Mapping[str, Any]) -> Dict[
                                                 (mod.out_features,)))
             k = take_shaped(path, "kernel", k_shape)
             put(pre + "weight", k.reshape(mod.in_features, mod.out_features).T)
-            put(pre + "bias", take_shaped(path, "bias", b_shape).reshape(-1))
+            if mod.bias is not None:  # a flax Dense with use_bias=False has none
+                put(pre + "bias", take_shaped(path, "bias", b_shape).reshape(-1))
         elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):
             put(pre + "weight", take("params", path + ("scale",)))
             put(pre + "bias", take("params", path + ("bias",)))

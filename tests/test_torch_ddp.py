@@ -372,6 +372,26 @@ def _args(**kw):
     return argparse.Namespace(**{**base, **kw})
 
 
+def test_two_machine_batch_check_deviates_from_efg_tpu():
+    """Two machines of two local ranks: the port checks a machine's batch
+    against its 2 ranks, efg_tpu (`engine/trainer.py:86-90`) against its
+    data axis of all 4 devices. batch_size 2 a machine runs in the port,
+    where efg_tpu's check refuses it; 3 is refused, the error naming the
+    deviation."""
+    from efg_tpu_torch.engine.trainer import check_machine_batch
+
+    specs, spawn = launch.plan(_args(num_machines=2, machine_rank=0, dist_url="h0:29500",
+                                     local_ranks=2), {})
+    assert spawn and [(s.rank, s.local_size, s.world_size) for s in specs] == [(0, 2, 4),
+                                                                                (1, 2, 4)]
+    local, data_devices = specs[0].local_size, specs[0].world_size
+    check_machine_batch(2, local)
+    assert 2 % data_devices != 0  # efg_tpu's assertion would fail here
+    with pytest.raises(ValueError, match=r"batch_size=3 .*efg_tpu checks it against every "
+                                         r"machine's devices, the port against this machine's"):
+        check_machine_batch(3, local)
+
+
 def test_cluster_resolution_follows_efg_tpu():
     """efg_tpu's priority (flags, SLURM, torchrun's env), copied: the same
     answers as efg_tpu's `resolve_distributed_env` on each source."""

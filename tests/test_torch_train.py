@@ -248,14 +248,19 @@ class _F32Jnp:
         return getattr(jnp, name)
 
 
-@pytest.fixture(scope="module", params=["float32", "bfloat16"])
+@pytest.fixture(scope="module", params=["float32"])
 def jax_run(request):
+    """efg_tpu's step_fn in f32 (`_jax_run`); the bfloat16 case runs in
+    tests/test_torch_train_bf16.py, on another worker."""
+    return _jax_run(request.param)
+
+
+def _jax_run(prec):
     """efg_tpu's step_fn (trainer.py:186-222) on the XLA sparse backend, 3
     steps on 3 batches from shared weights; step 1's grads and new BN
     statistics are kept. "float32" computes every conv in f32 (the sparse
     COMPUTE_DTYPE and the dense convs' dtype switched), "bfloat16" is the
     flagship's numerics (bf16 conv inputs and trunk activations)."""
-    prec = request.param
     kw = dict(TRAIN_KW, act_dtype="bfloat16" if prec == "bfloat16" else "")
     cfg = dict(MODEL_CFG, tasks=[dict(t) for t in KW["tasks"]])
     batches = [_train_batch(s) for s in (0, 1, 2)]
@@ -308,6 +313,10 @@ def _record_occupancy(tm):
 
 
 def test_train_steps_match_jax(jax_run, monkeypatch):
+    _check_train_steps(jax_run, monkeypatch)
+
+
+def _check_train_steps(jax_run, monkeypatch):
     """Three train_steps against efg_tpu's step_fn from the same weights.
 
     Step 1 holds the gradients. float32: both packages compute every conv
