@@ -197,7 +197,27 @@ either. Phases (each prints JSON lines; any failure exits 1):
              bs 5 through WaymoDetEvaluator; ConQueR task=train (bs 2, its
              config including its sibling's, `trainer.fade` dropping the GT
              sampling at iteration 2).
-18. nusc   — nuScenes-format data (2 scenes of 4 key frames after 9 sweeps
+18. track  — the tracking experiments. (a) The synthetic motion pretrain
+             and trajectoryformer.synth as written through the CLI (20
+             iterations each; the second grafts the first's encoder, the
+             grafted tensors equal to the pretrain's bit for bit), its
+             task=val through TrackingEvaluator (finite results), and the
+             val frames' GT tracks through the evaluator (MOTA and
+             tracking_official/MOTA_L2 exactly 1). (b) The Waymo
+             TrajectoryFormer config as written on phase waymo's frames:
+             its boxes pkls from the flagship config's eval step with
+             seeded weights (bs 4, (8, 21) a batch; the first val batch's
+             calls against their plain versions, kernel rows `*@track`),
+             the synthetic pretrain grafted (the Waymo pretrain cannot
+             run); task=train 4 iterations (bs 4, 180000 points, 128
+             hypotheses, d_model 256, 3 layers: step ms, peak memory, no
+             sparse launch), task=val through SeqInferenceSampler (eval
+             step ms a frame, evaluator ms, val frames/s), then
+             TrajectoryFormerTracker over the val sequence (ms a frame
+             beside the 100 ms sweep; one frame's scoring call and its
+             crop by CUDA events; that call card against CPU within
+             1e-4 / 1e-3).
+19. nusc   — nuScenes-format data (2 scenes of 4 key frames after 9 sweeps
              each, 30000 points a sweep) through the port's create_data,
              and a GT database chip_smoke writes (neither package writes
              one for nuScenes); centerpoint.nusc.voxelnet.cbgs.20e as
@@ -2246,9 +2266,10 @@ def phase_engine(card: str, bare_step_ms, device="cuda", small=()):
 
 def _evaluator_classes():
     from efg_tpu_torch.evaluator.nuscenes_evaluator import nuScenesDetEvaluator
+    from efg_tpu_torch.evaluator.tracking_evaluator import TrackingEvaluator
     from efg_tpu_torch.evaluator.waymo_evaluator import WaymoDetEvaluator
 
-    return [WaymoDetEvaluator, nuScenesDetEvaluator]
+    return [WaymoDetEvaluator, nuScenesDetEvaluator, TrackingEvaluator]
 
 
 class EvalProbe:
@@ -2772,7 +2793,7 @@ def phase_detr_kernels(capture, counts, card: str):
     """(b) of phase detr: every captured gather-GEMM and rank call of one
     bs=2 forward through its kernel and its plain version on the card;
     returns the kernels-line row of the 5 calls at 256 channels."""
-    wide = [j for j, (f, _, w) in enumerate(capture.gemm) if max(f.shape[1], w.shape[1]) > 128]
+    wide = [j for j, call in enumerate(capture.gemm) if wide_call(call)]
     if len(wide) != len(DETR_256_LABELS):
         raise AssertionError(f"detr: {len(wide)} gather-GEMM calls at 256 channels, expected 5")
     labels = iter(DETR_256_LABELS)
@@ -4246,51 +4267,60 @@ def phase_waymo(card: str, device="cuda", n_points=N_POINTS, pc=70.0, small=(), 
         shutil.rmtree(base, ignore_errors=True)
 
 
-def first_step_kernels(tag, forward, backward, card: str, step_counts: dict, per: str,
-                       device="cuda", res4=False):
-    """The captured calls of a config's first training step through the
-    kernels and their plain versions; returns their kernel rows. A
-    CenterPoint VoxelNet config: its 12 rank, 21 gather-GEMM and 21 stacked
-    calls, rows `<kernel>@<tag>`. With `res4`, a DETR config: its 5 forward
-    and 5 stacked calls at 256 channels (res4), rows `<kernel>_256@<tag>`.
-    `per` holds a `{}` for the calls a row sums."""
-    stacked = list(zip(backward.stacked, backward.convs))
-    if res4:
-        def wide(call):
-            return max(call[0].shape[1], call[2].shape[1]) > 128
+def wide_call(call) -> bool:
+    """A gather-GEMM call (features, rulebook, weights) at 256 channels."""
+    return max(call[0].shape[1], call[2].shape[1]) > 128
 
-        rank, gemm = [], [c for c in forward.gemm if wide(c)]
-        labels, suffix = DETR_256_LABELS, "_256"
-        stacked = [(call, conv) for call, conv in stacked if wide(call)]
+
+def first_step_kernels(tag, forward, backward, card: str, step_counts: dict, per: str,
+                       device="cuda", keep=None, labels=None, suffix=""):
+    """The captured calls of a config's first step through the kernels and
+    their plain versions; returns their kernel rows `<kernel><suffix>@<tag>`.
+    A training step (`backward` given): its 12 rank calls (8 forward + 4
+    inverse rulebooks), its forward gather-GEMM calls and its stacked
+    calls; a serving step (`backward` None): the forward's 8 rank and its
+    gather-GEMM calls. `keep` filters the gather-GEMM and stacked calls and
+    drops the rank calls (a DETR config's 256-wide rows: `wide_call`);
+    `labels` names the kept forward calls (default: the VoxelNet trunk's
+    21). `per` holds a `{}` for the calls a row sums."""
+    if backward is None:
+        rank, rank_labels, stacked = forward.rank, RANK_LABELS, []
     else:
-        rank, gemm = backward.rank, forward.gemm
-        labels, suffix = [gemm_label(i) for i in range(21)], ""
-    want = (0 if res4 else len(RANK_TRAIN_LABELS), len(labels), len(labels))
+        rank, rank_labels = backward.rank, RANK_TRAIN_LABELS
+        stacked = list(zip(backward.stacked, backward.convs))
+    gemm = forward.gemm
+    if keep is not None:
+        rank, rank_labels = [], []
+        gemm = [c for c in gemm if keep(c)]
+        stacked = [(call, conv) for call, conv in stacked if keep(call)]
+    labels = list(labels or [gemm_label(i) for i in range(21)])
+    want = (len(rank_labels), len(labels), 0 if backward is None else len(labels))
     if (len(rank), len(gemm), len(stacked)) != want:
         raise AssertionError(f"{tag}: captured {len(rank)} rank, {len(gemm)} gather-GEMM and "
-                             f"{len(stacked)} stacked calls{' at 256 channels' * res4}, "
+                             f"{len(stacked)} stacked calls{suffix and ' (filtered)'}, "
                              f"expected {want}")
     if device != "cuda":
         return []
-    rank_rows = [_rank_row(lbl, k, q) for lbl, (k, q) in zip(RANK_TRAIN_LABELS, rank)]
+    rank_rows = [_rank_row(lbl, k, q) for lbl, (k, q) in zip(rank_labels, rank)]
     gemm_rows = [_gemm_row(lbl, *call)[0] for lbl, call in zip(labels, gemm)]
     st_rows = [_gemm_row(backward_label(i, call[0], conv), *call, emit=True)[0]
                for i, (call, conv) in enumerate(stacked)]
     emit({"phase": f"{tag}_kernels", "card": card, "rank_calls": rank_rows,
           "gemm_calls": gemm_rows, "stacked_calls": st_rows})
+    rulebooks = "8 forward rulebooks" if backward is None else "8 forward + 4 inverse rulebooks"
     rows = [kernel_row(f"rank_flags@{tag}", "rank_flags.cu", 882, step_counts["rank_flags"],
                        rank_rows, library_call="torch.searchsorted (count field only)",
-                       tolerance="exact", per=per.format("8 forward + 4 inverse rulebooks"),
-                       card=card)] if rank_rows else []
-    return rows + [
-        kernel_row(f"gather_gemm{suffix}@{tag}", "gather_gemm.cu", 259,
-                   step_counts[f"gather_gemm{suffix}"], gemm_rows, tolerance="1e-3 * max|ref|",
-                   per=per.format(f"{len(labels)} forward convs"), card=card),
-        kernel_row(f"gather_gemm_stacked{suffix}@{tag}", "gather_gemm.cu", 259,
-                   step_counts[f"gather_gemm_stacked{suffix}"], st_rows,
-                   tolerance="taps bit-exact, out 1e-3 * max|ref|",
-                   per=per.format("one per conv backward"), card=card),
-    ]
+                       tolerance="exact", per=per.format(rulebooks), card=card)] if rank_rows else []
+    rows.append(kernel_row(f"gather_gemm{suffix}@{tag}", "gather_gemm.cu", 259,
+                           step_counts[f"gather_gemm{suffix}"], gemm_rows,
+                           tolerance="1e-3 * max|ref|",
+                           per=per.format(f"{len(labels)} forward convs"), card=card))
+    if st_rows:
+        rows.append(kernel_row(f"gather_gemm_stacked{suffix}@{tag}", "gather_gemm.cu", 259,
+                               step_counts[f"gather_gemm_stacked{suffix}"], st_rows,
+                               tolerance="taps bit-exact, out 1e-3 * max|ref|",
+                               per=per.format("one per conv backward"), card=card))
+    return rows
 
 
 # phase waymo_detr: the Waymo DETR experiments' own configs on phase waymo's
@@ -4382,7 +4412,8 @@ def phase_waymo_detr(card: str, data_root: str, device="cuda", small=()):
                    f"{WAYMO_DETR_TRAIN_BATCH} training step of {VOXELDETR_EXP} as written "
                    f"through the CLI, {{}}; launches over its {WAYMO_DETR_ITERS} steps")
             rows = first_step_kernels("waymo_detr", first.forward, first.backward, card, counts,
-                                      per, device, res4=True)
+                                      per, device, keep=wide_call, labels=DETR_256_LABELS,
+                                      suffix="_256")
             del first
 
             argv = ["task=val", f"dataloader.batch_size={WAYMO_DETR_VAL_BATCH}", *small]
@@ -4402,6 +4433,383 @@ def phase_waymo_detr(card: str, data_root: str, device="cuda", small=()):
                 raise AssertionError(f"waymo_detr val: {len(vprobe.step_events)} batches, "
                                      f"launches {counts}, expected {n_batches} and {expected}")
         return rows
+    finally:
+        if old_cache is None:
+            os.environ.pop("EFG_CACHE_DIR", None)
+        else:
+            os.environ["EFG_CACHE_DIR"] = old_cache
+        shutil.rmtree(base, ignore_errors=True)
+
+
+# phase track: the tracking experiments. (a) The two synthetic ones as
+# written through efg_run_torch; (b) the Waymo TrajectoryFormer config as
+# written at full width on phase waymo's frames, its detections from the
+# flagship config's eval step over those frames.
+TRACK_SYNTH_DIR = "playground/tracking.3d/synthetic"
+TRACK_PRETRAIN = "trajectoryformer.motionpred.pretrain"
+TRACK_SYNTH = "trajectoryformer.synth"
+TRACK_WAYMO_DIR = "playground/tracking.3d/waymo/trajectoryformer"
+TRACK_WAYMO = "trajectoryformer.centerpoint"
+TRACK_ITERS = 4  # full-width training iterations
+TRACK_DET_BATCH = 4  # the flagship's eval batch that writes the boxes pkl
+TRACK_CPU_FRAME = 3  # the val frame whose scoring call is held card against CPU
+TRACK_CPU_TOL = (1e-4, 1e-3)  # card vs CPU in f32 (TF32 off): scores, refined boxes
+SWEEP_MS = 100.0  # the sweep period of a 10 Hz LiDAR
+
+
+class GraftProbe:
+    """Records each graft of a pretrained motion encoder
+    (`models/trajectoryformer.py` `load_motion_encoder`): the checkpoint
+    path and host copies of the tensors as grafted, before any step."""
+
+    def __enter__(self):
+        from efg_tpu_torch.models import trajectoryformer as TF
+
+        self.grafts = []
+        self._orig = graft0 = TF.load_motion_encoder
+
+        def graft(module, path):
+            out = graft0(module, path)
+            self.grafts.append((path, {k: v.detach().cpu().clone() for k, v in out.items()}))
+            return out
+
+        TF.load_motion_encoder = graft
+        return self
+
+    def __exit__(self, *exc):
+        from efg_tpu_torch.models import trajectoryformer as TF
+
+        TF.load_motion_encoder = self._orig
+        return False
+
+    def check(self, pretrain_ckpt: str, label: str) -> int:
+        """One graft, from `pretrain_ckpt`, every tensor equal bit for bit
+        to the pretrain's encoder; returns the tensors grafted."""
+        import torch
+
+        src = torch.load(pretrain_ckpt, map_location="cpu", weights_only=True)["model"]
+        if len(self.grafts) != 1 or os.path.abspath(self.grafts[0][0]) != os.path.abspath(
+                pretrain_ckpt):
+            raise AssertionError(f"{label}: grafts {[p for p, _ in self.grafts]}, expected one "
+                                 f"from {pretrain_ckpt}")
+        grafted = self.grafts[0][1]
+        equal = {k: bool(torch.equal(v, src[k[len("core."):]])) for k, v in grafted.items()}
+        n_src = sum(k.startswith("motion_encoder.") for k in src)
+        if len(equal) != n_src or not all(equal.values()):
+            raise AssertionError(f"{label}: grafted tensors not equal to the pretrain's: {equal}")
+        return len(equal)
+
+
+def _finite_results(label, res):
+    bad = {k: v for k, v in res.items() if not np.isfinite(v)}
+    if not res or bad:
+        raise AssertionError(f"{label}: results {res if not res else bad}")
+
+
+def _gt_tracks(batches):
+    """Each val frame's GT as tracks: its boxes, track ids and classes."""
+    return [[dict(translation=np.asarray(b[:3]).tolist(), tracking_id=int(i), label=int(c) - 1,
+                  box=np.asarray(b), score=1.0)
+             for b, i, c in zip(a["gt_boxes"], a["track_ids"], a["labels"])]
+            for inputs in batches for a in inputs["annotations"]]
+
+
+def track_config(out_root, data_root, boxes, motion_model):
+    """The Waymo TrajectoryFormer experiment's config.yaml as written, its
+    `dataset.source`, boxes pkls and `model.motion_model` written out, at
+    `<out_root>/playground/<its path>` (so the CLI finds the port's net.py)."""
+    import yaml
+
+    with open(os.path.join(HERE, TRACK_WAYMO_DIR, TRACK_WAYMO, "config.yaml")) as fh:
+        cfg = yaml.safe_load(fh)
+    cfg.pop("includes")
+    cfg["dataset"]["source"] = {"root": data_root, "train": "/infos_train_01sweeps_sampled.pkl",
+                                "val": "/infos_val_01sweeps_sampled.pkl",
+                                "test": "/infos_val_01sweeps_sampled.pkl"}
+    cfg["dataset"]["train_boxes_path"], cfg["dataset"]["val_boxes_path"] = boxes
+    cfg["model"]["motion_model"] = motion_model
+    cfg["misc"] = {"seed": 0}
+    path = os.path.join(out_root, TRACK_WAYMO_DIR, TRACK_WAYMO, "config.yaml")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as fh:
+        yaml.safe_dump(cfg, fh)
+    return path
+
+
+def flagship_detections(flag_cfg, split, md, device, small=()):
+    """The flagship config's eval step (its val pipeline) over a split's
+    frames, each frame's boxes, scores and labels in the boxes-pkl format
+    `WaymoTrackingDataset` reads; returns (frames, launch counts, eval step
+    ms a batch, the first batch's captured kernel calls)."""
+    import torch
+
+    from efg_tpu_torch.config import Configuration
+    from efg_tpu_torch.data import build_dataloader, build_dataset
+    from efg_tpu_torch.engine.trainer import eval_step
+    from efg_tpu_torch.ops.cuda import sparse_kernels as K
+
+    cfg = Configuration(config_file=flag_cfg, opts=[
+        "task=val", f"dataset.source.val=/infos_{split}_01sweeps_sampled.pkl",
+        f"dataloader.batch_size={TRACK_DET_BATCH}", *small]).get_config()
+    ds = build_dataset(cfg)
+    frames, step_ms, capture = [], [], None
+    K.reset_launches()
+    for i, batch in enumerate(build_dataloader(cfg, ds, train=False)):
+        dev = {k: torch.from_numpy(v).to(device) for k, v in batch.items()
+               if isinstance(v, np.ndarray)}
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with (Capture(K) if i == 0 else contextlib.nullcontext()) as cap:
+            a.record()
+            out = eval_step(md, dev)
+            b.record()
+        capture = capture or cap
+        out = {k: v.cpu().numpy() for k, v in out.items()}
+        step_ms.append(a.elapsed_time(b))
+        for j, meta in enumerate(batch["metadata"]):
+            v = out["valid"][j]
+            frames.append({"token": meta["token"], "boxes3d": out["box3d"][j][v],
+                           "scores": out["scores"][j][v], "labels": out["labels"][j][v]})
+    return frames[:len(ds)], dict(K.launches), step_ms, capture
+
+
+def phase_track(card: str, data_root: str, device="cuda", small=(), small_det=(),
+                synth=()):
+    """The tracking experiments through the CLI, output under a temporary
+    EFG_CACHE_DIR:
+    (a) the synthetic experiments as written: the motion pretrain
+        task=train (20 iterations); trajectoryformer.synth task=train with
+        `model.motion_model` naming that run's model_final (the grafted
+        tensors equal the pretrain's bit for bit), then task=val through
+        TrackingEvaluator (every result finite); the val frames' GT tracks
+        through the evaluator read MOTA = 1 and tracking_official/MOTA_L2
+        = 1 exactly;
+    (b) the Waymo TrajectoryFormer config as written (bs 4, PadPoints
+        180000, max_roi_num 128, d_model 256, 3 layers, 128 points a
+        hypothesis, history 10) on phase waymo's frames: the boxes pkls
+        from the flagship config's eval step over the train and val frames
+        with seeded weights (the rank and gather-GEMM kernels, (8, 21) a
+        batch; the first batch's calls against their plain versions, kernel
+        rows `*@track`); the motion model is (a)'s synthetic pretrain (the
+        Waymo pretrain cannot run); task=train TRACK_ITERS iterations (step
+        ms by CUDA events, peak memory, no sparse kernel launched), task=val
+        through SeqInferenceSampler and TrackingEvaluator (eval step ms a
+        frame, evaluator ms, val frames/s); then TrajectoryFormerTracker
+        over the val sequence frame by frame (ms a frame beside the 100 ms
+        sweep), and one frame's scoring call on the card against the same
+        call on the CPU. `small` / `small_det` / `synth` cut (b)'s
+        tracking runs, its detection model and (a)'s runs for a rehearsal
+        on the CPU. Returns the kernel rows."""
+    import copy
+    import pickle
+
+    import torch
+
+    from efg_tpu_torch.cli.main import experiment_relpath, load_experiment_module
+    from efg_tpu_torch.config import Configuration
+    from efg_tpu_torch.data import build_dataloader, build_dataset
+    from efg_tpu_torch.evaluator.tracking_evaluator import TrackingEvaluator
+    from efg_tpu_torch.models import trajectoryformer as TF
+    from efg_tpu_torch.tracking.tf_tracker import TrajectoryFormerTracker
+
+    base = tempfile.mkdtemp(prefix="chip_smoke_track_")
+    old_cache = os.environ.get("EFG_CACHE_DIR")
+    os.environ["EFG_CACHE_DIR"] = os.path.join(base, "cache")
+
+    def out_dir_of(config):
+        d = os.path.join(base, "cache", "EFG_torch", experiment_relpath(config))
+        os.makedirs(d, exist_ok=True)
+        return d
+
+    try:
+        # (a) 1. the motion pretrain as written
+        pre_cfg = os.path.join(TRACK_SYNTH_DIR, TRACK_PRETRAIN, "config.yaml")
+        pre_out = out_dir_of(os.path.join(HERE, pre_cfg))
+        logs = ["trainer.log_interval=1", "trainer.window_size=1"]  # a record every step
+        records, counts, _ = _engine_run(["task=train", *logs, *synth], pre_out, device,
+                                         config=pre_cfg)
+        run = _losses(records, "track pretrain")
+        pre_ckpt = os.path.join(pre_out, "model_final")
+        iters = int(Configuration(config_file=os.path.join(HERE, pre_cfg),
+                                  opts=list(synth)).get_config().solver.lr_scheduler.max_iters)
+        emit({"phase": "track", "part": "synthetic_pretrain", "card": card,
+              "iterations": sorted(run), "losses": {i: r["loss"] for i, r in run.items()},
+              "launches": counts})
+        if sorted(run) != list(range(1, iters + 1)) or not os.path.isfile(pre_ckpt) or any(
+                counts.values()):
+            raise AssertionError(f"track pretrain: records {sorted(run)}, launches {counts}")
+
+        # (a) 2. the tracking experiment, grafted from it, then task=val
+        syn_cfg = os.path.join(TRACK_SYNTH_DIR, TRACK_SYNTH, "config.yaml")
+        syn_out = out_dir_of(os.path.join(HERE, syn_cfg))
+        with GraftProbe() as graft:
+            records, counts, _ = _engine_run(
+                ["task=train", f"model.motion_model={pre_ckpt}", *logs, *synth], syn_out, device,
+                config=syn_cfg)
+        n_grafted = graft.check(pre_ckpt, "track synth")
+        run = _losses(records, "track synth")
+        counts_val, vprobe = _cli_eval_run(["task=val", *synth], device, config=syn_cfg)
+        (_, res, evaluate_s), = vprobe.evaluations
+        _finite_results("track synth val", res)
+        # (a) 3. the val frames' GT tracks: perfect tracking
+        tcfg = Configuration(config_file=os.path.join(HERE, syn_cfg)).get_config()
+        perfect = TrackingEvaluator(tcfg, None)
+        perfect.reset()
+        for inputs, tracks in zip(vprobe.batches, _gt_tracks(vprobe.batches)):
+            perfect.process(inputs, dict(tracks=[tracks]))
+        pres = perfect.evaluate()
+        emit({"phase": "track", "part": "synthetic", "card": card, "grafted_tensors": n_grafted,
+              "graft_bit_exact": True, "iterations": sorted(run),
+              "losses": {i: {k: r[k] for k in ("loss", "loss_cls", "loss_reg")}
+                         for i, r in run.items()},
+              "val_frames": len(vprobe.batches), "val_results": res, "evaluate_s": evaluate_s,
+              "perfect_mota": pres["tracking/MOTA"],
+              "perfect_mota_l2": pres["tracking_official/MOTA_L2"],
+              "launches": {"train": counts, "val": counts_val}})
+        if pres["tracking/MOTA"] != 1.0 or pres["tracking_official/MOTA_L2"] != 1.0:
+            raise AssertionError(f"track synth: perfect tracks read {pres}")
+        if any(counts.values()) or any(counts_val.values()):
+            raise AssertionError(f"track synth: sparse kernels launched {counts} {counts_val}")
+
+        # (b) 1. the detections: the flagship config's eval step
+        exp_root = os.path.join(base, "exp")
+        flag_cfg = waymo_config(exp_root, WAYMO_FLAGSHIP, data_root, 1)
+        fcfg = Configuration(config_file=flag_cfg, opts=["task=val", *small_det]).get_config()
+        det_md = load_experiment_module(flag_cfg).build_model(fcfg, device=device)
+        seeded_weights(det_md.module, SEED)
+        boxes, det_rows, det_counts, det_ms = [], [], {}, {}
+        for split in ("train", "val"):
+            frames, counts, ms, capture = flagship_detections(flag_cfg, split, det_md, device,
+                                                              small_det)
+            path = os.path.join(base, f"centerpoint_boxes_{split}.pkl")
+            with open(path, "wb") as fh:
+                pickle.dump(frames, fh)
+            boxes.append(path)
+            n_batches = -(-len(frames) // TRACK_DET_BATCH)
+            expected = _steps_of(SERVE_LAUNCHES, n_batches)
+            det_counts[split], det_ms[split] = counts, ms
+            if counts != expected:
+                raise AssertionError(f"track detections {split}: launches {counts}, "
+                                     f"expected {expected}")
+            if split == "val":
+                per = (f"sum over the calls of the first bs={TRACK_DET_BATCH} eval step of the "
+                       "flagship config over phase waymo's val frames (the detections "
+                       f"{TRACK_WAYMO} tracks), {{}}; launches over its {n_batches} batches")
+                det_rows = first_step_kernels("track", capture, None, card, counts, per, device)
+            emit({"phase": "track", "part": "detections", "split": split, "card": card,
+                  "frames": len(frames), "batch_size": TRACK_DET_BATCH,
+                  "detections_per_frame": [len(f["scores"]) for f in frames],
+                  "eval_step_ms_cuda_events": ms, "launches": counts,
+                  "launches_expected": expected})
+        del det_md
+
+        # (b) 2. task=train of the Waymo config, grafted from (a)'s pretrain
+        cfg_path = track_config(exp_root, data_root, boxes, pre_ckpt)
+        cfg = Configuration(config_file=cfg_path, opts=["task=train", *small]).get_config()
+        out_dir = out_dir_of(cfg_path)
+        argv = ["task=train", "trainer.evaluators=", f"solver.lr_scheduler.max_iters={TRACK_ITERS}",
+                "trainer.log_interval=1", "trainer.window_size=1",
+                "trainer.checkpoint_epoch=1000", *small]
+        if device == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        with GraftProbe() as graft:
+            records, counts, probe = _engine_run(argv, out_dir, device, config=cfg_path)
+        peak = torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else None
+        n_grafted = graft.check(pre_ckpt, "track waymo")
+        run = _losses(records, "track waymo")
+        mc = cfg.model.trajectoryformer
+        emit({"phase": "track", "part": "train", "card": card,
+              "batch_size": int(cfg.dataloader.batch_size),
+              "points": int(cfg.dataset.processors.train[-1]["PadPoints"]["num_points"]),
+              "max_roi_num": int(cfg.dataset.max_roi_num), "d_model": int(mc.d_model),
+              "num_layers": int(mc.num_layers), "num_points": int(mc.num_points),
+              "history": int(mc.history), "grafted_tensors": n_grafted,
+              "iterations": sorted(run),
+              "losses": {i: {k: r[k] for k in ("loss", "loss_cls", "loss_reg", "num_pos",
+                                               "grad_norm")} for i, r in run.items()},
+              "iteration_time_ms": [1e3 * r["time"] for r in records if "time" in r],
+              "loop_step_ms_cuda_events": probe.step_ms(),
+              "data_time_ms": [1e3 * t for t in probe.data_s], "peak_mem_gb": peak,
+              "launches": counts})
+        if sorted(run) != list(range(1, TRACK_ITERS + 1)) or any(counts.values()):
+            raise AssertionError(f"track waymo train: records {sorted(run)}, launches {counts}")
+
+        # (b) 3. task=val through SeqInferenceSampler and TrackingEvaluator
+        argv = ["task=val", *small]
+        vcfg = Configuration(config_file=cfg_path, opts=argv).get_config()
+        counts, vprobe = _cli_eval_run(argv, device, config=cfg_path)
+        (_, res, evaluate_s), = vprobe.evaluations
+        n_frames = len(vprobe.step_events)
+        emit({"phase": "track", "part": "val", "card": card, "frames": n_frames,
+              "sampler": vcfg.dataloader.eval_sampler,
+              "eval_batch_size": int(vcfg.dataloader.eval_batch_size),
+              "eval_step_ms_cuda_events": vprobe.step_ms(),
+              "data_ms": [1e3 * d for d in vprobe.data_s],
+              "evaluator_process_ms": [1e3 * d for d in vprobe.process_s],
+              "evaluator_evaluate_ms": [1e3 * d for d in vprobe.evaluator_s],
+              "evaluate_s": evaluate_s, "val_frames_per_s": n_frames / evaluate_s,
+              "results": res, "launches": counts})
+        _finite_results("track waymo val", res)
+        if n_frames != WAYMO_VAL or any(counts.values()):
+            raise AssertionError(f"track waymo val: {n_frames} frames, launches {counts}")
+
+        # (b) 4. TrajectoryFormerTracker over the val sequence
+        md = load_experiment_module(cfg_path).build_model(vcfg, device=device)
+        ckpt = torch.load(os.path.join(out_dir, "model_final"), map_location=device,
+                          weights_only=True)
+        md.module.load_state_dict(ckpt["model"])
+        core = md.module.core
+        classes = list(vcfg.dataset.classes)
+        kw = dict(class_names=classes, max_candidates=int(vcfg.dataset.max_roi_num),
+                  history=int(vcfg.model.trajectoryformer.history),
+                  num_points=int(vcfg.model.trajectoryformer.num_points))
+        tracker = TrajectoryFormerTracker(core, **kw)
+        ds = build_dataset(vcfg)
+        order = list(build_dataloader(vcfg, ds, train=False).sampler)
+        calls, frame_ms, n_tracks = [], [], []
+        score0 = tracker.score
+
+        def score(*args):
+            out = score0(*args)
+            calls.append((tuple(a.clone() for a in args), tuple(o.clone() for o in out)))
+            return out
+
+        tracker.score = score
+        for idx in order:
+            data, info = ds[idx]
+            a = info["annotations"]
+            dets = [dict(box=b, score=float(s), detection_name=classes[int(c) - 1],
+                         translation=b[:3].tolist(), velocity=b[6:8].tolist())
+                    for b, s, c in zip(a["det_boxes"], a["det_scores"], a["det_labels"])]
+            if device == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tracks = tracker.step(data["points"], data["points_mask"], dets)
+            frame_ms.append(1e3 * (time.perf_counter() - t0))
+            n_tracks.append(len(tracks))
+        args, (scores, refined) = calls[TRACK_CPU_FRAME]
+        with torch.no_grad():  # that frame's scoring call, and its crop alone
+            score_ms = _event_ms(lambda: score0(*args))
+            crop_ms = _event_ms(lambda: TF.crop_hypothesis_points(
+                args[0][None], args[1][None], args[2][None], num_points=kw["num_points"]))
+        cpu = TrajectoryFormerTracker(copy.deepcopy(core).cpu(), **kw)
+        c_scores, c_refined = cpu.score(*(t.cpu() for t in args))
+        valid = args[-1].cpu()
+        err = (float((scores.cpu() - c_scores)[valid].abs().max()),
+               float((refined.cpu() - c_refined)[valid].abs().max()))
+        emit({"phase": "track", "part": "tracker", "card": card, "frames": len(order),
+              "max_candidates": kw["max_candidates"], "frame_ms_host": frame_ms,
+              "sweep_ms": SWEEP_MS, "frames_within_sweep": sum(t < SWEEP_MS for t in frame_ms),
+              "score_call_ms_cuda_events": score_ms, "crop_ms_cuda_events": crop_ms,
+              "tracks_per_frame": n_tracks,
+              "candidates_per_frame": [int(c[0][-1].sum()) for c in calls],
+              "card_vs_cpu_frame": TRACK_CPU_FRAME,
+              "card_vs_cpu_max_abs_err": {"scores": err[0], "refined_boxes": err[1]},
+              "tolerance": {"scores": TRACK_CPU_TOL[0], "refined_boxes": TRACK_CPU_TOL[1]}})
+        if len(calls) != len(order) or err[0] > TRACK_CPU_TOL[0] or err[1] > TRACK_CPU_TOL[1]:
+            raise AssertionError(f"track tracker: {len(calls)} calls over {len(order)} frames, "
+                                 f"card vs CPU {err}")
+        return det_rows
     finally:
         if old_cache is None:
             os.environ.pop("EFG_CACHE_DIR", None)
@@ -4764,6 +5172,7 @@ def main() -> int:
         try:  # phase waymo's frames serve phase waymo_detr
             waymo = phase_waymo(card, data_root=os.path.join(data, "waymo"))
             waymo_detr = phase_waymo_detr(card, os.path.join(data, "waymo"))
+            track = phase_track(card, os.path.join(data, "waymo"))
         finally:
             shutil.rmtree(data, ignore_errors=True)
         nusc = phase_nusc(card)
@@ -4778,7 +5187,7 @@ def main() -> int:
             variants[name]["launches_serve"] = serve_counts[name]
         kernels = [train["rank_flags"], serve["gather_gemm"], detr, train["gather_gemm_stacked"],
                    *detr_train, train["gather_dw"], *variants.values(), *waymo, *waymo_detr,
-                   *nusc]
+                   *nusc, *track]
     except Exception:  # report every phase failure and exit non-zero
         traceback.print_exc()
         return 1

@@ -137,7 +137,9 @@ def run(args, device) -> int:
     logger.info(f"Seed: {seed}")
 
     net = load_experiment_module(args.config)
-    trainer = build_trainer(config, net.build_model, device=device)
+    # task=val|test always restores the newest checkpoint
+    resume = args.resume or config.task != "train"
+    trainer = build_trainer(config, net.build_model, device=device, resume=resume)
     if config.task == "train":
         trainer.resume_or_load(resume=args.resume)
         trainer.train()

@@ -12,6 +12,8 @@ from efg_tpu_torch.data.samplers import dataset_sampler as _ds  # noqa: F401
 from efg_tpu_torch.data.datasets import synthetic as _synth  # noqa: F401
 from efg_tpu_torch.data.datasets import waymo as _waymo  # noqa: F401
 from efg_tpu_torch.data.datasets import nuscenes as _nuscenes  # noqa: F401
+from efg_tpu_torch.data.datasets import synthetic_tracking as _synth_track  # noqa: F401
+from efg_tpu_torch.data.datasets import waymo_tracking as _waymo_track  # noqa: F401
 
 __all__ = [
     "DATASETS", "PROCESSORS", "SAMPLERS",

@@ -75,8 +75,13 @@ def pad_gt(
 
 def collate_fixed(samples: List, max_gt: int) -> Dict[str, Any]:
     """List of dataset items `(data, info)` → fixed-shape numpy batch.
-    `data` must be the `PadPoints` output. efg_tpu's image batches and
-    tracking fields are not ported yet."""
+    `data` must be the `PadPoints` output. Items with detections (the
+    tracking datasets) add `det_boxes` [B, max_gt, 9], `det_scores`,
+    `det_labels` and `det_mask`, padded as the GT; items with trajectories
+    (the motion pretrain) add `traj_hist`, `traj_mask`, `future_offsets`
+    and `future_mask`, [B, max_gt, ...]. efg_tpu carries no `det_labels`
+    (its `det_predict` labels a detection with the GT class of its slot);
+    its image batches are not ported yet."""
     first = samples[0][0]
     if not (isinstance(first, dict) and "points" in first):
         raise ValueError(
@@ -85,22 +90,49 @@ def collate_fixed(samples: List, max_gt: int) -> Dict[str, Any]:
             f"{list(first) if isinstance(first, dict) else ''})"
         )
     pts, msk, gtb, gtc, gtm = [], [], [], [], []
+    det = {"det_boxes": [], "det_scores": [], "det_labels": [], "det_mask": []}
     for data, info in samples:
         pts.append(data["points"])
         msk.append(data["points_mask"])
-        g = pad_gt(info.get("annotations"), max_gt)
+        anno = info.get("annotations")
+        g = pad_gt(anno, max_gt)
         gtb.append(g["gt_boxes"])
         gtc.append(g["gt_classes"])
         gtm.append(g["gt_mask"])
-    return {
+        if anno is not None and "det_boxes" in anno:
+            n = min(len(anno["det_boxes"]), max_gt)
+            row = {"det_boxes": np.zeros((max_gt, 9), np.float32),
+                   "det_scores": np.zeros((max_gt,), np.float32),
+                   "det_labels": np.zeros((max_gt,), np.int32),
+                   "det_mask": np.zeros((max_gt,), bool)}
+            row["det_boxes"][:n] = anno["det_boxes"][:n]
+            row["det_scores"][:n] = anno["det_scores"][:n]
+            row["det_labels"][:n] = anno["det_labels"][:n]
+            row["det_mask"][:n] = True
+            for k, v in row.items():
+                det[k].append(v)
+    batch = {
         "points": np.stack(pts),
         "points_mask": np.stack(msk),
         "gt_boxes": np.stack(gtb),
         "gt_classes": np.stack(gtc),
         "gt_mask": np.stack(gtm),
-        "metadata": [s[1].get("metadata", {}) for s in samples],
-        "annotations": [s[1].get("annotations") for s in samples],
     }
+    if det["det_boxes"]:
+        batch.update({k: np.stack(v) for k, v in det.items()})
+    anno0 = samples[0][1].get("annotations") or {}
+    if "traj_hist" in anno0:
+        for key in ("traj_hist", "traj_mask", "future_offsets", "future_mask"):
+            rows = []
+            for _, info in samples:
+                a = np.asarray(info["annotations"][key])
+                pad = np.zeros((max_gt,) + a.shape[1:], a.dtype)
+                pad[: min(len(a), max_gt)] = a[:max_gt]
+                rows.append(pad)
+            batch[key] = np.stack(rows)
+    batch["metadata"] = [s[1].get("metadata", {}) for s in samples]
+    batch["annotations"] = [s[1].get("annotations") for s in samples]
+    return batch
 
 
 class DataLoader:
@@ -273,9 +305,21 @@ def build_dataloader(config, dataset, train: bool = True) -> DataLoader:
             seed=None if seed is None or seed < 0 else seed,
             local_rank=comm.get_local_rank(), local_size=comm.get_local_size(),
         )
-    sampler = SAMPLERS.get(dl.get("eval_sampler", "InferenceSampler"))(len(dataset))
+    name = dl.get("eval_sampler", "InferenceSampler")
+    eval_bs = int(dl.get("eval_batch_size", dl.batch_size))
+    if name == "SeqInferenceSampler":
+        if eval_bs > 1 and comm.get_local_size() > 1:
+            raise ValueError(
+                f"SeqInferenceSampler with eval_batch_size={eval_bs} over "
+                f"{comm.get_local_size()} local ranks would give each rank's tracker every "
+                "other frame of a sequence; set dataloader.eval_batch_size=1 (local rank 0 "
+                "then reads every frame of the machine's sequences)")
+        # a deviation: efg_tpu builds it from len(dataset) alone, so every
+        # frame falls in one sequence and its first process takes them all
+        sampler = SAMPLERS.get(name)(len(dataset), getattr(dataset, "sequence_ids", None))
+    else:
+        sampler = SAMPLERS.get(name)(len(dataset))
     return DataLoader(
-        dataset, sampler, int(dl.get("eval_batch_size", dl.batch_size)),
-        max_gt=max_gt, num_workers=0, drop_last=False,
+        dataset, sampler, eval_bs, max_gt=max_gt, num_workers=0, drop_last=False,
         local_rank=comm.get_local_rank(), local_size=comm.get_local_size(),
     )

@@ -114,6 +114,8 @@ class WaymoDetectionDataset(BaseDataset):
                     "difficulty": info.pop("difficulty").astype(np.int8),
                     "num_points_in_gt": info.pop("num_points_in_gt").astype(np.int64),
                 }
+        self._before_transforms(idx, info)
+        if not self.is_test:
             self._filter_gt_by_classes(info)
             for sweep in info.get("sweeps", []):
                 if "annotations" in sweep:
@@ -127,6 +129,11 @@ class WaymoDetectionDataset(BaseDataset):
                 if "annotations" in sweep:
                     self._add_labels(sweep)
         return points, info
+
+    def _before_transforms(self, idx, info) -> None:
+        """What a subclass adds to an item before the class filter and the
+        processors run (`WaymoTrackingDataset`: the frame's detections and
+        its GT's track ids)."""
 
     def _filter_gt_by_classes(self, info):
         tgt = info["annotations"]

@@ -6,7 +6,9 @@ the same augmentations bit for bit. `DatabaseSampling` keeps state across
 items (`data/samplers/gt_database_sampler.py`). The pipeline the loader
 batches ends with `PadPoints`, whose fixed-shape `points [N, C]` + mask
 the on-device voxelizer takes; `Voxelization` is efg_tpu's host
-voxelizer (numpy path).
+voxelizer (numpy path). The flips, the rotation, the scaling and the
+translation also move an item's detection boxes (`info["detections"]`,
+which only the port's `WaymoTrackingDataset` sets).
 """
 
 from __future__ import annotations
@@ -18,6 +20,15 @@ from efg_tpu_torch.data.registry import PROCESSORS
 from efg_tpu_torch.data.samplers.gt_database_sampler import DataBaseSampler
 from efg_tpu_torch.geometry import box_ops_np as G
 from efg_tpu_torch.ops.voxelize_np import VoxelGenerator
+
+
+def _det_boxes(info: dict):
+    """The item's detection boxes that the geometric processors move with
+    the points (`WaymoTrackingDataset` puts them under
+    `info["detections"]` before the processors run; efg_tpu has none
+    there), as a list of zero or one arrays, changed in place."""
+    det = info.get("detections")
+    return [det["det_boxes"]] if det is not None and len(det["det_boxes"]) else []
 
 
 def _dict_select(d: dict, keep) -> None:
@@ -127,6 +138,8 @@ class RandomFlip3D(AugmentationBase):
             for sweep in info.get("sweeps", []):
                 if "annotations" in sweep:
                     fn(sweep["annotations"]["gt_boxes"])
+        for boxes in _det_boxes(info):
+            fn(boxes)
 
     def __call__(self, points, info):
         if np.random.random() < self.p:
@@ -146,7 +159,10 @@ class GlobalRotation(AugmentationBase):
         self._init(locals())
 
     def _rot(self, info, angle):
-        boxes = info["annotations"]["gt_boxes"]
+        self._rot_boxes(info["annotations"]["gt_boxes"], angle)
+
+    @staticmethod
+    def _rot_boxes(boxes, angle):
         boxes[:, :3] = G.rotate_points_along_z(boxes[None, :, :3], np.array([angle]))[0]
         boxes[:, -1] += angle
         if boxes.shape[1] > 7:
@@ -162,6 +178,8 @@ class GlobalRotation(AugmentationBase):
             for sweep in info.get("sweeps", []):
                 if "annotations" in sweep:
                     self._rot(sweep, angle)
+        for boxes in _det_boxes(info):
+            self._rot_boxes(boxes, angle)
         return points, info
 
 
@@ -178,6 +196,8 @@ class GlobalScaling(AugmentationBase):
             for sweep in info.get("sweeps", []):
                 if "annotations" in sweep:
                     sweep["annotations"]["gt_boxes"][:, :-1] *= s
+        for boxes in _det_boxes(info):
+            boxes[:, :-1] *= s
         return points, info
 
 
@@ -194,6 +214,8 @@ class GlobalTranslation(AugmentationBase):
             for sweep in info.get("sweeps", []):
                 if "annotations" in sweep:
                     sweep["annotations"]["gt_boxes"][:, :3] += t
+        for boxes in _det_boxes(info):
+            boxes[:, :3] += t
         return points, info
 
 

@@ -45,6 +45,30 @@ class DistributedInfiniteSampler(InfiniteSampler):
 
 
 @SAMPLERS.register()
+class SeqInferenceSampler:
+    """Whole sequences per machine, each sequence's frames in index order,
+    so that a tracker sees a sequence's frames in turn. `sequence_ids`
+    names each index's sequence (None: one sequence). The eval loader
+    passes the dataset's `sequence_ids` (efg_tpu's passes none)."""
+
+    def __init__(self, size: int, sequence_ids=None):
+        rank, world = comm.get_machine_rank(), comm.get_num_machines()
+        if sequence_ids is None:
+            sequence_ids = [0] * size
+        seqs = {}
+        for i, s in enumerate(sequence_ids):
+            seqs.setdefault(s, []).append(i)
+        mine = sorted(seqs)[rank::world]
+        self._local = [i for s in mine for i in seqs[s]]
+
+    def __len__(self) -> int:
+        return len(self._local)
+
+    def __iter__(self) -> Iterator[int]:
+        return iter(self._local)
+
+
+@SAMPLERS.register()
 class InferenceSampler:
     """One pass, contiguous per-machine shards."""
 

@@ -38,6 +38,10 @@ class ModelDef:
     ema_init    — optional module → {name: tensor}, the EMA state's copies
     ema_update  — optional (ema, module) → None: updates ema in place from
                   the module's new parameters, after the optimizer step
+    init_params — optional module → None: changes the initial weights in
+                  place once the module is built (TrajectoryFormer's graft
+                  of a pretrained motion encoder); the trainer calls it
+                  where efg_tpu's calls its own, not on a resumed run
     """
 
     def __init__(
@@ -49,6 +53,7 @@ class ModelDef:
         custom_loss: Optional[Callable] = None,
         ema_init: Optional[Callable] = None,
         ema_update: Optional[Callable] = None,
+        init_params: Optional[Callable] = None,
     ):
         self.module = module
         self.apply_args = apply_args
@@ -57,3 +62,4 @@ class ModelDef:
         self.custom_loss = custom_loss
         self.ema_init = ema_init
         self.ema_update = ema_update
+        self.init_params = init_params

@@ -173,11 +173,15 @@ class DefaultTrainer:
     device=, generator=)` returns the ModelDef; its initial weights are
     drawn from a torch.Generator seeded by `misc.seed` (0 when unset),
     as efg_tpu initialises from `jax.random.key(seed)`, the same on every
-    rank (checked at set-up)."""
+    rank (checked at set-up). `resume`: the caller restores output_dir's
+    newest checkpoint (`resume_or_load(resume=True)`), so where one exists
+    the ModelDef's `init_params` is not applied: the checkpoint holds the
+    weights."""
 
-    def __init__(self, config, build_model, device="cuda"):
+    def __init__(self, config, build_model, device="cuda", resume=False):
         self.config = config
         self.device = resolve_device(device)
+        self._resume = resume
         self._refuse_unported()
         self.seed = max(0, int(config.misc.get("seed", 0) or 0))
         self.generator = torch.Generator().manual_seed(self.seed)
@@ -232,7 +236,21 @@ class DefaultTrainer:
         self.tx = build_optimizer(cfg.optimizer, self.lr_schedule, self.momentum_schedule,
                                   grad_clip_cfg=cfg.get("grad_clipper"))
 
+    def _checkpoints(self) -> List[str]:
+        out = self.output_dir
+        return sorted(f for f in os.listdir(out)
+                      if f.startswith("model_") and os.path.isfile(os.path.join(out, f)))
+
     def setup_state(self):
+        """The train state from the built module, after the ModelDef's
+        `init_params` (efg_tpu applies it to the initialised parameters,
+        `efg_tpu/engine/trainer.py:130-131`); each rank applies it, before
+        the check that the ranks' weights are equal. A run that will resume
+        a checkpoint skips it."""
+        init_params = self.model_def.init_params
+        if init_params is not None and not (self._resume and self._checkpoints()):
+            init_params(self.model_def.module)
+            logger.info("Applied the model's init_params to its initial weights")
         self.state: TrainState = init_state(self.model_def, self.tx)
         n_params = sum(p.numel() for p in self.state.module.parameters())
         logger.info(f"Model parameters: {n_params / 1e6:.2f}M on {self.device}")
@@ -336,8 +354,7 @@ class DefaultTrainer:
         self.wait_for_checkpoints()
         comm.synchronize()
         out = self.output_dir
-        ckpts = sorted(f for f in os.listdir(out)
-                       if f.startswith("model_") and os.path.isfile(os.path.join(out, f)))
+        ckpts = self._checkpoints()
         path = None
         if resume and ckpts:
             path = os.path.join(out, ckpts[-1])
@@ -584,7 +601,7 @@ def _to_numpy(tree):
     return tree
 
 
-def build_trainer(config, build_model, device="cuda"):
+def build_trainer(config, build_model, device="cuda", resume=False):
     """The trainer `trainer.type` names (DefaultTrainer by default)."""
     kind = config.trainer.get("type", "DefaultTrainer")
-    return TRAINERS.get(kind)(config, build_model, device=device)
+    return TRAINERS.get(kind)(config, build_model, device=device, resume=resume)

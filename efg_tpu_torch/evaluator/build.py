@@ -11,7 +11,6 @@ from efg_tpu_torch.evaluator.registry import EVALUATORS
 
 # evaluator name → ROADMAP queue 1 item that ports it
 NOT_PORTED = {
-    "TrackingEvaluator": 9,
     "COCOEvaluator": 10,
     "PanopticEvaluator": 11,
 }

@@ -61,3 +61,37 @@ def aligned_giou_3d_pairs(boxes_a: torch.Tensor, boxes_b: torch.Tensor,
     hull = torch.clamp(torch.maximum(max_a, max_b) - torch.minimum(min_a, min_b), min=eps)
     vol_h = hull.prod(dim=-1)
     return vol_i / (union + eps) - (vol_h - union) / (vol_h + eps)
+
+
+def rotate_points_along_z(points: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
+    """points [..., P, 3+], angle [...] → rotated points (extra dims pass through)."""
+    c, s = torch.cos(angle), torch.sin(angle)
+    x = points[..., 0] * c[..., None] - points[..., 1] * s[..., None]
+    y = points[..., 0] * s[..., None] + points[..., 1] * c[..., None]
+    return torch.cat([x[..., None], y[..., None], points[..., 2:]], dim=-1)
+
+
+def boxes_to_corners_3d(boxes3d: torch.Tensor) -> torch.Tensor:
+    """[..., 7+] → [..., 8, 3] corners, in the corner order of `box_ops_np`."""
+    template = torch.tensor(
+        [[1, 1, -1], [1, -1, -1], [-1, -1, -1], [-1, 1, -1],
+         [1, 1, 1], [1, -1, 1], [-1, -1, 1], [-1, 1, 1]],
+        dtype=boxes3d.dtype, device=boxes3d.device,
+    ) / 2.0
+    corners = boxes3d[..., None, 3:6] * template
+    corners = rotate_points_along_z(corners, boxes3d[..., -1])
+    return corners + boxes3d[..., None, :3]
+
+
+def points_in_rbbox(points: torch.Tensor, boxes: torch.Tensor, margin: float = 0.0) -> torch.Tensor:
+    """[N, 3+] × [M, 7+] → [N, M] bool: each point inside each box grown by
+    `margin` on every half-extent (the point turned into the box frame)."""
+    pts = points[:, None, :3] - boxes[None, :, :3]
+    yaw = boxes[:, -1]
+    c, s = torch.cos(yaw), torch.sin(yaw)
+    lx = pts[..., 0] * c[None] + pts[..., 1] * s[None]
+    ly = -pts[..., 0] * s[None] + pts[..., 1] * c[None]
+    lz = pts[..., 2]
+    half = boxes[:, 3:6] / 2.0 + margin
+    return ((lx.abs() <= half[None, :, 0]) & (ly.abs() <= half[None, :, 1])
+            & (lz.abs() <= half[None, :, 2]))

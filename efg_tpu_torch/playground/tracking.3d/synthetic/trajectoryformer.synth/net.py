@@ -1,0 +1,7 @@
+"""`build_model` of the experiment
+`playground/tracking.3d/synthetic/trajectoryformer.synth`
+for the port (the counterpart of its `net.py`): `models/trajectoryformer.py`
+`build_model`, the TrajectoryFormer detection form with the graft of
+`model.motion_model` when the config names one."""
+
+from efg_tpu_torch.models.trajectoryformer import build_model  # noqa: F401

@@ -371,7 +371,7 @@ def test_cli_refusals(tmp_path, monkeypatch):
         cli.main(base + ["task=predict"])
     with pytest.raises(ValueError, match="--num-machines 2 needs --dist-url"):
         cli.main(base + ["--num-machines", "2", "task=train"])
-    other = ROOT / "playground/tracking.3d/synthetic/trajectoryformer.synth/config.yaml"
+    other = ROOT / "playground/detection.2d/synthetic/fcos.synth.res50/config.yaml"  # item 10
     with pytest.raises(NotImplementedError, match="not ported yet"):
         cli.load_experiment_module(str(other))
     t = _trainer(tmp_path, ["model.weights=/some/backbone.pth"])

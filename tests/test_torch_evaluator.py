@@ -542,8 +542,9 @@ def test_dataset_evaluators_merge_and_registry():
     assert DatasetEvaluators([A(), DatasetEvaluator()]).evaluate() == {"a": 1.0}
     with pytest.raises(AssertionError, match="Duplicate eval key a"):
         DatasetEvaluators([A(), AlsoA()]).evaluate()
-    assert sorted(k for k, _ in B.EVALUATORS) == ["WaymoDetEvaluator", "nuScenesDetEvaluator"]
-    assert sorted(B.NOT_PORTED.values()) == [9, 10, 11]
+    assert sorted(k for k, _ in B.EVALUATORS) == ["TrackingEvaluator", "WaymoDetEvaluator",
+                                                  "nuScenesDetEvaluator"]
+    assert sorted(B.NOT_PORTED.values()) == [10, 11]
     cfg = _Cfg(dataset=_Cfg(classes=CLASSES), trainer=_Cfg(evaluators=["WaymoDetEvaluator"]))
     evs = B.build_evaluators(cfg, None)
     assert [type(e) for e in evs] == [WE.WaymoDetEvaluator]

@@ -103,10 +103,11 @@ trainer = DefaultTrainer(cfg, build)
 with open(out_dir + "/variables.pkl", "wb") as f:
     pickle.dump(jax.device_get({"params": trainer.state.params,
                                 "batch_stats": trainer.state.batch_stats}), f)
-assert trainer.max_iters == 30, trainer.max_iters
+max_iters = trainer.max_iters
 trainer.max_iters = iters
 trainer.train()
-print(json.dumps({"mesh": dict(trainer.mesh.shape), "step": int(trainer.state.step)}))
+print(json.dumps({"mesh": dict(trainer.mesh.shape), "step": int(trainer.state.step),
+                  "max_iters": max_iters}))
 """
 
 
@@ -121,31 +122,34 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _jax_trainer(out_dir: Path) -> dict:
+def _jax_trainer(out_dir: Path, config_path=CONFIG, opts=OPTS, iters=ITERS) -> dict:
     out_dir.mkdir(parents=True)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env.update(PYTHONPATH=str(ROOT), JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=1 --xla_cpu_multi_thread_eigen=false")
-    out = subprocess.run([sys.executable, "-c", JAX_SIDE, CONFIG, str(out_dir), str(ITERS), *OPTS],
-                         cwd=ROOT, env=env, capture_output=True, text=True, timeout=900)
+    out = subprocess.run([sys.executable, "-c", JAX_SIDE, config_path, str(out_dir), str(iters),
+                          *opts], cwd=ROOT, env=env, capture_output=True, text=True, timeout=900)
     assert out.returncode == 0, out.stderr[-4000:]
     return json.loads(out.stdout.strip().splitlines()[-1])
 
 
-def jax_trainer_output(tmp_path_factory, config) -> Path:
-    """The directory of efg_tpu's run (variables.pkl, metrics.json and its
-    info.json), made by the first test of the session that asks for it:
-    the test workers share the session's temp root, and a file lock makes
-    a second asker wait for the first one's run instead of repeating it."""
+def jax_trainer_output(tmp_path_factory, config, name="efg_tpu_trainer_parity",
+                       config_path=CONFIG, opts=OPTS, iters=ITERS) -> Path:
+    """The directory of efg_tpu's run of the experiment `config_path`
+    with `opts` for `iters` iterations of its own schedule
+    (variables.pkl, metrics.json and its info.json), made under `name` by
+    the first test of the session that asks for it: the test workers
+    share the session's temp root, and a file lock makes a second asker
+    wait for the first one's run instead of repeating it."""
     root = tmp_path_factory.getbasetemp()
     if hasattr(config, "workerinput"):  # a worker of the parallel runner
         root = root.parent
-    out = root / "efg_tpu_trainer_parity"
-    with open(root / "efg_tpu_trainer_parity.lock", "w") as lock:
+    out = root / name
+    with open(root / f"{name}.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if not (out / "info.json").exists():
             shutil.rmtree(out, ignore_errors=True)
-            info = _jax_trainer(out)
+            info = _jax_trainer(out, config_path, opts, iters)
             (out / "info.json").write_text(json.dumps(info))
     return out
 
@@ -160,7 +164,7 @@ def test_port_trainer_matches_efg_tpu_trainer(tmp_path, tmp_path_factory, reques
     monkeypatch.setattr(K, "COMPUTE_DTYPE", torch.float32)
     jax_dir = jax_trainer_output(tmp_path_factory, request.config)
     info = json.loads((jax_dir / "info.json").read_text())
-    assert info == {"mesh": {"data": 1, "model": 1}, "step": ITERS}
+    assert info == {"mesh": {"data": 1, "model": 1}, "step": ITERS, "max_iters": 30}
     with open(jax_dir / "variables.pkl", "rb") as f:
         variables = pickle.load(f)
 
