@@ -228,6 +228,22 @@ either. Phases (each prints JSON lines; any failure exits 1):
              iterations and task=val, no sparse kernel launched); GT boxes
              as predictions through nuScenesDetEvaluator (the perfect mAP,
              translation, scale, orientation and velocity errors 0).
+20. det2d  — 2D detection (no sparse kernel on its path; the launch
+             counters read 0 over the phase). (a) The synthetic FCOS,
+             RetinaNet and AutoAssign experiments as written (R-50, bs 2,
+             256×256) through the CLI: task=train 20 iterations, task=val
+             through COCOEvaluator. (b) The three COCO configs as written
+             (bs 2, 800×1344 canvas, two loader threads) on a COCO-format
+             fixture the phase writes (12 train and 8 val PNG images,
+             480×640 / 640×480 / 427×640, 1-20 boxes each, some crowd,
+             the 80 categories' real ids) with a seeded torchvision R-50
+             .pth as model.weights: task=train 4 iterations (train_step
+             by CUDA events, IterTimer's time, the prefetcher's next,
+             peak memory), task=val (eval step ms, val frames/s); FCOS's
+             eval step at bs 1 and 2 split into backbone + FPN, head,
+             decode + NMS; GT as detections read AP = AP50 = AP75 = 1.
+             (c) An FCOS forward card against CPU within 1e-4 and equal
+             keep sets of predict on the same predictions.
 
 The second-to-last line lists every kernel as JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", ...}}.
@@ -2265,11 +2281,12 @@ def phase_engine(card: str, bare_step_ms, device="cuda", small=()):
 
 
 def _evaluator_classes():
+    from efg_tpu_torch.evaluator.coco_evaluator import COCOEvaluator
     from efg_tpu_torch.evaluator.nuscenes_evaluator import nuScenesDetEvaluator
     from efg_tpu_torch.evaluator.tracking_evaluator import TrackingEvaluator
     from efg_tpu_torch.evaluator.waymo_evaluator import WaymoDetEvaluator
 
-    return [WaymoDetEvaluator, nuScenesDetEvaluator, TrackingEvaluator]
+    return [WaymoDetEvaluator, nuScenesDetEvaluator, TrackingEvaluator, COCOEvaluator]
 
 
 class EvalProbe:
@@ -5127,6 +5144,438 @@ def phase_nusc(card: str, device="cuda", n_points=NUSC_POINTS, pc=54.0, small=()
         shutil.rmtree(base, ignore_errors=True)
 
 
+DET2D_SYNTH_DIR = "playground/detection.2d/synthetic"
+DET2D_SYNTH = ("fcos.synth.res50", "retinanet.synth.res50", "autoassign.synth.res50")
+DET2D_COCO = {
+    "fcos": "playground/detection.2d/coco/fcos/fcos.res50.fpn.coco.800size.1x",
+    "retinanet": "playground/detection.2d/coco/retina_net/retinanet.res50.fpn.coco.multiscale.1x",
+    "autoassign": "playground/detection.2d/coco/auto_assign/auto_assign.res50.fpn.coco.800size.1x",
+}
+DET2D_ITERS = 4  # full-width training iterations of each COCO config
+DET2D_SIZES = ((480, 640), (640, 480), (427, 640))  # (h, w) of the fixture's images, in turn
+DET2D_TRAIN, DET2D_VAL = 12, 8  # fixture images a split
+DET2D_SEED = 21
+DET2D_CHECK = (2, 256, 384)  # card vs CPU: batch, height, width
+DET2D_CHECK_TOL = 1e-4  # of each output's max: f32 convs with TF32 off, summation order
+DET2D_TIMED = 5  # timed runs of each eval-step part
+# headline keys of a COCO result; the area-range ones are NaN where the
+# val split holds no GT of that size
+DET2D_KEYS = ("coco/AP", "coco/AP50", "coco/AP75", "coco/AR1", "coco/AR10", "coco/AR100")
+COCO_CATEGORIES = (
+    (1, "person"), (2, "bicycle"), (3, "car"), (4, "motorcycle"), (5, "airplane"), (6, "bus"),
+    (7, "train"), (8, "truck"), (9, "boat"), (10, "traffic light"), (11, "fire hydrant"),
+    (13, "stop sign"), (14, "parking meter"), (15, "bench"), (16, "bird"), (17, "cat"),
+    (18, "dog"), (19, "horse"), (20, "sheep"), (21, "cow"), (22, "elephant"), (23, "bear"),
+    (24, "zebra"), (25, "giraffe"), (27, "backpack"), (28, "umbrella"), (31, "handbag"),
+    (32, "tie"), (33, "suitcase"), (34, "frisbee"), (35, "skis"), (36, "snowboard"),
+    (37, "sports ball"), (38, "kite"), (39, "baseball bat"), (40, "baseball glove"),
+    (41, "skateboard"), (42, "surfboard"), (43, "tennis racket"), (44, "bottle"),
+    (46, "wine glass"), (47, "cup"), (48, "fork"), (49, "knife"), (50, "spoon"), (51, "bowl"),
+    (52, "banana"), (53, "apple"), (54, "sandwich"), (55, "orange"), (56, "broccoli"),
+    (57, "carrot"), (58, "hot dog"), (59, "pizza"), (60, "donut"), (61, "cake"), (62, "chair"),
+    (63, "couch"), (64, "potted plant"), (65, "bed"), (67, "dining table"), (70, "toilet"),
+    (72, "tv"), (73, "laptop"), (74, "mouse"), (75, "remote"), (76, "keyboard"),
+    (77, "cell phone"), (78, "microwave"), (79, "oven"), (80, "toaster"), (81, "sink"),
+    (82, "refrigerator"), (84, "book"), (85, "clock"), (86, "vase"), (87, "scissors"),
+    (88, "teddy bear"), (89, "hair drier"), (90, "toothbrush"),
+)
+
+
+def write_coco_fixture(root, seed=DET2D_SEED, n_train=DET2D_TRAIN, n_val=DET2D_VAL,
+                       sizes=DET2D_SIZES):
+    """A COCO 2017-format dataset under `root`: `train2017/` and `val2017/`
+    PNG images (cv2) in turn of `sizes`, each with 1-20 boxes of random
+    categories among the 80 (real, gapped ids), about one in eight
+    `iscrowd`, and `annotations/instances_{train,val}2017.json`."""
+    import cv2
+
+    rs = np.random.RandomState(seed)
+    os.makedirs(os.path.join(root, "annotations"), exist_ok=True)
+    cats = [dict(id=c, name=n, supercategory="thing") for c, n in COCO_CATEGORIES]
+    for split, n_images in (("train", n_train), ("val", n_val)):
+        os.makedirs(os.path.join(root, f"{split}2017"), exist_ok=True)
+        images, anns = [], []
+        for i in range(n_images):
+            h, w = sizes[i % len(sizes)]
+            img_id = 100000 * (split == "val") + 37 * i + 9
+            name = f"{img_id:012d}.png"
+            pixels = rs.randint(0, 256, (h, w, 3)).astype(np.uint8)
+            for _ in range(rs.randint(1, 21)):
+                bw, bh = rs.uniform(16, w * 0.5), rs.uniform(16, h * 0.5)
+                x, y = rs.uniform(0, w - bw), rs.uniform(0, h - bh)
+                pixels[int(y):int(y + bh), int(x):int(x + bw)] = rs.randint(0, 256, 3)
+                anns.append(dict(id=len(anns) + 1, image_id=img_id,
+                                 category_id=COCO_CATEGORIES[rs.randint(80)][0],
+                                 bbox=[float(x), float(y), float(bw), float(bh)],
+                                 area=float(bw * bh), iscrowd=int(rs.rand() < 0.125)))
+            if not cv2.imwrite(os.path.join(root, f"{split}2017", name), pixels):
+                raise OSError(f"cv2 could not write {name}")
+            images.append(dict(id=img_id, file_name=name, height=h, width=w))
+        with open(os.path.join(root, "annotations", f"instances_{split}2017.json"), "w") as fh:
+            json.dump(dict(images=images, annotations=anns, categories=cats), fh)
+
+
+def _calibrate_bn(sd, images):
+    """Set each BN's running statistics in the torchvision state dict `sd`
+    to the per-channel mean and variance of its input on `images`, in
+    forward order (the port's FrozenBN ResNet-50 runs `sd`), so that the
+    trunk maps them to unit-scale channels as a pretrained one does."""
+    import torch
+
+    from efg_tpu_torch.modeling.backbones.resnet import FrozenBatchNorm, ResNet
+    from efg_tpu_torch.utils import torch_import as TI
+
+    net = ResNet(depth=50, freeze_at=0)
+    TI.import_torchvision_resnet({k: v.numpy() for k, v in sd.items()}, net, "")
+
+    def measure(mod, args):
+        x = args[0]
+        mod.running_mean.copy_(x.mean(dim=(0, 2, 3)))
+        mod.running_var.copy_(x.var(dim=(0, 2, 3), unbiased=False))
+
+    hooks = [m.register_forward_pre_hook(measure) for m in net.modules()
+             if isinstance(m, FrozenBatchNorm)]
+    with torch.no_grad():
+        net(images)
+    for h in hooks:
+        h.remove()
+    state = net.state_dict()
+    for k in sd:
+        leaf = k.rsplit(".", 1)[-1]
+        if leaf in ("running_mean", "running_var"):
+            sd[k] = state[f"{TI._resnet_rename(k)}.{leaf}"].clone()
+
+
+def fixture_images(root, n=4, size=(384, 512)):
+    """The first `n` train images of the fixture at `root`, resized to
+    `size` (h, w) and normalised as the COCO configs do (BGR − their
+    mean): [n, 3, h, w]."""
+    import cv2
+    import torch
+
+    from efg_tpu_torch.data.image_io import read_image
+
+    names = sorted(os.listdir(os.path.join(root, "train2017")))[:n]
+    mean = np.asarray([103.53, 116.28, 123.675], np.float32)
+    imgs = [cv2.resize(read_image(os.path.join(root, "train2017", f)), size[::-1],
+                       interpolation=cv2.INTER_LINEAR) - mean for f in names]
+    return torch.from_numpy(np.stack(imgs)).permute(0, 3, 1, 2).contiguous()
+
+
+def torchvision_resnet50(path, images, seed=DET2D_SEED):
+    """A torchvision-format ResNet-50 state dict (conv1 / bn1, layer1-4 with
+    downsample.0 / .1, fc; num_batches_tracked included) written by
+    torch.save: seeded He-normal convs, BN scales near 1, and BN
+    statistics measured on `images` (`_calibrate_bn`), as a pretrained
+    checkpoint's are measured on its data (with statistics of 0 and 1, or
+    of other data, the FrozenBN trunk grows its activations block by
+    block). Returns its tensor count."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+
+    def conv(name, o, i, k):
+        sd[f"{name}.weight"] = torch.randn(o, i, k, k, generator=g) * (2.0 / (i * k * k)) ** 0.5
+
+    def bn(name, c):
+        sd[f"{name}.weight"] = torch.rand(c, generator=g) * 0.4 + 0.8
+        sd[f"{name}.bias"] = torch.randn(c, generator=g) * 0.05
+        sd[f"{name}.running_mean"] = torch.randn(c, generator=g) * 0.05
+        sd[f"{name}.running_var"] = torch.rand(c, generator=g) * 0.5 + 1.0
+        sd[f"{name}.num_batches_tracked"] = torch.tensor(0)
+
+    conv("conv1", 64, 3, 7)
+    bn("bn1", 64)
+    cin = 64
+    for s, n in enumerate((3, 4, 6, 3)):
+        width = 64 * 2**s
+        for b in range(n):
+            pre = f"layer{s + 1}.{b}"
+            conv(f"{pre}.conv1", width, cin, 1)
+            bn(f"{pre}.bn1", width)
+            conv(f"{pre}.conv2", width, width, 3)
+            bn(f"{pre}.bn2", width)
+            conv(f"{pre}.conv3", width * 4, width, 1)
+            bn(f"{pre}.bn3", width * 4)
+            if b == 0:
+                conv(f"{pre}.downsample.0", width * 4, cin, 1)
+                bn(f"{pre}.downsample.1", width * 4)
+            cin = width * 4
+    sd["fc.weight"] = torch.randn(1000, 2048, generator=g) * 0.01
+    sd["fc.bias"] = torch.zeros(1000)
+    _calibrate_bn(sd, images)
+    torch.save(sd, path)
+    return len(sd)
+
+
+def _coco_headline(label, res):
+    """The headline COCO keys present and finite, each in [0, 1]."""
+    bad = {k: res.get(k) for k in DET2D_KEYS
+           if k not in res or not np.isfinite(res[k]) or not 0.0 <= res[k] <= 1.0}
+    if bad:
+        raise AssertionError(f"{label}: results {bad} of {res}")
+
+
+def _perfect_2d(batches):
+    """Each val image's non-crowd GT as the eval step's fixed-shape
+    detections (boxes in the resized frame, as predict's)."""
+    out = []
+    for inputs in batches:
+        annos = inputs["annotations"]
+        k = max(1, max(int((a["iscrowd"] == 0).sum()) for a in annos))
+        det = dict(boxes=np.zeros((len(annos), k, 4), np.float32),
+                   scores=np.zeros((len(annos), k), np.float32),
+                   labels=np.full((len(annos), k), -1, np.int64),
+                   valid=np.zeros((len(annos), k), bool))
+        for i, a in enumerate(annos):
+            keep = a["iscrowd"] == 0
+            n = int(keep.sum())
+            det["boxes"][i, :n] = a["boxes2d"][keep]
+            det["scores"][i, :n] = 0.9
+            det["labels"][i, :n] = a["classes"][keep]
+            det["valid"][i, :n] = True
+        out.append(det)
+    return out
+
+
+def _fcos_parts_ms(md, batch):
+    """The FCOS eval step on `batch` by CUDA events (DET2D_TIMED runs after
+    a warm-up), whole and in parts: backbone + FPN, head (with the
+    flattening), decode + NMS."""
+    import torch
+
+    from efg_tpu_torch.engine.trainer import eval_step
+
+    m = md.module
+    m.eval()
+    images = batch["images"]
+    with torch.inference_mode():
+        levels = m.levels(images)
+        preds = m(images)
+        parts = {
+            "eval_step": _event_ms(lambda: eval_step(md, batch), DET2D_TIMED),
+            "backbone_fpn": _event_ms(lambda: m.levels(images), DET2D_TIMED),
+            "head": _event_ms(lambda: m.head(levels), DET2D_TIMED),
+            "forward": _event_ms(lambda: m(images), DET2D_TIMED),
+            "decode_nms": _event_ms(lambda: md.predict_fn(preds, batch), DET2D_TIMED),
+        }
+    return {k: {"median": float(np.median(v)), "runs": v} for k, v in parts.items()}
+
+
+def _det2d_card_vs_cpu(card):
+    """One FCOS (R-50) forward at DET2D_CHECK on the card and on the CPU
+    from the same seeded weights: logits, deltas and centerness within
+    DET2D_CHECK_TOL of each one's max; `predict` on the CPU's predictions,
+    on both devices, keeps the same detections (valid flags and labels
+    equal, boxes and scores within 1e-5 of their max)."""
+    import torch
+
+    from efg_tpu_torch.models import fcos as F
+
+    bsz, h, w = DET2D_CHECK
+    images = torch.from_numpy(np.random.RandomState(DET2D_SEED).uniform(
+        -120, 140, (bsz, h, w, 3)).astype(np.float32))
+    out, models = {}, {}
+    for dev in ("cpu", "cuda"):
+        models[dev] = F.FCOS(num_classes=80, depth=50, device=dev,
+                             generator=torch.Generator().manual_seed(DET2D_SEED))
+        models[dev].eval()
+        with torch.inference_mode():
+            out[dev] = models[dev](images.to(dev))
+    errs = {}
+    for k in ("logits", "deltas", "centerness"):
+        want = out["cpu"][k].double()
+        scale = max(float(want.abs().max()), 1e-6)
+        errs[k] = float((out["cuda"][k].cpu().double() - want).abs().max()) / scale
+    cfg = dict(num_classes=80, fpn_strides=[8, 16, 32, 64, 128])
+    with torch.inference_mode():
+        det = {d: F.predict({k: (v.to(d) if torch.is_tensor(v) else v)
+                             for k, v in out["cpu"].items()}, model_cfg=cfg)
+               for d in ("cpu", "cuda")}
+    got = {k: v.cpu() for k, v in det["cuda"].items()}
+    same_keep = bool(torch.equal(got["valid"], det["cpu"]["valid"])
+                     and torch.equal(got["labels"], det["cpu"]["labels"]))
+    box_err = float((got["boxes"] - det["cpu"]["boxes"]).abs().max()) / max(
+        float(det["cpu"]["boxes"].abs().max()), 1e-6)
+    with torch.inference_mode():  # the card's own predictions, for the record
+        own = {k: v.cpu() for k, v in F.predict(out["cuda"], model_cfg=cfg).items()}
+    emit({"phase": "det2d", "part": "check", "card": card, "shape": list(DET2D_CHECK),
+          "rel_err": errs, "tol": DET2D_CHECK_TOL, "kept": int(got["valid"].sum()),
+          "keep_sets_equal": same_keep, "box_rel_err": box_err,
+          "own_outputs_keep_sets_equal": bool(torch.equal(own["valid"], det["cpu"]["valid"])
+                                              and torch.equal(own["labels"], det["cpu"]["labels"]))})
+    if max(errs.values()) > DET2D_CHECK_TOL or not same_keep or box_err > 1e-5 \
+            or int(got["valid"].sum()) == 0:
+        raise AssertionError(f"det2d check: rel errs {errs}, keep sets equal {same_keep}, "
+                             f"box err {box_err}")
+
+
+def phase_det2d(card: str, device="cuda", synth=(), small_coco=()):
+    """2D detection through the CLI, output under a temporary
+    EFG_CACHE_DIR:
+    (a) the three synthetic experiments as written (R-50, bs 2, 256×256):
+        task=train (20 iterations), then task=val through COCOEvaluator
+        (the headline results finite);
+    (b) the three COCO configs as written (R-50, bs 2, 800×1344 canvas,
+        two loader threads) on a COCO-format fixture this phase writes
+        (`write_coco_fixture`; the data root by the dotlist
+        detection.source.local.root, EFG_PATH at this checkout for the
+        configs' gallery include), `model.weights` a seeded torchvision
+        R-50 .pth imported by the default `resnet` format: task=train
+        DET2D_ITERS iterations (the loop's train_step by CUDA events,
+        IterTimer's time, the prefetcher's next, peak memory), task=val
+        (eval step ms, val frames/s); FCOS's eval step at bs 1 and 2 by
+        CUDA events, whole and split into backbone + FPN, head, and
+        decode + NMS; the val images' GT as detections through
+        COCOEvaluator read AP = AP50 = AP75 = 1 exactly;
+    (c) one FCOS forward and predict on the card against the CPU
+        (`_det2d_card_vs_cpu`), and the sparse kernels' launch counters,
+        which no 2D path reaches, 0 over the phase.
+    `synth` and `small_coco` cut the runs for a rehearsal on the CPU."""
+    import torch
+
+    from efg_tpu_torch.cli.main import experiment_relpath, load_experiment_module
+    from efg_tpu_torch.config import Configuration
+    from efg_tpu_torch.evaluator.coco_evaluator import COCOEvaluator
+    from efg_tpu_torch.ops.cuda import sparse_kernels as K
+
+    base = tempfile.mkdtemp(prefix="chip_smoke_det2d_")
+    old_env = {k: os.environ.get(k) for k in ("EFG_CACHE_DIR", "EFG_PATH")}
+    os.environ["EFG_CACHE_DIR"] = os.path.join(base, "cache")
+    os.environ["EFG_PATH"] = HERE  # the COCO configs include the dataset gallery by it
+    launches = {}
+
+    def count(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    def out_dir_of(config):
+        d = os.path.join(base, "cache", "EFG_torch", experiment_relpath(os.path.join(HERE, config)))
+        os.makedirs(d, exist_ok=True)
+        return d
+
+    logs = ["trainer.log_interval=1", "trainer.window_size=1"]
+    try:
+        # (a) the synthetic experiments as written
+        for exp in DET2D_SYNTH:
+            config = os.path.join(DET2D_SYNTH_DIR, exp, "config.yaml")
+            records, counts, probe = _engine_run(["task=train", "trainer.evaluators=", *logs,
+                                                  *synth], out_dir_of(config), device,
+                                                 config=config)
+            run = _losses(records, f"det2d {exp}")
+            count(counts)
+            counts_val, vprobe = _cli_eval_run(["task=val", *synth], device, config=config)
+            count(counts_val)
+            (_, res, evaluate_s), = vprobe.evaluations
+            _coco_headline(f"det2d {exp} val", res)
+            emit({"phase": "det2d", "part": "synthetic", "experiment": exp, "card": card,
+                  "iterations": sorted(run), "losses": {i: r["loss"] for i, r in run.items()},
+                  "loop_step_ms_cuda_events": probe.step_ms(),
+                  "val_frames": sum(len(b["annotations"]) for b in vprobe.batches),
+                  "eval_step_ms_cuda_events": vprobe.step_ms(), "evaluate_s": evaluate_s,
+                  "results": res})
+
+        # (b) the COCO configs at full width
+        root = os.path.join(base, "coco")
+        write_coco_fixture(root)
+        weights = os.path.join(base, "R-50.pth")
+        n_tensors = torchvision_resnet50(weights, fixture_images(root))
+        common = [f"detection.source.local.root={root}", f"model.weights={weights}", *small_coco]
+        for name, exp in DET2D_COCO.items():
+            config = os.path.join(exp, "config.yaml")
+            out_dir = out_dir_of(config)
+            argv = ["task=train", "trainer.evaluators=", *logs,
+                    f"solver.lr_scheduler.max_iters={DET2D_ITERS}", *common]
+            cfg = Configuration(config_file=os.path.join(HERE, config), opts=argv).get_config()
+            if device == "cuda":
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            records, counts, probe = _engine_run(argv, out_dir, device, config=config)
+            peak = torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else None
+            count(counts)
+            run = _losses(records, f"det2d coco {name}")
+            with open(os.path.join(out_dir, "log.txt.rank0")) as fh:
+                imported = re.findall(r"Imported (\d+) tensors from .*skipped (\d+)", fh.read())
+            # every tensor but fc's 2 and the 53 num_batches_tracked lands
+            if imported != [(str(n_tensors - 2 - 53), "53")] or sorted(run) != list(
+                    range(1, DET2D_ITERS + 1)):
+                raise AssertionError(f"det2d coco {name}: import {imported}, records {sorted(run)}")
+            pad = cfg.dataset.processors.train[-1]["PadImage"]
+            emit({"phase": "det2d", "part": "coco_train", "model": name, "card": card,
+                  "batch_size": int(cfg.dataloader.batch_size),
+                  "canvas": [int(pad["height"]), int(pad["width"])],
+                  "num_workers": int(cfg.dataloader.num_workers),
+                  "imported_tensors": int(imported[0][0]), "iterations": sorted(run),
+                  "losses": {i: {k: v for k, v in r.items() if "loss" in k or k == "grad_norm"}
+                             for i, r in run.items()},
+                  "loop_step_ms_cuda_events": probe.step_ms(),
+                  "iteration_time_ms": [1e3 * r["time"] for r in records if "time" in r],
+                  "data_time_ms": [1e3 * t for t in probe.data_s], "peak_mem_gb": peak})
+
+            counts_val, vprobe = _cli_eval_run(["task=val", *common], device, config=config)
+            count(counts_val)
+            (_, res, evaluate_s), = vprobe.evaluations
+            n_frames = sum(len(b["annotations"]) for b in vprobe.batches)
+            _coco_headline(f"det2d coco {name} val", res)
+            emit({"phase": "det2d", "part": "coco_val", "model": name, "card": card,
+                  "frames": n_frames, "eval_step_ms_cuda_events": vprobe.step_ms(),
+                  "data_ms": [1e3 * d for d in vprobe.data_s],
+                  "evaluator_process_ms": [1e3 * d for d in vprobe.process_s],
+                  "evaluator_evaluate_ms": [1e3 * d for d in vprobe.evaluator_s],
+                  "evaluate_s": evaluate_s, "val_frames_per_s": n_frames / evaluate_s,
+                  "results": res})
+            if n_frames != DET2D_VAL:
+                raise AssertionError(f"det2d coco {name} val: {n_frames} frames")
+            if name != "fcos":
+                continue
+
+            # the val images' GT as detections: a perfect detector
+            vcfg = Configuration(config_file=os.path.join(HERE, config),
+                                 opts=["task=val", *common]).get_config()
+            perfect = COCOEvaluator(vcfg, type("DS", (), {"class_names": [
+                n for _, n in COCO_CATEGORIES]})())
+            perfect.reset()
+            for inputs, det in zip(vprobe.batches, _perfect_2d(vprobe.batches)):
+                perfect.process(inputs, det)
+            pres = perfect.evaluate()
+            emit({"phase": "det2d", "part": "perfect", "card": card,
+                  "results": {k: pres[k] for k in ("coco/AP", "coco/AP50", "coco/AP75")}})
+            if not pres["coco/AP"] == pres["coco/AP50"] == pres["coco/AP75"] == 1.0:
+                raise AssertionError(f"det2d: perfect detections read {pres}")
+
+            # FCOS's eval step at bs 1 and 2, by parts
+            md = load_experiment_module(config).build_model(vcfg, device=device)
+            ckpt = torch.load(os.path.join(out_dir, "model_final"), map_location=device,
+                              weights_only=True)
+            md.module.load_state_dict(ckpt["model"])
+            host = vprobe.batches[0]
+            timing = {}
+            for bsz in (1, 2):
+                batch = {k: torch.from_numpy(v[:bsz]).to(device) if isinstance(v, np.ndarray)
+                         else v[:bsz] for k, v in host.items()}
+                timing[bsz] = _fcos_parts_ms(md, batch)
+            emit({"phase": "det2d", "part": "fcos_eval_step", "card": card,
+                  "canvas": list(host["images"].shape[1:3]), "ms_cuda_events": timing})
+            del md, ckpt
+
+        # (c) card against CPU, and no sparse kernel launched
+        K.reset_launches()
+        if device == "cuda":
+            _det2d_card_vs_cpu(card)
+        count(dict(K.launches))
+        emit({"phase": "det2d", "part": "launches", "card": card, "launches": launches})
+        if any(launches.values()):
+            raise AssertionError(f"det2d: sparse kernels launched {launches}")
+    finally:
+        for k, v in old_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(base, ignore_errors=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -5176,6 +5625,7 @@ def main() -> int:
         finally:
             shutil.rmtree(data, ignore_errors=True)
         nusc = phase_nusc(card)
+        phase_det2d(card)
         # a rank kernel's row is the training step's (its forward rulebooks
         # and the inverse ones); the serving forward's is in the kernels line
         train["rank_flags"]["launches_serve"] = serve["rank_flags"]["launches"]

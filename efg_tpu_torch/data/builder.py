@@ -2,7 +2,7 @@
 `efg_tpu/data/builder.py`).
 
 The loader emits numpy batches of static shapes (padded points + masks,
-padded GT arrays), as efg_tpu's does; `data/prefetcher.py` moves them to
+or images padded to one canvas, and padded GT arrays), as efg_tpu's does; `data/prefetcher.py` moves them to
 the device. Training reads through worker threads when
 `dataloader.num_workers` > 0, evaluation in order. With a seed, every
 item's augmentations draw from a numpy seed derived from the item's
@@ -73,22 +73,27 @@ def pad_gt(
     return {"gt_boxes": boxes, "gt_classes": classes, "gt_mask": mask}
 
 
-def collate_fixed(samples: List, max_gt: int) -> Dict[str, Any]:
-    """List of dataset items `(data, info)` → fixed-shape numpy batch.
-    `data` must be the `PadPoints` output. Items with detections (the
-    tracking datasets) add `det_boxes` [B, max_gt, 9], `det_scores`,
-    `det_labels` and `det_mask`, padded as the GT; items with trajectories
-    (the motion pretrain) add `traj_hist`, `traj_mask`, `future_offsets`
-    and `future_mask`, [B, max_gt, ...]. efg_tpu carries no `det_labels`
-    (its `det_predict` labels a detection with the GT class of its slot);
-    its image batches are not ported yet."""
-    first = samples[0][0]
-    if not (isinstance(first, dict) and "points" in first):
-        raise ValueError(
-            "collate_fixed: the port batches PadPoints outputs only; end the "
-            f"processors with PadPoints (got {type(first).__name__} "
-            f"{list(first) if isinstance(first, dict) else ''})"
-        )
+def pad_gt2d(annotations: Optional[dict], max_gt: int) -> Dict[str, np.ndarray]:
+    """2D annotations {boxes2d [G, 4], classes [G], iscrowd [G]} → fixed
+    [max_gt] arrays of the non-crowd instances."""
+    boxes = np.zeros((max_gt, 4), np.float32)
+    classes = np.zeros((max_gt,), np.int32)
+    mask = np.zeros((max_gt,), bool)
+    if annotations is not None and len(annotations.get("boxes2d", [])) > 0:
+        keep = annotations.get("iscrowd")
+        b = np.asarray(annotations["boxes2d"], np.float32)
+        c = np.asarray(annotations["classes"], np.int64)
+        if keep is not None:
+            sel = np.asarray(keep) == 0
+            b, c = b[sel], c[sel]
+        g = min(len(b), max_gt)
+        boxes[:g] = b[:g]
+        classes[:g] = c[:g]
+        mask[:g] = True
+    return {"gt_boxes2d": boxes, "gt_classes2d": classes, "gt_mask2d": mask}
+
+
+def _collate_points(samples: List, max_gt: int) -> Dict[str, Any]:
     pts, msk, gtb, gtc, gtm = [], [], [], [], []
     det = {"det_boxes": [], "det_scores": [], "det_labels": [], "det_mask": []}
     for data, info in samples:
@@ -130,6 +135,70 @@ def collate_fixed(samples: List, max_gt: int) -> Dict[str, Any]:
                 pad[: min(len(a), max_gt)] = a[:max_gt]
                 rows.append(pad)
             batch[key] = np.stack(rows)
+    return batch
+
+
+def _collate_images(samples: List, max_gt: int) -> Dict[str, Any]:
+    imgs, gtb, gtc, gtm, masks, kpts = [], [], [], [], [], []
+    for data, info in samples:
+        imgs.append(data["image"])
+        anno = info.get("annotations")
+        g = pad_gt2d(anno, max_gt)
+        gtb.append(g["gt_boxes2d"])
+        gtc.append(g["gt_classes2d"])
+        gtm.append(g["gt_mask2d"])
+        if anno is not None and "masks_fixed" in anno:
+            m = anno["masks_fixed"]
+            pad = np.zeros((max_gt,) + m.shape[1:], np.float32)
+            pad[: min(len(m), max_gt)] = m[:max_gt]
+            masks.append(pad)
+        if anno is not None and anno.get("keypoints") is not None:
+            k = np.asarray(anno["keypoints"], np.float32)
+            pad = np.zeros((max_gt,) + k.shape[1:], np.float32)
+            pad[: min(len(k), max_gt)] = k[:max_gt]
+            kpts.append(pad)
+    batch = {
+        "images": np.stack(imgs),
+        "gt_boxes2d": np.stack(gtb),
+        "gt_classes2d": np.stack(gtc),
+        "gt_mask2d": np.stack(gtm),
+    }
+    if masks:
+        batch["gt_masks"] = np.stack(masks)
+        batch["gt_classes_seg"] = batch["gt_classes2d"]
+        batch["gt_mask_valid"] = batch["gt_mask2d"]
+    if kpts:
+        batch["gt_keypoints"] = np.stack(kpts)  # [B, G, K, 3]
+    return batch
+
+
+def collate_fixed(samples: List, max_gt: int) -> Dict[str, Any]:
+    """List of dataset items `(data, info)` → fixed-shape numpy batch.
+    `data` must be the `PadPoints` output (3D) or the `PadImage` output
+    (2D).
+
+    3D: items with detections (the tracking datasets) add `det_boxes`
+    [B, max_gt, 9], `det_scores`, `det_labels` and `det_mask`, padded as
+    the GT; items with trajectories (the motion pretrain) add
+    `traj_hist`, `traj_mask`, `future_offsets` and `future_mask`, [B,
+    max_gt, ...]. efg_tpu carries no `det_labels` (its `det_predict`
+    labels a detection with the GT class of its slot).
+
+    2D: `images` [B, H, W, 3] and the non-crowd GT `gt_boxes2d` /
+    `gt_classes2d` / `gt_mask2d` [B, max_gt, ·]; rasterized masks add
+    `gt_masks` (with `gt_classes_seg`, `gt_mask_valid`), keypoints
+    `gt_keypoints` [B, max_gt, K, 3]."""
+    first = samples[0][0]
+    if isinstance(first, dict) and "points" in first:
+        batch = _collate_points(samples, max_gt)
+    elif isinstance(first, dict) and "image" in first:
+        batch = _collate_images(samples, max_gt)
+    else:
+        raise ValueError(
+            "collate_fixed: end the processors with PadPoints or PadImage, the fixed-shape "
+            f"contract (got {type(first).__name__} "
+            f"{list(first) if isinstance(first, dict) else ''})"
+        )
     batch["metadata"] = [s[1].get("metadata", {}) for s in samples]
     batch["annotations"] = [s[1].get("annotations") for s in samples]
     return batch
@@ -298,6 +367,10 @@ def build_dataloader(config, dataset, train: bool = True) -> DataLoader:
         sampler_name = dl.get("sampler", "DistributedInfiniteSampler")
         seed = config.misc.get("seed", -1)
         kw = dict(shuffle=True, seed=None if seed is None or seed < 0 else seed)
+        if sampler_name == "DistributedGroupSampler":
+            # aspect-ratio group batching
+            kw.update(aspect_ratios=getattr(dataset, "aspect_ratios", None),
+                      samples_per_batch=int(dl.batch_size))
         sampler = SAMPLERS.get(sampler_name)(len(dataset), **kw)
         return DataLoader(
             dataset, sampler, int(dl.batch_size), max_gt=max_gt,

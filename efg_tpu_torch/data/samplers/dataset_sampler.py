@@ -1,5 +1,4 @@
-"""Index samplers (port of the samplers of
-`efg_tpu/data/samplers/dataset_sampler.py` that the port's runs use).
+"""Index samplers (port of `efg_tpu/data/samplers/dataset_sampler.py`).
 
 The distributed samplers shard by machine, as efg_tpu's shard by process
 (one process a machine there): every local rank of a machine reads the
@@ -85,3 +84,47 @@ class InferenceSampler:
 
     def __iter__(self) -> Iterator[int]:
         return iter(self._local)
+
+
+@SAMPLERS.register()
+class DistributedGroupSampler:
+    """Infinite aspect-ratio-grouped sampler: every run of
+    `samples_per_batch` indices shares one aspect-ratio group (landscape
+    or portrait), so one canvas a batch wastes less padding. Each epoch,
+    each group's indices are shuffled, padded to a multiple of
+    samples_per_batch·machines, cut into whole batches, and the batches'
+    order is shuffled across groups; this machine's share is every
+    machines-th batch. `aspect_ratios` holds each item's group id (the
+    dataset's attribute of that name)."""
+
+    def __init__(self, size: int, aspect_ratios=None, samples_per_batch: int = 1,
+                 shuffle: bool = True, seed: Optional[int] = None):
+        assert size > 0
+        self._size = size
+        self._ar = (np.zeros(size, np.int64) if aspect_ratios is None
+                    else np.asarray(aspect_ratios, np.int64))
+        if len(self._ar) != size:
+            raise ValueError(f"{len(self._ar)} aspect ratios for {size} items")
+        self._spb = max(int(samples_per_batch), 1)
+        self._shuffle = shuffle
+        self._seed = 2**31 - 1 if seed is None else int(seed)
+        self._rank = comm.get_machine_rank()
+        self._world = comm.get_num_machines()
+
+    def __iter__(self) -> Iterator[int]:
+        g = np.random.RandomState(self._seed)
+        while True:
+            batches = []
+            for grp in np.unique(self._ar):
+                idx = np.nonzero(self._ar == grp)[0]
+                if self._shuffle:
+                    idx = idx[g.permutation(len(idx))]
+                quantum = self._spb * self._world
+                pad = (-len(idx)) % quantum
+                if pad:
+                    fill = idx[: pad % len(idx)] if pad <= len(idx) else np.resize(idx, pad)
+                    idx = np.concatenate([idx, fill])
+                batches.extend(idx.reshape(-1, self._spb))
+            order = g.permutation(len(batches)) if self._shuffle else np.arange(len(batches))
+            for bi in order[self._rank :: self._world]:
+                yield from batches[bi].tolist()

@@ -17,13 +17,14 @@ of the ranks' summed loss, and `train_step` sums the gradients over the
 ranks (one flat all-reduce per dtype after the backward, not a
 `DistributedDataParallel` wrapper: ConQueR's loss calls submodules and
 the EMA decoder outside the module's forward, and leaves some parameters
-without a gradient) before the clip and AdamW see them. So every rank
+without a gradient) before the clip and the optimizer see them. So every rank
 applies efg_tpu's global-batch update, and the replicas stay equal bit
 for bit. Rank 0 writes the records and the checkpoints.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import math
 import os
@@ -96,7 +97,7 @@ def train_forward(model_def: ModelDef, state: TrainState, batch: Dict[str, Any])
 
 
 def apply_grads(tx, state: TrainState) -> torch.Tensor:
-    """`tx` (clip + AdamW) on the grads the backward left, in place; a
+    """`tx` (clip + AdamW or SGD) on the grads the backward left, in place; a
     parameter without a grad counts as a zero grad. Returns the global norm
     before clipping."""
     params: List[torch.Tensor] = list(state.module.parameters())
@@ -234,7 +235,8 @@ class DefaultTrainer:
         sched_cfg["lr"] = cfg.optimizer.lr
         self.lr_schedule, self.momentum_schedule = build_scheduler(sched_cfg)
         self.tx = build_optimizer(cfg.optimizer, self.lr_schedule, self.momentum_schedule,
-                                  grad_clip_cfg=cfg.get("grad_clipper"))
+                                  grad_clip_cfg=cfg.get("grad_clipper"),
+                                  module=self.model_def.module)
 
     def _checkpoints(self) -> List[str]:
         out = self.output_dir
@@ -299,7 +301,7 @@ class DefaultTrainer:
     # ------------------------------------------------------------ checkpoint
     def save_checkpoint(self, name: str, blocking: bool = True) -> str:
         """Save the module's state_dict (parameters and BN statistics),
-        the AdamW state by parameter name, the step, and the EMA state
+        the optimizer state by parameter name, the step, and the EMA state
         where the model has one, to `<output_dir>/<name>`. Host copies of
         all of it are complete when this returns, so the next step may
         update the tensors in place; `torch.save` then writes them under a
@@ -313,8 +315,9 @@ class DefaultTrainer:
         opt = self.state.opt_state
         snapshot = {
             "model": _host_copy(self.state.module.state_dict()),
-            "optimizer": {"count": opt.count, "mu": _host_copy(dict(zip(names, opt.mu))),
-                          "nu": _host_copy(dict(zip(names, opt.nu)))},
+            "optimizer": {"count": opt.count,
+                          **{f: _host_copy(dict(zip(names, tensors)))
+                             for f, tensors in _opt_tensors(opt).items()}},
             "step": self.state.step,
             **({"ema": _host_copy(self.state.ema)} if self.state.ema is not None else {}),
         }
@@ -343,9 +346,8 @@ class DefaultTrainer:
         load the checkpoint named by `model.weights`. A `.pth` / `.pkl`
         there (a `://` zoo URI resolves through `utils/catalog.py` and its
         download cache) is a reference checkpoint: it initialises the
-        weights by `model.weights_format` and is not a resume point;
-        `centerpoint` is ported, efg_tpu's default `resnet` and `swin` are
-        not (ROADMAP queue 1 items 10 and 11). The data stream is
+        weights by `model.weights_format` (`_import_weights`) and is not a
+        resume point. The data stream is
         fast-forwarded to the restored step: the loader discards the first
         `step` batches of sampler indices, and per-item seeding makes the
         rest of the stream equal to an uninterrupted run's. A write in
@@ -373,9 +375,9 @@ class DefaultTrainer:
         module, opt = self.state.module, self.state.opt_state
         module.load_state_dict(ckpt["model"])
         with torch.no_grad():
-            for i, (n, _) in enumerate(module.named_parameters()):
-                opt.mu[i].copy_(ckpt["optimizer"]["mu"][n])
-                opt.nu[i].copy_(ckpt["optimizer"]["nu"][n])
+            for f, tensors in _opt_tensors(opt).items():
+                for i, (n, _) in enumerate(module.named_parameters()):
+                    tensors[i].copy_(ckpt["optimizer"][f][n])
         opt.count = int(ckpt["optimizer"]["count"])
         if self.state.ema is not None:
             if set(ckpt.get("ema", {})) != set(self.state.ema):
@@ -390,18 +392,23 @@ class DefaultTrainer:
 
     def _import_weights(self, path: str) -> None:
         """Initialise the model from the reference checkpoint at `path`
-        (efg_tpu's `.pth`/`.pkl` branch of `resume_or_load`)."""
+        (efg_tpu's `.pth`/`.pkl` branch of `resume_or_load`), by
+        `model.weights_format`: `centerpoint` (a whole CenterPoint
+        VoxelNet), `swin` (not ported: ROADMAP queue 1 item 11) or, for
+        any other value as in efg_tpu, `resnet`: a torchvision ResNet
+        under `model.weights_prefix`."""
         from efg_tpu_torch.utils import torch_import as TI
 
         prefix = self.config.model.get("weights_prefix", "backbone")
         fmt = self.config.model.get("weights_format", "resnet")
-        if fmt != "centerpoint":  # efg_tpu reads any other value as resnet
-            swin = fmt == "swin"
-            raise _not_ported(f"model.weights_format={fmt!r} (weight import into a "
-                              f"{'Swin' if swin else 'torchvision ResNet'} backbone)",
-                              11 if swin else 10)
+        if fmt == "swin":
+            raise _not_ported(f"model.weights_format={fmt!r} (weight import into a Swin "
+                              "backbone)", 11)
         sd = TI.load_state_dict(path)
-        n, skipped = TI.import_centerpoint_voxelnet(sd, self.state.module)
+        if fmt == "centerpoint":
+            n, skipped = TI.import_centerpoint_voxelnet(sd, self.state.module)
+        else:
+            n, skipped = TI.import_torchvision_resnet(sd, self.state.module, prefix)
         logger.info(f"Imported {n} tensors from {path} (prefix '{prefix}'); "
                     f"skipped {len(skipped)}: {skipped[:8]}")
 
@@ -558,6 +565,13 @@ def _trim(tree, n: int, keep: int):
     if rows and len(tree) == n:
         return tree[:keep]
     return tree
+
+
+def _opt_tensors(opt_state) -> Dict[str, List[torch.Tensor]]:
+    """The optimizer state's per-parameter tensor lists by field name
+    (AdamW's `mu` and `nu`, SGD's `trace`)."""
+    return {f.name: getattr(opt_state, f.name) for f in dataclasses.fields(opt_state)
+            if isinstance(getattr(opt_state, f.name), list)}
 
 
 def _host_copy(tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

@@ -10,5 +10,6 @@ from efg_tpu_torch.evaluator.registry import EVALUATORS
 from efg_tpu_torch.evaluator import waymo_evaluator as _waymo  # noqa: F401
 from efg_tpu_torch.evaluator import nuscenes_evaluator as _nuscenes  # noqa: F401
 from efg_tpu_torch.evaluator import tracking_evaluator as _tracking  # noqa: F401
+from efg_tpu_torch.evaluator import coco_evaluator as _coco  # noqa: F401
 
 __all__ = ["EVALUATORS", "build_evaluators", "DatasetEvaluator", "DatasetEvaluators"]

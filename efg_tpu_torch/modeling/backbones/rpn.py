@@ -26,19 +26,19 @@ class Conv2d(nn.Module):
     drawn from `generator` (None: torch's global RNG)."""
 
     def __init__(self, cin: int, cout: int, kernel: int, *, stride: int = 1,
-                 padding: int = 0, bias: bool = False, dtype=torch.bfloat16,
-                 generator: Optional[torch.Generator] = None):
+                 padding: int = 0, dilation: int = 1, bias: bool = False,
+                 dtype=torch.bfloat16, generator: Optional[torch.Generator] = None):
         super().__init__()
         bound = 1.0 / math.sqrt(cin * kernel * kernel)
         self.weight = nn.Parameter(torch.empty(cout, cin, kernel, kernel)
                                    .uniform_(-bound, bound, generator=generator))
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
-        self.stride, self.padding, self.dtype = stride, padding, dtype
+        self.stride, self.padding, self.dilation, self.dtype = stride, padding, dilation, dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype or torch.float32
         b = None if self.bias is None else self.bias.to(dt)
-        return F.conv2d(x.to(dt), self.weight.to(dt), b, self.stride, self.padding)
+        return F.conv2d(x.to(dt), self.weight.to(dt), b, self.stride, self.padding, self.dilation)
 
 
 class ConvTranspose2d(nn.Module):

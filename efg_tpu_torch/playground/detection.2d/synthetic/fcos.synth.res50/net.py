@@ -1,0 +1,7 @@
+"""`build_model` of the experiment
+`playground/detection.2d/synthetic/fcos.synth.res50` for the port
+(the counterpart of its `net.py`): `models/fcos.py` `build_model`, the FCOS
+ModelDef from the config's `model.fcos`, on `device`, its initial weights
+drawn from `generator`."""
+
+from efg_tpu_torch.models.fcos import build_model  # noqa: F401

@@ -1,4 +1,5 @@
-"""Learning-rate and momentum schedules (port of the OneCycle schedule of
+"""Learning-rate and momentum schedules (port of the OneCycle and
+WarmupMultiStep schedules and `warmup_factor_at` of
 `efg_tpu/solver/schedulers.py`).
 
 A schedule maps the update count (0 for the first update, as
@@ -9,7 +10,7 @@ computes it under jit.
 from __future__ import annotations
 
 import math
-from typing import Callable, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
@@ -55,10 +56,58 @@ def one_cycle(
     return lr_fn, mom_fn
 
 
-def build_scheduler(cfg) -> Tuple[Schedule, Schedule]:
+def warmup_factor_at(method: str, it: int, warmup_iters: int, warmup_factor: float) -> torch.Tensor:
+    """The warm-up factor at iteration `it`, f32: `constant` (the factor),
+    `linear` (factor → 1) or `burnin` ((it / iters)⁴); 1 from
+    `warmup_iters` on."""
+    it_f = torch.tensor(it, dtype=torch.float32)
+    if method == "constant":
+        f = torch.full_like(it_f, warmup_factor)
+    elif method == "linear":
+        alpha = it_f / warmup_iters
+        f = warmup_factor * (1 - alpha) + alpha
+    elif method == "burnin":
+        x2 = (it_f / warmup_iters) ** 2
+        f = x2 * x2  # jnp's x ** 4 (lax.integer_pow: squared twice)
+    else:
+        raise ValueError(f"Unknown warmup method: {method}")
+    return torch.where(it_f >= warmup_iters, torch.ones_like(f), f)
+
+
+def warmup_multi_step(
+    *,
+    lr: float,
+    milestones: Sequence[int],
+    gamma: float = 0.1,
+    warmup_factor: float = 0.001,
+    warmup_iters: int = 1000,
+    warmup_method: str = "linear",
+    **_,
+) -> Tuple[Schedule, Optional[Schedule]]:
+    """lr · warmup factor · gamma^(milestones passed); no momentum
+    schedule."""
+    milestones = list(milestones)
+    if milestones != sorted(milestones):
+        raise ValueError(f"milestones {milestones} are not sorted")
+    ms = torch.tensor(milestones, dtype=torch.float32)
+
+    def lr_fn(step: int) -> torch.Tensor:
+        wf = warmup_factor_at(warmup_method, step, warmup_iters, warmup_factor)
+        n_passed = (torch.tensor(float(step)) >= ms).sum().float()
+        return lr * wf * torch.pow(torch.tensor(gamma, dtype=torch.float32), n_passed)
+
+    return lr_fn, None
+
+
+SCHEDULERS = {"OneCycle": one_cycle, "WarmupMultiStep": warmup_multi_step}
+
+
+def build_scheduler(cfg) -> Tuple[Schedule, Optional[Schedule]]:
     """cfg = solver.lr_scheduler with the optimizer's `lr` merged in (the
-    caller's job, as in efg_tpu). Only OneCycle is ported so far."""
+    caller's job, as in efg_tpu). OneCycle and WarmupMultiStep are ported;
+    efg_tpu's LinearWarmupCosineAnnealing is not (ROADMAP queue 1 item
+    13)."""
     kwargs = {k: v for k, v in dict(cfg).items() if k != "type"}
-    if cfg["type"] != "OneCycle":
+    if cfg["type"] not in SCHEDULERS:
         raise KeyError(f"lr scheduler {cfg['type']!r} is not ported")
-    return one_cycle(**kwargs)
+    return SCHEDULERS[cfg["type"]](**kwargs)

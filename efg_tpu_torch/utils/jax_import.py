@@ -16,7 +16,14 @@ flax path is its torch module path:
   a `MultiHeadDotProductAttention`, whose query / key / value kernels are
   [C, NH, hd] (bias [NH, hd]) and whose out kernel is [NH, hd, C], fold
   their head axes into the Linear's;
-- LayerNorm and GroupNorm scale / bias → weight / bias.
+- LayerNorm and GroupNorm scale / bias → weight / bias;
+- FrozenBatchNorm like BatchNorm (its scale / bias are flax params,
+  mean / var batch_stats);
+- a parameter a module holds itself (its `flax_params`: FCOS's head
+  `scales`, AutoAssign's `mu` / `sigma`) is taken as it is.
+
+`flax_names` gives each torch tensor's flax path, which the optimizers'
+weight-decay mask reads (`solver/optimizers.py`).
 
 The mapping is strict: every flax leaf is used once and every torch
 parameter and buffer is filled once, with its own shape; anything else
@@ -31,6 +38,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from efg_tpu_torch.modeling.backbones.resnet import FrozenBatchNorm
 from efg_tpu_torch.modeling.backbones.rpn import Conv2d, ConvTranspose2d
 from efg_tpu_torch.modeling.backbones.sparse_net import SparseConvDown, SubMConv
 from efg_tpu_torch.modeling.common.norms import BatchNorm, MaskedBatchNorm
@@ -43,6 +51,72 @@ def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()):
             yield from _leaves(v, prefix + (k,))
         else:
             yield prefix + (k,)
+
+
+def _entries(module: nn.Module):
+    """(torch state key, flax collection, flax path, convert) for every
+    tensor of `module` that has a flax leaf; `convert` maps the leaf (an
+    f32 numpy array) to the torch value."""
+    heads = {}  # Linear module name → the head split of its MHA's kernels
+    for name, mod in module.named_modules():
+        if isinstance(mod, MultiHeadDotProductAttention):
+            d = mod.query.in_features
+            nh = mod.num_heads
+            for proj in ("query", "key", "value"):
+                heads[f"{name}.{proj}"] = ((d, nh, d // nh), (nh, d // nh))
+            heads[f"{name}.out"] = ((nh, d // nh, d), (d,))
+
+    def same(v):
+        return v
+
+    def shaped(path, shape, then):
+        def convert(v):
+            if v.shape != tuple(shape):
+                raise ValueError(f"flax params/{'/'.join(path)}: shape {v.shape}, "
+                                 f"expected {tuple(shape)}")
+            return then(v)
+        return convert
+
+    for name, mod in module.named_modules():
+        path = tuple(name.split(".")) if name else ()
+        pre = f"{name}." if name else ""
+        if isinstance(mod, nn.Linear):
+            k_shape, b_shape = heads.get(name, ((mod.in_features, mod.out_features),
+                                                (mod.out_features,)))
+            i, o = mod.in_features, mod.out_features
+            yield (pre + "weight", "params", path + ("kernel",),
+                   shaped(path + ("kernel",), k_shape, lambda v, i=i, o=o: v.reshape(i, o).T))
+            if mod.bias is not None:  # a flax Dense with use_bias=False has none
+                yield (pre + "bias", "params", path + ("bias",),
+                       shaped(path + ("bias",), b_shape, lambda v: v.reshape(-1)))
+        elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):
+            yield pre + "weight", "params", path + ("scale",), same
+            yield pre + "bias", "params", path + ("bias",), same
+        elif isinstance(mod, (SubMConv, SparseConvDown)):
+            yield pre + "weight", "params", path + ("kernel",), same
+            if getattr(mod, "bias", None) is not None:
+                yield pre + "bias", "params", path + ("bias",), same
+        elif isinstance(mod, Conv2d):
+            yield pre + "weight", "params", path + ("kernel",), lambda v: v.transpose(3, 2, 0, 1)
+            if mod.bias is not None:
+                yield pre + "bias", "params", path + ("bias",), same
+        elif isinstance(mod, ConvTranspose2d):
+            yield (pre + "weight", "params", path + ("kernel",),
+                   lambda v: v[::-1, ::-1].transpose(2, 3, 0, 1))
+        elif isinstance(mod, (MaskedBatchNorm, BatchNorm, FrozenBatchNorm)):
+            yield pre + "weight", "params", path + ("scale",), same
+            yield pre + "bias", "params", path + ("bias",), same
+            yield pre + "running_mean", "batch_stats", path + ("mean",), same
+            yield pre + "running_var", "batch_stats", path + ("var",), same
+        # parameters a module holds itself (flax `self.param` leaves),
+        # taken as they are: FCOS's `scales`, AutoAssign's `mu` / `sigma`
+        for leaf in getattr(mod, "flax_params", ()):
+            yield pre + leaf, "params", path + (leaf,), same
+
+
+def flax_names(module: nn.Module) -> Dict[str, Tuple[str, Tuple[str, ...]]]:
+    """torch state key → (flax collection, flax path) of its leaf."""
+    return {key: (coll, path) for key, coll, path, _ in _entries(module)}
 
 
 def flax_to_state_dict(module: nn.Module, variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -64,57 +138,10 @@ def flax_to_state_dict(module: nn.Module, variables: Mapping[str, Any]) -> Dict[
         return np.asarray(node, dtype=np.float32)
 
     sd: Dict[str, np.ndarray] = {}
-
-    def put(key: str, value: np.ndarray) -> None:
+    for key, coll, path, convert in _entries(module):
         if key in sd:
             raise KeyError(f"{key} filled twice")
-        sd[key] = value
-
-    def take_shaped(path, leaf, shape):
-        value = take("params", path + (leaf,))
-        if value.shape != tuple(shape):
-            raise ValueError(f"flax params/{'/'.join(path + (leaf,))}: shape {value.shape}, "
-                             f"expected {tuple(shape)}")
-        return value
-
-    heads = {}  # Linear module name → the head split of its MHA's kernels
-    for name, mod in module.named_modules():
-        if isinstance(mod, MultiHeadDotProductAttention):
-            d = mod.query.in_features
-            nh = mod.num_heads
-            for proj in ("query", "key", "value"):
-                heads[f"{name}.{proj}"] = ((d, nh, d // nh), (nh, d // nh))
-            heads[f"{name}.out"] = ((nh, d // nh, d), (d,))
-
-    for name, mod in module.named_modules():
-        path = tuple(name.split(".")) if name else ()
-        pre = f"{name}." if name else ""
-        if isinstance(mod, nn.Linear):
-            k_shape, b_shape = heads.get(name, ((mod.in_features, mod.out_features),
-                                                (mod.out_features,)))
-            k = take_shaped(path, "kernel", k_shape)
-            put(pre + "weight", k.reshape(mod.in_features, mod.out_features).T)
-            if mod.bias is not None:  # a flax Dense with use_bias=False has none
-                put(pre + "bias", take_shaped(path, "bias", b_shape).reshape(-1))
-        elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):
-            put(pre + "weight", take("params", path + ("scale",)))
-            put(pre + "bias", take("params", path + ("bias",)))
-        elif isinstance(mod, (SubMConv, SparseConvDown)):
-            put(pre + "weight", take("params", path + ("kernel",)))
-            if getattr(mod, "bias", None) is not None:
-                put(pre + "bias", take("params", path + ("bias",)))
-        elif isinstance(mod, Conv2d):
-            put(pre + "weight", take("params", path + ("kernel",)).transpose(3, 2, 0, 1))
-            if mod.bias is not None:
-                put(pre + "bias", take("params", path + ("bias",)))
-        elif isinstance(mod, ConvTranspose2d):
-            k = take("params", path + ("kernel",))
-            put(pre + "weight", k[::-1, ::-1].transpose(2, 3, 0, 1))
-        elif isinstance(mod, (MaskedBatchNorm, BatchNorm)):
-            put(pre + "weight", take("params", path + ("scale",)))
-            put(pre + "bias", take("params", path + ("bias",)))
-            put(pre + "running_mean", take("batch_stats", path + ("mean",)))
-            put(pre + "running_var", take("batch_stats", path + ("var",)))
+        sd[key] = convert(take(coll, path))
 
     target = module.state_dict()
     missing = sorted(set(target) - set(sd))

@@ -18,8 +18,14 @@ modules, so each reference key lands on the parameter or buffer that
 - BatchNorm weight / bias / running_mean / running_var as they are;
   `num_batches_tracked` is counted and dropped, as in efg_tpu.
 
-efg_tpu's other two formats, torchvision ResNet and mmdet Swin, map into
-models the port does not have yet (ROADMAP queue 1 items 10 and 11).
+The torchvision ResNet format (`import_torchvision_resnet`, efg_tpu's
+default) writes a torchvision-style ResNet state dict into the port's
+`ResNet` under a prefix (the 2D detectors' `backbone`): conv1 / bn1 →
+stem_conv1 / stem_norm, layer{i}.{b} → res{i+1}_block{b}, conv{j} /
+bn{j} → conv{j} / norm{j}, downsample.0 / .1 → shortcut /
+shortcut_norm. Conv weights are OIHW on both sides and are taken as
+they are. efg_tpu's mmdet Swin format maps into a model the port does not
+have yet (ROADMAP queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -188,6 +194,75 @@ def import_centerpoint_voxelnet(
             val = sparse_weight(val, sparse_layout)
         name = f"{base}.{leaf}"
         t = target.get(name) if leaf else None
+        if t is None or tuple(t.shape) != tuple(val.shape):
+            skipped.append(key)
+            continue
+        with torch.no_grad():
+            t.copy_(torch.from_numpy(np.ascontiguousarray(val)).to(t.dtype))
+        n += 1
+    return n, skipped
+
+
+# ---------------------------------------------------------------------------
+# torchvision ResNet
+# ---------------------------------------------------------------------------
+
+# efg_tpu's leaf kind (`convert_tensor`) → the port's tensor name
+_RESNET_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
+                "mean": "running_mean", "var": "running_var"}
+
+
+def _resnet_rename(key: str) -> str:
+    """torchvision ResNet key → the port's ResNet module path ("" when it
+    has none): efg_tpu's `_resnet_rename`."""
+    if key.startswith("backbone."):
+        key = key[len("backbone."):]
+    if key.startswith("conv1."):
+        return "stem_conv1"
+    if key.startswith("bn1."):
+        return "stem_norm"
+    if key.startswith("layer"):
+        parts = key.split(".")
+        base = f"res{int(parts[0][len('layer'):]) + 1}_block{parts[1]}"
+        rest = parts[2]
+        if rest.startswith("conv"):
+            return f"{base}.conv{rest[4:]}"
+        if rest.startswith("bn"):
+            return f"{base}.norm{rest[2:]}"
+        if rest == "downsample":
+            return f"{base}.shortcut" if parts[3] == "0" else f"{base}.shortcut_norm"
+    return ""
+
+
+def _leaf_kind(name: str, value: np.ndarray) -> str:
+    """efg_tpu's `convert_tensor` kind of a torch tensor name."""
+    if name.endswith(".weight"):
+        return {4: "kernel", 2: "kernel", 1: "scale"}.get(value.ndim, "raw")
+    if name.endswith(".bias"):
+        return "bias"
+    if name.endswith(".running_mean"):
+        return "mean"
+    if name.endswith(".running_var"):
+        return "var"
+    return "raw"
+
+
+def import_torchvision_resnet(sd: Dict[str, np.ndarray], module: nn.Module,
+                              prefix: str = "backbone") -> Tuple[int, list]:
+    """Write a torchvision-style ResNet state dict into the port's `ResNet`
+    found at `prefix` in `module` ("" for the module itself), in place.
+    `fc.` keys are dropped; a key that maps to no tensor of the module, or
+    to one of another shape (`num_batches_tracked` among them), is
+    skipped, as in efg_tpu. Returns (n_assigned, skipped_keys)."""
+    target = module.state_dict()
+    n, skipped = 0, []
+    for key, val in strip_prefix(sd).items():
+        if key.startswith("fc."):
+            continue
+        base = _resnet_rename(key)
+        leaf = _RESNET_LEAF.get(_leaf_kind(key, val))
+        name = ".".join(p for p in (prefix, base, leaf) if p) if base and leaf else None
+        t = target.get(name) if name else None
         if t is None or tuple(t.shape) != tuple(val.shape):
             skipped.append(key)
             continue

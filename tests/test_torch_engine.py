@@ -344,14 +344,16 @@ def test_sigterm_preemption_checkpoint_and_resume(tmp_path):
 # ------------------------------------------------------ not ported: raises
 
 @pytest.mark.parametrize("opts, exc, match", [
-    pytest.param(["trainer.evaluators=[COCOEvaluator]"], NotImplementedError,
-                 "trainer.evaluators", id="opts0-trainer.evaluators"),
+    pytest.param(["trainer.evaluators=[PanopticEvaluator]"], NotImplementedError,
+                 "trainer.evaluators.*item 11", id="opts0-trainer.evaluators"),
     # a data axis of 2 in a world of one rank: the mesh does not fit the
     # ranks, which raises as efg_tpu's build_mesh does
     pytest.param(["mesh.shape=[2,1]"], AssertionError, r"mesh shape \[2, 1\] != 1 devices",
                  id="opts1-mesh does not fit the ranks"),
-    pytest.param(["model.weights=/some/backbone.pth"], NotImplementedError,
-                 "weight import.*item 10", id="opts2-weight import"),
+    # the default format, `resnet`, is ported: the missing file raises when
+    # it is opened, as in efg_tpu
+    pytest.param(["model.weights=/some/backbone.pth"], FileNotFoundError,
+                 "/some/backbone.pth", id="opts2-weight import"),
     pytest.param(["model.weights=/some/backbone.pth", "model.weights_format=swin"],
                  NotImplementedError, "weight import.*item 11", id="opts2-weight import swin"),
     pytest.param(["mesh.shape=[1,2]"], NotImplementedError, "tensor parallelism.*item 5",
@@ -365,17 +367,17 @@ def test_unported_requests_raise(tmp_path, opts, exc, match):
 def test_cli_refusals(tmp_path, monkeypatch):
     monkeypatch.setenv("EFG_CACHE_DIR", str(tmp_path))
     base = ["--config", CONFIG, "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="COCOEvaluator is not ported.*item 10"):
-        cli.main(base + ["task=val", "trainer.evaluators=[COCOEvaluator]"])
+    with pytest.raises(NotImplementedError, match="PanopticEvaluator is not ported.*item 11"):
+        cli.main(base + ["task=val", "trainer.evaluators=[PanopticEvaluator]"])
     with pytest.raises(ValueError, match="Unknown task"):
         cli.main(base + ["task=predict"])
     with pytest.raises(ValueError, match="--num-machines 2 needs --dist-url"):
         cli.main(base + ["--num-machines", "2", "task=train"])
-    other = ROOT / "playground/detection.2d/synthetic/fcos.synth.res50/config.yaml"  # item 10
+    other = ROOT / "playground/panoptic_seg/synthetic/mask2former.synth.res50/config.yaml"  # item 11
     with pytest.raises(NotImplementedError, match="not ported yet"):
         cli.load_experiment_module(str(other))
     t = _trainer(tmp_path, ["model.weights=/some/backbone.pth"])
-    with pytest.raises(NotImplementedError, match="weight import"):
+    with pytest.raises(FileNotFoundError, match="/some/backbone.pth"):
         t.resume_or_load(resume=False)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -78,7 +78,18 @@ print(json.dumps({"modules": names, "nets": nets, "loaded": sorted(sys.modules)}
         assert f"efg_tpu_torch.{name}" in res["modules"], name
     assert "playground/detection.3d/synthetic/centerpoint.synth.voxelnet/net.py" in res["nets"]
     assert "playground/detection.3d/synthetic/conquer.synth.res18/net.py" in res["nets"]
+    for name in ("ops.nms2d", "modeling.backbones.resnet", "modeling.assigners.anchor_generator",
+                 "models.fcos", "models.retinanet", "models.autoassign",
+                 "data.processors.basic_2d", "data.datasets.coco", "data.image_io",
+                 "evaluator.coco_eval_np", "evaluator.coco_evaluator"):
+        assert f"efg_tpu_torch.{name}" in res["modules"], name
+    for exp in ("synthetic/fcos.synth.res50", "synthetic/retinanet.synth.res50",
+                "synthetic/autoassign.synth.res50", "coco/fcos/fcos.res50.fpn.coco.800size.1x"):
+        assert f"playground/detection.2d/{exp}/net.py" in res["nets"], exp
     assert [m for m in res["loaded"] if _forbidden(m)] == []
+    # image decoders are imported where an image is read or resized, not
+    # with the modules
+    assert [m for m in res["loaded"] if m.split(".")[0] in ("cv2", "PIL")] == []
 
 
 def test_every_kernel_source_is_bound_and_built():

@@ -118,16 +118,47 @@ def test_cli_train_then_val_with_database_sampling(experiment, tmp_path, monkeyp
 
 
 @pytest.mark.parametrize("fmt,item", [("resnet", 10), ("swin", 11)])
-def test_other_weight_formats_refused(experiment, tmp_path, fmt, item):
-    """efg_tpu's ResNet and Swin formats map into models the port has not
-    got yet: refused before the file is read, naming the ROADMAP item."""
+def test_other_weight_formats_refused(experiment, tmp_path, monkeypatch, fmt, item):
+    """efg_tpu's Swin format maps into a model the port has not got yet
+    (item 11): refused before the file is read, naming the ROADMAP item.
+    Its ResNet format (item 10, ported) reads a seeded torchvision file:
+    into the CenterPoint model, which holds no ResNet under `backbone`, it
+    imports 0 tensors and skips every key but `fc.`'s, as efg_tpu's
+    `import_torchvision_resnet` does, and leaves the weights as they were."""
     _, config = experiment
+    path = tmp_path / "backbone.pth"
+    if fmt == "resnet":
+        g = torch.Generator().manual_seed(item)
+        torch.save({"conv1.weight": torch.randn(64, 3, 7, 7, generator=g),
+                    "bn1.weight": torch.rand(64, generator=g), "bn1.bias": torch.zeros(64),
+                    "bn1.running_mean": torch.zeros(64), "bn1.running_var": torch.ones(64),
+                    "layer1.0.conv1.weight": torch.randn(64, 64, 1, 1, generator=g),
+                    "fc.weight": torch.randn(10, 512, generator=g)}, path)
     cfg = Configuration(config_file=config, opts=[
-        "task=train", "model.weights=/no/such/backbone.pth", f"model.weights_format={fmt}"]).get_config()
-    cfg["trainer"]["output_dir"] = str(tmp_path)
+        "task=train", f"model.weights={path}", f"model.weights_format={fmt}"]).get_config()
+    cfg["trainer"]["output_dir"] = str(tmp_path / "out")
     trainer = T.DefaultTrainer(cfg, cli.load_experiment_module(config).build_model, device="cpu")
-    with pytest.raises(NotImplementedError, match=f"weight import.*item {item}"):
-        trainer.resume_or_load(resume=False)
+    if fmt == "swin":
+        with pytest.raises(NotImplementedError, match=f"weight import.*item {item}"):
+            trainer.resume_or_load(resume=False)
+        return
+    before = {k: v.clone() for k, v in trainer.state.module.state_dict().items()}
+    calls = []
+    imp = TTI.import_torchvision_resnet
+
+    def spy(sd, module, prefix):
+        calls.append(imp(sd, module, prefix))
+        return calls[-1]
+
+    monkeypatch.setattr(TTI, "import_torchvision_resnet", spy)
+    trainer.resume_or_load(resume=False)
+    ((n, skipped),) = calls
+    assert n == 0 and sorted(skipped) == sorted(
+        ["conv1.weight", "bn1.weight", "bn1.bias", "bn1.running_mean", "bn1.running_var",
+         "layer1.0.conv1.weight"])
+    for k, v in trainer.state.module.state_dict().items():
+        assert torch.equal(v, before[k]), k
+    assert trainer.start_iter == 0
 
 
 def test_zoo_uri_weights_load_from_the_cache(experiment, tmp_path, monkeypatch):
