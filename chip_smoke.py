@@ -244,6 +244,31 @@ either. Phases (each prints JSON lines; any failure exits 1):
              decode + NMS; GT as detections read AP = AP50 = AP75 = 1.
              (c) An FCOS forward card against CPU within 1e-4 and equal
              keep sets of predict on the same predictions.
+21. panoptic — Mask2Former (no sparse kernel on its path; the launch
+             counters read 0 over the phase). (a) The synthetic experiment
+             as written (R-50, bs 2, 128×128) through the CLI: task=train
+             12 iterations, task=val. (b) The golden's run
+             (tests/goldens/mask2former_synth.json's overrides: R-18,
+             96×96, bs 8, 120 iterations): its loss records beside the
+             golden's, the golden's criterion (finite, tail-quarter mean
+             under 0.8 × the first record). (c) Both COCO panoptic configs
+             as written (R-50 and Swin-T; LSJ to 1024×1024, bs 2, two
+             loader threads, 12544 points, 9 decoder layers; val 800×1344)
+             on a COCO panoptic fixture the phase writes (8 train and 6
+             val PNGs of 480×640 / 640×480 / 427×640, RGB-id PNGs, stuff
+             bands and things, a crowd segment, the 133 categories' real
+             ids), with the two overrides the configs' efg_tpu failures
+             force (`milestones`, `trainer.evaluators=[PanopticEvaluator]`);
+             R-50 from a seeded torchvision .pth (BN statistics measured on
+             the fixture), Swin-T from a seeded mmdet-format .pth
+             (`weights_format: swin`): task=train 4 iterations (train_step
+             by CUDA events, IterTimer's time, the prefetcher's next, the
+             matcher's host ms, peak memory), task=val (eval step ms, the
+             val loader's and the evaluator's ms, val frames/s); the R-50
+             eval step at bs 1 split into backbone, pixel decoder,
+             transformer decoder and predict; the val images' GT segments
+             as predictions read PQ = SQ = RQ = 1 exactly. (d) A
+             Mask2Former forward card against CPU within 1e-4.
 
 The second-to-last line lists every kernel as JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", ...}}.
@@ -253,6 +278,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import importlib
 import json
 import os
 import re
@@ -1988,7 +2014,6 @@ def phase_train_profile(md, card: str):
     launch, so the idle shares it reads are an upper bound for the step run
     without it."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from efg_tpu_torch.engine.trainer import apply_grads, init_state, train_forward, train_step
@@ -2010,12 +2035,23 @@ def phase_train_profile(md, card: str):
         losses = part("targets_and_loss", lambda: md.loss_fn(preds, batch))
         part("backward", lambda: losses["loss"].backward())
         part("optimizer", lambda: apply_grads(tx, state))
+    emit({"phase": "train_profile", "card": card, "batch_size": TRAIN_BATCH[0],
+          **profile_parts(prof)})
+
+
+def profile_parts(prof, top_n=15) -> dict:
+    """A torch.profiler run's `part:<name>` ranges (each ended by a device
+    synchronization): per part the wall time, the device's busy time (union
+    of its kernel and copy intervals), the idle share and the device event
+    count; their sums; and the kernels that take the most device time."""
+    from torch.autograd import DeviceType
+
     events = prof.events()
     # device-side events, without the profiler's own range annotations
     device = [e for e in events
               if e.device_type == DeviceType.CUDA and not e.name.startswith("part:")]
     if not device:
-        raise AssertionError("train_profile: the profiler recorded no device activity")
+        raise AssertionError("profile: the profiler recorded no device activity")
 
     def busy_us(evs):
         total, end = 0.0, float("-inf")
@@ -2042,12 +2078,10 @@ def phase_train_profile(md, card: str):
         k = per_kernel.setdefault(d.name, [0, 0.0])
         k[0] += 1
         k[1] += (d.time_range.end - d.time_range.start) / 1e3
-    top = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])[:15]
-    emit({"phase": "train_profile", "card": card, "batch_size": TRAIN_BATCH[0], "parts": parts,
-          "step_wall_ms": wall, "step_device_busy_ms": busy,
-          "step_device_idle_share": 1 - busy / wall,
-          "device_events": len(device),
-          "top_device_time": [{"name": n[:120], "count": c, "ms": ms} for n, (c, ms) in top]})
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])[:top_n]
+    return {"parts": parts, "step_wall_ms": wall, "step_device_busy_ms": busy,
+            "step_device_idle_share": 1 - busy / wall, "device_events": len(device),
+            "top_device_time": [{"name": n[:120], "count": c, "ms": ms} for n, (c, ms) in top]}
 
 
 class LoopProbe:
@@ -2283,10 +2317,12 @@ def phase_engine(card: str, bare_step_ms, device="cuda", small=()):
 def _evaluator_classes():
     from efg_tpu_torch.evaluator.coco_evaluator import COCOEvaluator
     from efg_tpu_torch.evaluator.nuscenes_evaluator import nuScenesDetEvaluator
+    from efg_tpu_torch.evaluator.panoptic_evaluator import PanopticEvaluator
     from efg_tpu_torch.evaluator.tracking_evaluator import TrackingEvaluator
     from efg_tpu_torch.evaluator.waymo_evaluator import WaymoDetEvaluator
 
-    return [WaymoDetEvaluator, nuScenesDetEvaluator, TrackingEvaluator, COCOEvaluator]
+    return [WaymoDetEvaluator, nuScenesDetEvaluator, TrackingEvaluator, COCOEvaluator,
+            PanopticEvaluator]
 
 
 class EvalProbe:
@@ -2904,20 +2940,24 @@ def detr_solver():
 
 
 class MatcherProbe:
-    """Wraps voxel_detr's matcher: the host milliseconds of every solve
-    (the costs' copy to the host, scipy, the copy back) and, with `record`,
-    its inputs and assignment."""
+    """Wraps a model module's matcher (voxel_detr's unless `module` names
+    another): the host milliseconds of every solve (the costs' copy to the
+    host, scipy, the copy back; with `sync`, timed from when the card has
+    finished the costs) and, with `record`, its inputs and assignment."""
 
-    def __init__(self, record: bool = False):
-        self.record = record
+    def __init__(self, record: bool = False, module: str = "voxel_detr", sync: bool = False):
+        self.record, self.sync = record, sync
+        self.module = importlib.import_module(f"efg_tpu_torch.models.{module}")
         self.ms, self.calls = [], []
 
     def __enter__(self):
-        from efg_tpu_torch.models import voxel_detr as VD
+        import torch
 
-        self._orig = VD.hungarian_match
+        self._orig = self.module.hungarian_match
 
         def match(cost, gt_mask):
+            if self.sync and cost.is_cuda:
+                torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = self._orig(cost, gt_mask)
             self.ms.append((time.perf_counter() - t0) * 1e3)
@@ -2925,13 +2965,11 @@ class MatcherProbe:
                 self.calls.append((cost.detach().float().cpu(), gt_mask.cpu(), out.cpu()))
             return out
 
-        VD.hungarian_match = match
+        self.module.hungarian_match = match
         return self
 
     def __exit__(self, *exc):
-        from efg_tpu_torch.models import voxel_detr as VD
-
-        VD.hungarian_match = self._orig
+        self.module.hungarian_match = self._orig
         return False
 
 
@@ -5246,19 +5284,19 @@ def _calibrate_bn(sd, images):
             sd[k] = state[f"{TI._resnet_rename(k)}.{leaf}"].clone()
 
 
-def fixture_images(root, n=4, size=(384, 512)):
+def fixture_images(root, n=4, size=(384, 512), mean=(103.53, 116.28, 123.675), std=(1.0, 1.0, 1.0)):
     """The first `n` train images of the fixture at `root`, resized to
-    `size` (h, w) and normalised as the COCO configs do (BGR − their
-    mean): [n, 3, h, w]."""
+    `size` (h, w) and normalised as a config's NormalizeImage does ((BGR −
+    mean) / std; the default the detection configs'): [n, 3, h, w]."""
     import cv2
     import torch
 
     from efg_tpu_torch.data.image_io import read_image
 
     names = sorted(os.listdir(os.path.join(root, "train2017")))[:n]
-    mean = np.asarray([103.53, 116.28, 123.675], np.float32)
-    imgs = [cv2.resize(read_image(os.path.join(root, "train2017", f)), size[::-1],
-                       interpolation=cv2.INTER_LINEAR) - mean for f in names]
+    mean, std = np.asarray(mean, np.float32), np.asarray(std, np.float32)
+    imgs = [(cv2.resize(read_image(os.path.join(root, "train2017", f)), size[::-1],
+                        interpolation=cv2.INTER_LINEAR) - mean) / std for f in names]
     return torch.from_numpy(np.stack(imgs)).permute(0, 3, 1, 2).contiguous()
 
 
@@ -5576,6 +5614,528 @@ def phase_det2d(card: str, device="cuda", synth=(), small_coco=()):
         shutil.rmtree(base, ignore_errors=True)
 
 
+PANOPTIC_SYNTH = "playground/panoptic_seg/synthetic/mask2former.synth.res50"
+PANOPTIC_COCO = {
+    "res50": "playground/panoptic_seg/coco/mask2former/mask2former.pano_coco.res50.bs16.50e",
+    "swin_t": "playground/panoptic_seg/coco/mask2former/mask2former.pano_coco.swin_t.bs16.50e",
+}
+PANOPTIC_GOLDEN = "tests/goldens/mask2former_synth.json"
+PANOPTIC_ITERS = 4  # full-width training iterations of each COCO config
+PANOPTIC_TRAIN, PANOPTIC_VAL = 8, 6  # fixture images a split
+PANOPTIC_SEED = 23
+PANOPTIC_CHECK = (1, 256, 384)  # card vs CPU: batch, height, width
+PANOPTIC_CHECK_TOL = 1e-4  # of each output's max: f32 with TF32 off, summation order
+PANOPTIC_TIMED = 5  # timed runs of each eval-step part
+# COCO panoptic's 53 stuff categories (ids 92-200), after its 80 things
+COCO_STUFF = (
+    (92, "banner"), (93, "blanket"), (95, "bridge"), (100, "cardboard"), (107, "counter"),
+    (109, "curtain"), (112, "door-stuff"), (118, "floor-wood"), (119, "flower"), (122, "fruit"),
+    (125, "gravel"), (128, "house"), (130, "light"), (133, "mirror-stuff"), (138, "net"),
+    (141, "pillow"), (144, "platform"), (145, "playingfield"), (147, "railroad"), (148, "river"),
+    (149, "road"), (151, "roof"), (154, "sand"), (155, "sea"), (156, "shelf"), (159, "snow"),
+    (161, "stairs"), (166, "tent"), (168, "towel"), (171, "wall-brick"), (175, "wall-stone"),
+    (176, "wall-tile"), (177, "wall-wood"), (178, "water-other"), (180, "window-blind"),
+    (181, "window-other"), (184, "tree-merged"), (185, "fence-merged"), (186, "ceiling-merged"),
+    (187, "sky-other-merged"), (188, "cabinet-merged"), (189, "table-merged"),
+    (190, "floor-other-merged"), (191, "pavement-merged"), (192, "mountain-merged"),
+    (193, "grass-merged"), (194, "dirt-merged"), (195, "paper-merged"),
+    (196, "food-other-merged"), (197, "building-other-merged"), (198, "rock-merged"),
+    (199, "wall-other-merged"), (200, "rug-merged"),
+)
+
+
+def write_coco_panoptic_fixture(root, seed=PANOPTIC_SEED, n_train=PANOPTIC_TRAIN,
+                                n_val=PANOPTIC_VAL, sizes=DET2D_SIZES):
+    """A COCO panoptic 2017-format dataset under `root`: `{split}2017/` PNG
+    images, `panoptic_{split}2017/` RGB-id PNGs (id = R + G·256 + B·256²,
+    random 24-bit ids), `annotations/instances_{split}2017.json` (the
+    things) and `annotations/panoptic_{split}2017.json` (`segments_info`,
+    the 133 categories with `isthing`). Each image, in turn of `sizes`:
+    2-4 horizontal stuff bands with a void strip, 2-12 thing rectangles
+    over them; each split's first image's last thing is a crowd segment.
+    Returns the segment count by split."""
+    import cv2
+
+    rs = np.random.RandomState(seed)
+    os.makedirs(os.path.join(root, "annotations"), exist_ok=True)
+    cats = ([dict(id=c, name=n, isthing=1, supercategory="thing") for c, n in COCO_CATEGORIES]
+            + [dict(id=c, name=n, isthing=0, supercategory="stuff") for c, n in COCO_STUFF])
+    counts = {}
+    for split, n_images in (("train", n_train), ("val", n_val)):
+        for d in (f"{split}2017", f"panoptic_{split}2017"):
+            os.makedirs(os.path.join(root, d), exist_ok=True)
+        images, inst, pano = [], [], []
+        for i in range(n_images):
+            h, w = sizes[i % len(sizes)]
+            img_id = 100000 * (split == "val") + 41 * i + 5
+            name = f"{img_id:012d}.png"
+            ids = np.zeros((h, w), np.int64)
+            pixels = rs.randint(0, 256, (h, w, 3)).astype(np.uint8)
+            segs, things = [], []
+            cuts = np.sort(rs.choice(np.arange(h // 8, h - h // 8), rs.randint(1, 4), replace=False))
+            for k, (y0, y1) in enumerate(zip([0, *cuts], [*cuts, h])):
+                sid = int(rs.randint(1, 2 ** 24))
+                ids[y0 + (2 if k else 0):y1] = sid  # two void rows under each cut
+                segs.append(dict(id=sid, category_id=COCO_STUFF[rs.randint(53)][0], iscrowd=0))
+            n_things = rs.randint(2, 13)
+            for k in range(n_things):
+                bw, bh = int(rs.uniform(16, w * 0.4)), int(rs.uniform(16, h * 0.4))
+                x, y = int(rs.uniform(0, w - bw)), int(rs.uniform(0, h - bh))
+                sid = int(rs.randint(1, 2 ** 24))
+                ids[y:y + bh, x:x + bw] = sid
+                pixels[y:y + bh, x:x + bw] = rs.randint(0, 256, 3)
+                crowd = int(i == 0 and k == n_things - 1)
+                segs.append(dict(id=sid, category_id=COCO_CATEGORIES[rs.randint(80)][0],
+                                 iscrowd=crowd))
+                things.append(sid)
+            kept = []
+            for s in segs:  # a segment drawn over whole is gone
+                ys, xs = np.nonzero(ids == s["id"])
+                if not len(ys):
+                    continue
+                s["bbox"] = [int(xs.min()), int(ys.min()), int(xs.max() - xs.min() + 1),
+                             int(ys.max() - ys.min() + 1)]
+                s["area"] = int(len(ys))
+                kept.append(s)
+                if s["id"] in things:
+                    inst.append(dict(id=len(inst) + 1, image_id=img_id,
+                                     category_id=s["category_id"],
+                                     bbox=[float(v) for v in s["bbox"]], area=float(s["area"]),
+                                     iscrowd=s["iscrowd"]))
+            png = np.stack([ids // 256 ** 2, (ids // 256) % 256, ids % 256], -1).astype(np.uint8)
+            for d, arr in ((f"panoptic_{split}2017", png), (f"{split}2017", pixels)):
+                if not cv2.imwrite(os.path.join(root, d, name), arr):
+                    raise OSError(f"cv2 could not write {d}/{name}")
+            images.append(dict(id=img_id, file_name=name, height=h, width=w))
+            pano.append(dict(image_id=img_id, file_name=name, segments_info=kept))
+        counts[split] = sum(len(p["segments_info"]) for p in pano)
+        for kind, body in (("instances", dict(images=images, annotations=inst,
+                                              categories=cats[:80])),
+                           ("panoptic", dict(images=images, annotations=pano, categories=cats))):
+            with open(os.path.join(root, "annotations", f"{kind}_{split}2017.json"), "w") as fh:
+                json.dump(body, fh)
+    return counts
+
+
+def mmdet_swin_tiny(path, seed=PANOPTIC_SEED):
+    """A Swin-T state dict in the mmdet layout (patch_embed.proj / .norm,
+    layers.{i}.blocks.{j}.{norm1, attn.{qkv, proj, relative_position_bias_table,
+    relative_position_index}, norm2, mlp.fc1 / fc2}, layers.{i}.downsample.
+    {norm, reduction}, norm{i}) of seeded values, written by torch.save:
+    linear and conv weights N(0, 1/fan_in), norm scales near 1. Returns its
+    tensor count and the count of buffers the import drops."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+
+    def lin(name, o, i, bias=True):
+        sd[f"{name}.weight"] = torch.randn(o, i, generator=g) / i ** 0.5
+        if bias:
+            sd[f"{name}.bias"] = torch.randn(o, generator=g) * 0.02
+
+    def norm(name, c):
+        sd[f"{name}.weight"] = 1 + 0.1 * torch.randn(c, generator=g)
+        sd[f"{name}.bias"] = 0.02 * torch.randn(c, generator=g)
+
+    sd["patch_embed.proj.weight"] = torch.randn(96, 3, 4, 4, generator=g) / 48 ** 0.5
+    sd["patch_embed.proj.bias"] = torch.zeros(96)
+    norm("patch_embed.norm", 96)
+    dim, dropped = 96, 0
+    for i, (depth, heads) in enumerate(zip((2, 2, 6, 2), (3, 6, 12, 24))):
+        for j in range(depth):
+            p = f"layers.{i}.blocks.{j}"
+            norm(f"{p}.norm1", dim)
+            lin(f"{p}.attn.qkv", 3 * dim, dim)
+            lin(f"{p}.attn.proj", dim, dim)
+            sd[f"{p}.attn.relative_position_bias_table"] = 0.02 * torch.randn(169, heads, generator=g)
+            sd[f"{p}.attn.relative_position_index"] = torch.zeros(49, 49, dtype=torch.long)
+            dropped += 1
+            norm(f"{p}.norm2", dim)
+            lin(f"{p}.mlp.fc1", 4 * dim, dim)
+            lin(f"{p}.mlp.fc2", dim, 4 * dim)
+        norm(f"norm{i}", dim)
+        if i < 3:
+            norm(f"layers.{i}.downsample.norm", 4 * dim)
+            lin(f"layers.{i}.downsample.reduction", 2 * dim, 4 * dim, bias=False)
+            dim *= 2
+    torch.save(sd, path)
+    return len(sd), dropped
+
+
+def _panoptic_results(label, res):
+    keys = {"panoptic/PQ", "panoptic/SQ", "panoptic/RQ", "panoptic/n_categories"}
+    if set(res) != keys or not all(0.0 <= res[f"panoptic/{k}"] <= 1.0 for k in ("PQ", "SQ", "RQ")):
+        raise AssertionError(f"{label}: results {res}")
+
+
+def _m2f_parts_ms(md, batch):
+    """The Mask2Former eval step on `batch` by CUDA events (PANOPTIC_TIMED
+    runs after a warm-up), whole and in parts: backbone, pixel decoder,
+    transformer decoder (with the heads), predict."""
+    import torch
+
+    from efg_tpu_torch.engine.trainer import eval_step
+
+    m = md.module
+    m.eval()
+    images = batch["images"]
+    with torch.inference_mode():
+        feats = m.features(images)
+        mask_features, scales = m.pixel_decoder(feats)
+        preds = m.decode(mask_features, scales)
+        parts = {
+            "eval_step": _event_ms(lambda: eval_step(md, batch), PANOPTIC_TIMED),
+            "backbone": _event_ms(lambda: m.features(images), PANOPTIC_TIMED),
+            "pixel_decoder": _event_ms(lambda: m.pixel_decoder(feats), PANOPTIC_TIMED),
+            "transformer_decoder": _event_ms(lambda: m.decode(mask_features, scales),
+                                             PANOPTIC_TIMED),
+            "predict": _event_ms(lambda: md.predict_fn(preds, batch), PANOPTIC_TIMED),
+        }
+    return {k: {"median": float(np.median(v)), "runs": v} for k, v in parts.items()}
+
+
+def _m2f_step_profile(trainer, card: str, name: str):
+    """One training step of a COCO panoptic config's trainer (after a
+    warm-up step, on a batch from its own loader) under torch.profiler,
+    split into the trunk, the pixel decoder, the transformer decoder, the
+    loss (matcher and criterion), the backward and the optimizer, each
+    ended by a device synchronization (`profile_parts`). The profiler adds
+    host time a launch, so its idle shares bound the plain step's from
+    above."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from efg_tpu_torch.engine.trainer import _train_mode, apply_grads, step_generator, train_step
+
+    md, state, tx = trainer.model_def, trainer.state, trainer.tx
+    dev = trainer.device
+    host = next(iter(trainer.dataloader))
+    batch = {k: torch.from_numpy(v).to(dev) if isinstance(v, np.ndarray) else v
+             for k, v in host.items()}
+    train_step(md, tx, state, batch)
+    torch.cuda.synchronize()
+
+    def part(label, fn):
+        with record_function(f"part:{label}"):
+            out = fn()
+            torch.cuda.synchronize()
+        return out
+
+    m = _train_mode(state)
+    gen = step_generator(0, state.step, dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        feats = part("backbone", lambda: m.features(batch["images"], gen))
+        mf, scales = part("pixel_decoder", lambda: m.pixel_decoder(feats))
+        preds = part("transformer_decoder", lambda: m.decode(mf, scales))
+        losses = part("loss", lambda: md.loss_fn(preds, batch,
+                                                 rng=step_generator(0, state.step, dev, 1)))
+        part("backward", lambda: losses["loss"].backward())
+        part("optimizer", lambda: apply_grads(tx, state))
+    emit({"phase": "panoptic", "part": "train_profile", "model": name, "card": card,
+          "batch_size": int(batch["images"].shape[0]),
+          "canvas": list(batch["images"].shape[1:3]), **profile_parts(prof)})
+
+
+def _m2f_card_vs_cpu(card, devices=("cpu", "cuda")):
+    """One Mask2Former forward (R-50, d_model 256, 100 queries, 9 decoder
+    layers, 133 classes: the COCO configs' model) at PANOPTIC_CHECK on the
+    card and on the CPU from the same seeded weights. The masked attention
+    thresholds σ(mask logit) at 0.5, so a bit whose value lies within the
+    devices' rounding of 0.5 may differ and move every later layer; the
+    card's forward therefore runs with the CPU's attention masks, and then
+    every layer's class and mask logits must lie within
+    PANOPTIC_CHECK_TOL of each output's max. The masks the card computes
+    itself in that forward are held against the CPU's: a bit may differ
+    only where the CPU's σ lies within PANOPTIC_CHECK_TOL of 0.5.
+    `devices` (reference, checked) rehearse the check on the CPU."""
+    import torch
+
+    from efg_tpu_torch.models import mask2former as M
+    from efg_tpu_torch.ops.resize import resize
+
+    bsz, h, w = PANOPTIC_CHECK
+    images = torch.from_numpy(np.random.RandomState(PANOPTIC_SEED).uniform(
+        -2, 2, (bsz, h, w, 3)).astype(np.float32))
+    forward0 = M.DecoderLayerM2F.forward
+    cpu_masks, card_masks = [], []
+
+    def record(self, queries, q_pos, memory, m_pos, attn_mask):
+        cpu_masks.append(attn_mask.cpu())
+        return forward0(self, queries, q_pos, memory, m_pos, attn_mask)
+
+    def replay(self, queries, q_pos, memory, m_pos, attn_mask):
+        card_masks.append(attn_mask.cpu())
+        forced = cpu_masks[len(card_masks) - 1].to(attn_mask.device)
+        return forward0(self, queries, q_pos, memory, m_pos, forced)
+
+    out = {}
+    try:
+        for dev, fwd in zip(devices, (record, replay)):
+            M.DecoderLayerM2F.forward = fwd
+            m = M.Mask2Former(num_classes=133, num_queries=100, d_model=256, dec_layers=9,
+                              depth=50, device=dev,
+                              generator=torch.Generator().manual_seed(PANOPTIC_SEED))
+            m.eval()
+            with torch.inference_mode():
+                out[dev] = {k: v.cpu().double() for k, v in m(images.to(dev)).items()}
+            del m
+    finally:
+        M.DecoderLayerM2F.forward = forward0
+    ref, got = (out[d] for d in devices)
+    errs = {k: float((got[k] - ref[k]).abs().max()) / max(float(ref[k].abs().max()), 1e-6)
+            for k in ref}
+    # layer i attends by prediction i's mask logits shrunk to res5, res4,
+    # res3 in turn (strides 32, 16, 8)
+    flips, bits, far = 0, 0, 0.0
+    logits = ref["mask_logits"].float()
+    for i, (cm, gm) in enumerate(zip(cpu_masks, card_masks)):
+        stride = (32, 16, 8)[i % 3]
+        pre = torch.sigmoid(resize(logits[i], logits.shape[1:3] + (h // stride, w // stride),
+                                   "bilinear")).reshape(cm.shape)
+        diff = cm != gm
+        bits += int(cm.numel())
+        flips += int(diff.sum())
+        if diff.any():
+            far = max(far, float((pre[diff] - 0.5).abs().max()))
+    emit({"phase": "panoptic", "part": "check", "card": card, "shape": list(PANOPTIC_CHECK),
+          "rel_err_with_the_cpu_masks": errs, "tol": PANOPTIC_CHECK_TOL,
+          "mask_bits": bits, "mask_bits_differing": flips,
+          "their_max_distance_from_half": far})
+    if max(errs.values()) > PANOPTIC_CHECK_TOL or far > PANOPTIC_CHECK_TOL:
+        raise AssertionError(f"panoptic check: rel errs {errs}, a differing mask bit "
+                             f"{far} from 0.5")
+
+
+def phase_panoptic(card: str, device="cuda", synth=(), golden_iters=None, small_coco=()):
+    """Panoptic segmentation through the CLI (no sparse kernel on its
+    path), output under a temporary EFG_CACHE_DIR:
+    (a) the synthetic Mask2Former experiment as written (R-50, bs 2,
+        128×128, 12 iterations): task=train, then task=val;
+    (b) the golden's run (`tests/goldens/mask2former_synth.json`: its
+        overrides, R-18, 96×96, bs 8, 120 iterations): the loss records
+        beside the golden's, finite, the last quarter's mean under 0.8 ×
+        the first record (the golden's own criterion; the points come
+        from another generator, so no replay);
+    (c) both COCO panoptic configs as written (LSJ to 1024×1024, bs 2,
+        two loader threads, 12544 points, 9 decoder layers; val 800×1344)
+        on a COCO panoptic fixture this phase writes, with the two
+        overrides efg_tpu's failures force (`milestones`,
+        `trainer.evaluators=[PanopticEvaluator]`): R-50 from a seeded
+        torchvision .pth (BN statistics measured on the fixture), Swin-T
+        from a seeded mmdet-format .pth (`weights_format: swin`);
+        task=train PANOPTIC_ITERS iterations (train_step by CUDA events,
+        IterTimer's time, the prefetcher's next, the matcher's host ms,
+        peak memory), then task=val (eval step ms, the val loader's and
+        the evaluator's ms a batch, val frames/s); the R-50 eval step at
+        bs 1 split into backbone, pixel decoder, transformer decoder and
+        predict; the val images' GT segments as predictions read PQ = SQ
+        = RQ = 1 exactly;
+    (d) one Mask2Former forward card against CPU within 1e-4
+        (`_m2f_card_vs_cpu`), and the sparse kernels' launch counters 0
+        over the phase.
+    `synth`, `golden_iters` and `small_coco` cut the runs for a rehearsal
+    on the CPU."""
+    import torch
+
+    from efg_tpu_torch.cli.main import experiment_relpath, load_experiment_module
+    from efg_tpu_torch.config import Configuration
+    from efg_tpu_torch.evaluator.panoptic_evaluator import PanopticEvaluator
+    from efg_tpu_torch.ops.cuda import sparse_kernels as K
+
+    base = tempfile.mkdtemp(prefix="chip_smoke_panoptic_")
+    old_env = {k: os.environ.get(k) for k in ("EFG_CACHE_DIR", "EFG_PATH")}
+    os.environ["EFG_CACHE_DIR"] = os.path.join(base, "cache")
+    os.environ["EFG_PATH"] = HERE  # the COCO configs include the dataset gallery by it
+    launches = {}
+    t_phase = time.perf_counter()
+
+    def count(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    def out_dir_of(config):
+        d = os.path.join(base, "cache", "EFG_torch", experiment_relpath(os.path.join(HERE, config)))
+        os.makedirs(d, exist_ok=True)
+        return d
+
+    logs = ["trainer.log_interval=1", "trainer.window_size=1"]
+    try:
+        # (a) the synthetic experiment as written
+        config = os.path.join(PANOPTIC_SYNTH, "config.yaml")
+        records, counts, probe = _engine_run(["task=train", *logs, *synth], out_dir_of(config),
+                                             device, config=config)
+        run = _losses(records, "panoptic synthetic")
+        count(counts)
+        counts_val, vprobe = _cli_eval_run(["task=val", *synth], device, config=config)
+        count(counts_val)
+        (_, res, evaluate_s), = vprobe.evaluations
+        emit({"phase": "panoptic", "part": "synthetic", "card": card,
+              "iterations": sorted(run), "losses": {i: r["loss"] for i, r in run.items()},
+              "loop_step_ms_cuda_events": probe.step_ms(),
+              "eval_step_ms_cuda_events": vprobe.step_ms(), "evaluate_s": evaluate_s,
+              "results": res})
+        if res != {} or not run:
+            raise AssertionError(f"panoptic synthetic: records {sorted(run)}, val results {res}")
+
+        # (b) the golden's run
+        with open(os.path.join(HERE, PANOPTIC_GOLDEN)) as fh:
+            golden = json.load(fh)
+        gopts = list(golden["overrides"])
+        if golden_iters:
+            gopts.append(f"solver.lr_scheduler.max_iters={golden_iters}")
+        gconfig = os.path.join(golden["experiment"], "config.yaml")
+        gout = os.path.join(base, "golden_cache")
+        os.environ["EFG_CACHE_DIR"] = gout
+        grecords, counts, gprobe = _engine_run(
+            ["task=train", *gopts], os.path.join(gout, "EFG_torch",
+                                                 experiment_relpath(os.path.join(HERE, gconfig))),
+            device, config=gconfig)
+        os.environ["EFG_CACHE_DIR"] = os.path.join(base, "cache")
+        count(counts)
+        grun = _losses(grecords, "panoptic golden")
+        losses = np.asarray([grun[i]["loss"] for i in sorted(grun)], np.float64)
+        tail = float(losses[-max(1, len(losses) // 4):].mean())
+        emit({"phase": "panoptic", "part": "golden", "card": card, "overrides": gopts,
+              "iterations": sorted(grun), "losses": losses.tolist(),
+              "golden_iterations": golden["iters"], "golden_losses": golden["losses"],
+              "first": float(losses[0]), "tail_mean": tail, "limit": 0.8 * float(losses[0]),
+              "loop_step_ms_cuda_events": gprobe.step_ms()})
+        if not np.isfinite(losses).all() or len(losses) < 5 or not tail < 0.8 * losses[0]:
+            raise AssertionError(f"panoptic golden: first {losses[0]}, tail mean {tail}")
+
+        # (c) the COCO panoptic configs at full width
+        root = os.path.join(base, "coco")
+        segments = write_coco_panoptic_fixture(root)
+        mean = np.asarray([123.675, 116.28, 103.53], np.float32)
+        std = np.asarray([58.395, 57.12, 57.375], np.float32)
+        weights = {"res50": os.path.join(base, "R-50.pth"),
+                   "swin_t": os.path.join(base, "swin_tiny.pth")}
+        n_tensors = {"res50": torchvision_resnet50(weights["res50"],
+                                                   fixture_images(root, mean=mean, std=std))}
+        n_swin, n_dropped = mmdet_swin_tiny(weights["swin_t"])
+        for name, exp in PANOPTIC_COCO.items():
+            config = os.path.join(exp, "config.yaml")
+            out_dir = out_dir_of(config)
+            # the two overrides efg_tpu's failures force, then the data root and weights
+            common = [f"solver.lr_scheduler.milestones=[{PANOPTIC_ITERS}]",
+                      "trainer.evaluators=[PanopticEvaluator]",
+                      f"detection.source.local.root={root}", f"model.weights={weights[name]}",
+                      *small_coco]
+            argv = ["task=train", *logs, f"solver.lr_scheduler.max_iters={PANOPTIC_ITERS}",
+                    *common]
+            cfg = Configuration(config_file=os.path.join(HERE, config), opts=argv).get_config()
+            if device == "cuda":
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            with MatcherProbe(module="mask2former", sync=True) as matcher:
+                records, counts, probe = _engine_run(argv + ["trainer.evaluators="], out_dir,
+                                                     device, config=config)
+            peak = torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else None
+            count(counts)
+            run = _losses(records, f"panoptic coco {name}")
+            with open(os.path.join(out_dir, "log.txt.rank0")) as fh:
+                imported = re.findall(r"Imported (\d+) tensors from .*skipped (\d+)", fh.read())
+            # R-50: every tensor but fc's 2 and the 53 num_batches_tracked;
+            # Swin-T: every tensor, its dropped buffers counted as imported
+            want = [(str(n_tensors["res50"] - 2 - 53), "53")] if name == "res50" \
+                else [(str(n_swin), "0")]
+            if imported != want or sorted(run) != list(range(1, PANOPTIC_ITERS + 1)):
+                raise AssertionError(f"panoptic coco {name}: import {imported} (want {want}), "
+                                     f"records {sorted(run)}")
+            pad = cfg.dataset.processors.train[-1]["PadImage"]
+            mc = cfg.model.mask2former
+            n_match = len(matcher.ms)
+            emit({"phase": "panoptic", "part": "coco_train", "model": name, "card": card,
+                  "batch_size": int(cfg.dataloader.batch_size),
+                  "canvas": [int(pad["height"]), int(pad["width"])],
+                  "num_workers": int(cfg.dataloader.num_workers),
+                  "num_points": int(mc.num_points), "dec_layers": int(mc.dec_layers),
+                  "imported_tensors": int(imported[0][0]),
+                  "dropped_buffers": n_dropped if name == "swin_t" else 0,
+                  "fixture_segments": segments, "iterations": sorted(run),
+                  "losses": {i: r["loss"] for i, r in run.items()},
+                  "loop_step_ms_cuda_events": probe.step_ms(),
+                  "iteration_time_ms": [1e3 * r["time"] for r in records if "time" in r],
+                  "data_time_ms": [1e3 * t for t in probe.data_s],
+                  "matcher_host_ms_a_step": matcher.ms,
+                  "matcher_calls": n_match, "peak_mem_gb": peak})
+            if n_match != PANOPTIC_ITERS:  # one host solve a step, every layer's costs in it
+                raise AssertionError(f"panoptic coco {name}: {n_match} matcher calls")
+
+            counts_val, vprobe = _cli_eval_run(["task=val", *common], device, config=config)
+            count(counts_val)
+            (_, res, evaluate_s), = vprobe.evaluations
+            n_frames = sum(len(b["annotations"]) for b in vprobe.batches)
+            _panoptic_results(f"panoptic coco {name} val", res)
+            emit({"phase": "panoptic", "part": "coco_val", "model": name, "card": card,
+                  "frames": n_frames, "eval_step_ms_cuda_events": vprobe.step_ms(),
+                  "data_ms": [1e3 * d for d in vprobe.data_s],
+                  "evaluator_process_ms": [1e3 * d for d in vprobe.process_s],
+                  "evaluator_evaluate_ms": [1e3 * d for d in vprobe.evaluator_s],
+                  "evaluate_s": evaluate_s, "val_frames_per_s": n_frames / evaluate_s,
+                  "results": res})
+            if n_frames != PANOPTIC_VAL:
+                raise AssertionError(f"panoptic coco {name} val: {n_frames} frames")
+            if name != "res50":
+                continue
+
+            # the val images' GT segments as predictions: a perfect segmenter
+            vcfg = Configuration(config_file=os.path.join(HERE, config),
+                                 opts=["task=val", *common]).get_config()
+            perfect = PanopticEvaluator(vcfg, None)
+            perfect.reset()
+            for inputs in vprobe.batches:
+                annos = inputs["annotations"]
+                perfect.process(inputs, dict(pan_pred=[a["pan_gt"] for a in annos],
+                                             pred_segments=[a["gt_segments"] for a in annos]))
+            pres = perfect.evaluate()
+            emit({"phase": "panoptic", "part": "perfect", "card": card, "results": pres})
+            if not pres["panoptic/PQ"] == pres["panoptic/SQ"] == pres["panoptic/RQ"] == 1.0:
+                raise AssertionError(f"panoptic: perfect predictions read {pres}")
+
+            # the R-50 eval step at bs 1, by parts
+            md = load_experiment_module(config).build_model(vcfg, device=device)
+            ckpt = torch.load(os.path.join(out_dir, "model_final"), map_location=device,
+                              weights_only=True)
+            md.module.load_state_dict(ckpt["model"])
+            host = vprobe.batches[0]
+            batch = {k: torch.from_numpy(v[:1]).to(device) if isinstance(v, np.ndarray)
+                     else v[:1] for k, v in host.items()}
+            emit({"phase": "panoptic", "part": "eval_step_parts", "card": card,
+                  "canvas": list(host["images"].shape[1:3]), "batch_size": 1,
+                  "ms_cuda_events": _m2f_parts_ms(md, batch)})
+            del md, ckpt
+            if device == "cuda":  # the train step by parts, under the profiler
+                from efg_tpu_torch.engine.trainer import DefaultTrainer
+
+                tcfg = Configuration(config_file=os.path.join(HERE, config),
+                                     opts=argv + ["dataloader.num_workers=0"]).get_config()
+                tcfg["trainer"]["output_dir"] = os.path.join(base, "profile")
+                os.makedirs(tcfg["trainer"]["output_dir"], exist_ok=True)
+                trainer = DefaultTrainer(tcfg, load_experiment_module(config).build_model,
+                                         device=device)
+                _m2f_step_profile(trainer, card, name)
+                del trainer
+
+        # (d) card against CPU, and no sparse kernel launched
+        K.reset_launches()
+        if device == "cuda":
+            _m2f_card_vs_cpu(card)
+        count(dict(K.launches))
+        emit({"phase": "panoptic", "part": "launches", "card": card, "launches": launches,
+              "phase_s": time.perf_counter() - t_phase})
+        if any(launches.values()):
+            raise AssertionError(f"panoptic: sparse kernels launched {launches}")
+    finally:
+        for k, v in old_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(base, ignore_errors=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -5626,6 +6186,7 @@ def main() -> int:
             shutil.rmtree(data, ignore_errors=True)
         nusc = phase_nusc(card)
         phase_det2d(card)
+        phase_panoptic(card)
         # a rank kernel's row is the training step's (its forward rulebooks
         # and the inverse ones); the serving forward's is in the kernels line
         train["rank_flags"]["launches_serve"] = serve["rank_flags"]["launches"]

@@ -11,10 +11,14 @@ chain. Train items drop images without a non-crowd instance when
 feed `DistributedGroupSampler`. Images are read by
 `data/image_io.py` (BGR float32, as efg_tpu's cv2 reader).
 
+`COCOPanopticDataset`: the instances json's images with the panoptic
+json's segments: a (class, mask) target per non-crowd segment (things
+and stuff) over the 133-category contiguous map of the panoptic
+categories, and the evaluator's originals (`pan_gt`, `gt_segments`,
+`gt_iscrowd_seg`), which the transforms pass through untouched.
+
 `SyntheticCOCODataset`: coloured rectangles on noise, deterministic per
 (seed, index), for runs without COCO on disk.
-
-`COCOPanopticDataset` goes with ROADMAP queue 1 item 11.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ import numpy as np
 
 from efg_tpu_torch.data.base_dataset import BaseDataset
 from efg_tpu_torch.data.builder import build_processors
-from efg_tpu_torch.data.image_io import read_image
+from efg_tpu_torch.data.image_io import read_image, read_panoptic_ids
 from efg_tpu_torch.data.registry import DATASETS
 
 # COCO person-keypoints metadata: the 17 keypoint names in annotation
@@ -162,6 +166,74 @@ class COCODataset(BaseDataset):
                     kpts[i, : len(kp)] = kp[:k]
             info["annotations"]["keypoints"] = kpts
             info["metadata"]["keypoint_hflip_indices"] = self.keypoint_hflip_indices
+        return self._apply_transforms(image, info)
+
+
+@DATASETS.register()
+class COCOPanopticDataset(COCODataset):
+    """COCO panoptic: the instance json's images, the panoptic json's
+    segments and RGB-id PNGs (`panoptic_{split}_json`, PNGs under
+    `panoptic_{split}_images`, default `/panoptic_{split}2017`)."""
+
+    def __init__(self, config):
+        super().__init__(config)
+        source = config.dataset.source
+        task = _split(config)
+        self.pan_root = source.root + source.get(f"panoptic_{task}_images",
+                                                 f"/panoptic_{task}2017")
+        with open(source.root + source[f"panoptic_{task}_json"]) as f:
+            pan = json.load(f)
+        self.pan_by_img = {a["image_id"]: a for a in pan["annotations"]}
+        # one contiguous map over the panoptic categories (things and
+        # stuff) for the targets, the predictions and the evaluation
+        pan_cats = sorted(pan.get("categories", []), key=lambda c: c["id"])
+        if pan_cats:
+            self.pan_cat_to_contiguous = {c["id"]: i for i, c in enumerate(pan_cats)}
+            self.class_names = [c["name"] for c in pan_cats]
+            self.thing_contiguous_ids = {i for i, c in enumerate(pan_cats) if c.get("isthing", 0)}
+        else:  # a panoptic json without categories: the instance things only
+            self.pan_cat_to_contiguous = dict(self.cat_id_to_contiguous)
+            self.thing_contiguous_ids = set(self.pan_cat_to_contiguous.values())
+
+    def __getitem__(self, idx):
+        img_meta, _ = self.items[idx]
+        image = read_image(os.path.join(self.image_root, img_meta["file_name"]))
+        info = {
+            "metadata": {"image_id": img_meta["id"], "height": img_meta["height"],
+                         "width": img_meta["width"]},
+            "annotations": {"boxes2d": np.zeros((0, 4), np.float32),
+                            "classes": np.zeros(0, np.int64), "iscrowd": np.zeros(0, np.int64),
+                            "areas": np.zeros(0, np.float64)},
+        }
+        pan_ann = self.pan_by_img.get(img_meta["id"])
+        if pan_ann is not None:
+            pan_id = read_panoptic_ids(os.path.join(self.pan_root, pan_ann["file_name"]))
+            # one (class, mask) target per non-crowd segment, made before the
+            # transforms so that the crop moves the masks with the image
+            segs = [s for s in pan_ann["segments_info"]
+                    if not s.get("iscrowd", 0) and s["category_id"] in self.pan_cat_to_contiguous]
+            masks = np.stack([(pan_id == s["id"]).astype(np.uint8) for s in segs]) if segs \
+                else np.zeros((0,) + pan_id.shape, np.uint8)
+            boxes = np.zeros((len(segs), 4), np.float32)
+            for i, m in enumerate(masks):
+                ys, xs = np.nonzero(m)
+                if len(ys):
+                    boxes[i] = [xs.min(), ys.min(), xs.max() + 1, ys.max() + 1]
+            anno = info["annotations"]
+            anno.update(
+                boxes2d=boxes,
+                classes=np.asarray([self.pan_cat_to_contiguous[s["category_id"]] for s in segs],
+                                   np.int64),
+                iscrowd=np.zeros(len(segs), np.int64),
+                areas=np.asarray([s.get("area", 0) for s in segs], np.float64),
+                masks=masks,
+            )
+            # the evaluator's originals, at the image's own resolution
+            anno["pan_gt"] = pan_id
+            anno["gt_segments"] = {s["id"]: self.pan_cat_to_contiguous.get(s["category_id"], -1)
+                                   for s in pan_ann["segments_info"]}
+            anno["gt_iscrowd_seg"] = {s["id"]: bool(s.get("iscrowd", 0))
+                                      for s in pan_ann["segments_info"]}
         return self._apply_transforms(image, info)
 
 

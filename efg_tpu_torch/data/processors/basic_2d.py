@@ -1,5 +1,4 @@
-"""2D image processors (port of the parts of
-`efg_tpu/data/processors/basic_2d.py` that the detection experiments use).
+"""2D image processors (port of `efg_tpu/data/processors/basic_2d.py`).
 
 Host-side numpy and OpenCV, as efg_tpu's: `cv2` is imported where an
 image or a mask is resized, not when the module is. The 2D data contract:
@@ -9,11 +8,14 @@ image or a mask is resized, not when the module is. The 2D data contract:
 geometric helpers move the image, the boxes, the keypoints, the masks and
 the semantic map together.
 
-Ported: `ResizeShortestEdge` (which records the resize in
-`metadata["scale"]`), `RandomFlip`, `NormalizeImage` and the fixed-shape
-terminal `PadImage`. The Mask2Former recipe's processors (`ResizeScale`,
-`FixedSizeCrop`, `Distortion`, the blend color augmentations,
-`RandomSwapChannels`, `RasterizeMasks`) go with ROADMAP queue 1 item 11.
+All of efg_tpu's processors: `ResizeShortestEdge` (which records the
+resize in `metadata["scale"]`), `RandomFlip`, the large-scale-jitter pair
+`ResizeScale` + `FixedSizeCrop` (the Mask2Former recipe), the HSV
+`Distortion`, the blend colour augmentations (`RandomBrightness`,
+`RandomSaturation`, `RandomLightning`), `RandomSwapChannels`,
+`NormalizeImage`, and the fixed-shape terminals `RasterizeMasks` and
+`PadImage`. Each draws from the global `np.random` stream in efg_tpu's
+order, so a seeded item equals efg_tpu's.
 """
 
 from __future__ import annotations
@@ -177,6 +179,50 @@ class ResizeShortestEdge(AugmentationBase):
 
 
 @PROCESSORS.register()
+class ResizeScale(AugmentationBase):
+    """Random-scale resize toward a target box, aspect ratio kept: the
+    resize half of large-scale jitter."""
+
+    def __init__(self, min_scale: float, max_scale: float,
+                 target_height: int, target_width: int):
+        self._init(locals())
+
+    def __call__(self, image, info):
+        h, w = image.shape[:2]
+        scale = np.random.uniform(self.min_scale, self.max_scale)
+        tsh, tsw = self.target_height * scale, self.target_width * scale
+        out_scale = min(tsh / h, tsw / w)
+        nh, nw = int(round(h * out_scale)), int(round(w * out_scale))
+        image, info = _resize_all(image, info, nh, nw)
+        info.setdefault("metadata", {})["scale"] = info.get("metadata", {}).get("scale", 1.0) * out_scale
+        return image, info
+
+
+@PROCESSORS.register()
+class FixedSizeCrop(AugmentationBase):
+    """Random crop to `crop_size` where larger, right / bottom padding where
+    smaller (`pad_value` for the image, `seg_pad_value` for the semantic
+    map): the crop half of large-scale jitter."""
+
+    def __init__(self, crop_size, pad: bool = True, pad_value: float = 128.0,
+                 seg_pad_value: int = 255):
+        crop_size = tuple(int(c) for c in crop_size)
+        self._init(locals())
+
+    def __call__(self, image, info):
+        h, w = image.shape[:2]
+        oh, ow = self.crop_size
+        max_off = np.maximum([h - oh, w - ow], 0)
+        off = np.round(max_off * np.random.uniform(0.0, 1.0)).astype(int)
+        image, info = _crop_all(image, info, int(off[1]), int(off[0]), ow, oh)
+        if self.pad:
+            nh, nw = image.shape[:2]
+            image, info = _pad_all(image, info, max(ow - nw, 0), max(oh - nh, 0),
+                                   self.pad_value, self.seg_pad_value)
+        return image, info
+
+
+@PROCESSORS.register()
 class RandomFlip(AugmentationBase):
     def __init__(self, prob=0.5, horizontal=True, vertical=False):
         self._init(locals())
@@ -190,6 +236,109 @@ class RandomFlip(AugmentationBase):
 
 
 @PROCESSORS.register()
+class Distortion(AugmentationBase):
+    """HSV jitter: hue shifted by U(−hue, hue) (wrapped), saturation and
+    exposure scaled by a factor in [1, upper] or its inverse; through
+    uint8 HSV (OpenCV) as efg_tpu's."""
+
+    def __init__(self, hue, saturation, exposure, image_format="BGR"):
+        if image_format not in ("RGB", "BGR"):
+            raise KeyError(image_format)
+        if saturation > 1.0:
+            saturation /= 255.0
+        self._init(locals())
+
+    @staticmethod
+    def _rand_scale(upper):
+        scale = np.random.uniform(1, upper)
+        return scale if np.random.rand() > 0.5 else 1.0 / scale
+
+    def __call__(self, image, info):
+        import cv2
+
+        to_hsv, from_hsv = {"RGB": (cv2.COLOR_RGB2HSV, cv2.COLOR_HSV2RGB),
+                            "BGR": (cv2.COLOR_BGR2HSV, cv2.COLOR_HSV2BGR)}[self.image_format]
+        dhue = np.random.uniform(-self.hue, self.hue)
+        dsat = self._rand_scale(self.saturation)
+        dexp = self._rand_scale(self.exposure)
+        dtype = image.dtype
+        img = cv2.cvtColor(image.astype(np.uint8) if dtype != np.uint8 else image, to_hsv)
+        img = img.astype(np.float32) / 255.0
+        img[:, :, 1] *= dsat
+        img[:, :, 2] *= dexp
+        hue = img[:, :, 0] + dhue
+        hue = np.where(hue > 1.0, hue - 1.0, hue) if dhue > 0 else np.where(hue < 0.0, hue + 1.0, hue)
+        img[:, :, 0] = hue
+        img = (img * 255).clip(0, 255).astype(np.uint8)
+        return cv2.cvtColor(img, from_hsv).astype(dtype), info
+
+
+class _Blend(AugmentationBase):
+    """src_weight·src + dst_weight·image, clipped for uint8 images."""
+
+    def _blend(self, image, src, sw, dw):
+        if image.dtype == np.uint8:
+            out = sw * src + dw * image.astype(np.float32)
+            return np.clip(out, 0, 255).astype(np.uint8)
+        return (sw * src + dw * image).astype(image.dtype)
+
+
+@PROCESSORS.register()
+class RandomBrightness(_Blend):
+    def __init__(self, intensity_min, intensity_max, prob=1.0):
+        self._init(locals())
+
+    def __call__(self, image, info):
+        if np.random.random() < self.prob:
+            w = np.random.uniform(self.intensity_min, self.intensity_max)
+            image = self._blend(image, 0.0, 1 - w, w)
+        return image, info
+
+
+@PROCESSORS.register()
+class RandomSaturation(_Blend):
+    def __init__(self, intensity_min, intensity_max, prob=1.0):
+        self._init(locals())
+
+    def __call__(self, image, info):
+        if np.random.random() < self.prob:
+            w = np.random.uniform(self.intensity_min, self.intensity_max)
+            gray = image[..., :3].astype(np.float32).dot([0.299, 0.587, 0.114])[..., None]
+            image = self._blend(image, gray, 1 - w, w)
+        return image, info
+
+
+@PROCESSORS.register()
+class RandomLightning(_Blend):
+    """ImageNet-PCA colour jitter."""
+
+    EIGEN_VECS = np.array([[-0.5675, 0.7192, 0.4009], [-0.5808, -0.0045, -0.8140],
+                           [-0.5836, -0.6948, 0.4203]])
+    EIGEN_VALS = np.array([0.2175, 0.0188, 0.0045])
+
+    def __init__(self, scale, prob=0.5):
+        self._init(locals())
+
+    def __call__(self, image, info):
+        if np.random.random() < self.prob:
+            weights = np.random.normal(scale=self.scale, size=3)
+            src = self.EIGEN_VECS.dot(weights * self.EIGEN_VALS)
+            image = self._blend(image, src, 1.0, 1.0)
+        return image, info
+
+
+@PROCESSORS.register()
+class RandomSwapChannels(AugmentationBase):
+    def __init__(self, prob=0.5):
+        self._init(locals())
+
+    def __call__(self, image, info):
+        if np.random.random() < self.prob:
+            image = image[..., np.random.permutation(3)]
+        return image, info
+
+
+@PROCESSORS.register()
 class NormalizeImage(AugmentationBase):
     def __init__(self, mean=(103.53, 116.28, 123.675), std=(1.0, 1.0, 1.0)):
         self._init(locals())
@@ -197,6 +346,46 @@ class NormalizeImage(AugmentationBase):
     def __call__(self, image, info):
         image = (image.astype(np.float32) - np.asarray(self.mean)) / np.asarray(self.std)
         return image.astype(np.float32), info
+
+
+@PROCESSORS.register()
+class RasterizeMasks(AugmentationBase):
+    """Instance masks on the fixed mask-scale grid (height / stride, width /
+    stride) for the segmentation criterion: `annotations["masks_fixed"]`
+    [G, hm, wm] f32, from the full-resolution `masks` (nearest), else from
+    the box rectangles. Instances whose mask the transforms emptied (cut
+    away by a crop) are dropped from boxes, classes, iscrowd, areas,
+    keypoints and masks together."""
+
+    def __init__(self, height: int, width: int, stride: int = 4):
+        self._init(locals())
+
+    def __call__(self, image, info):
+        anno = info.get("annotations")
+        if anno is None:
+            return image, info
+        hm, wm = self.height // self.stride, self.width // self.stride
+        masks = anno.get("masks")
+        if masks is not None:
+            import cv2
+
+            masks = np.asarray(masks)
+            keep = masks.reshape(len(masks), -1).any(axis=1) if len(masks) else np.zeros(0, bool)
+            for key in ("boxes2d", "classes", "iscrowd", "areas", "keypoints"):
+                if key in anno and len(anno[key]) == len(keep):
+                    anno[key] = np.asarray(anno[key])[keep]
+            masks = masks[keep]
+            out = np.zeros((len(masks), hm, wm), np.float32)
+            for i, m in enumerate(masks):
+                out[i] = cv2.resize(m.astype(np.float32), (wm, hm),
+                                    interpolation=cv2.INTER_NEAREST)[:hm, :wm]
+        else:
+            boxes = np.asarray(anno.get("boxes2d", np.zeros((0, 4)))) / self.stride
+            out = np.zeros((len(boxes), hm, wm), np.float32)
+            for i, (x0, y0, x1, y1) in enumerate(boxes):
+                out[i, int(max(y0, 0)):int(min(y1, hm)), int(max(x0, 0)):int(min(x1, wm))] = 1.0
+        anno["masks_fixed"] = out
+        return image, info
 
 
 @PROCESSORS.register()

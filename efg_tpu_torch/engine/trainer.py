@@ -25,6 +25,8 @@ for bit. Rank 0 writes the records and the checkpoints.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import inspect
 import logging
 import math
 import os
@@ -49,7 +51,7 @@ from efg_tpu_torch.engine.hooks import (
     attach,
 )
 from efg_tpu_torch.engine.train_state import ModelDef, TrainState
-from efg_tpu_torch.evaluator.build import build_evaluators, check_ported, evaluator_names
+from efg_tpu_torch.evaluator.build import build_evaluators
 from efg_tpu_torch.models.centerpoint import resolve_device
 from efg_tpu_torch.parallel import ddp
 from efg_tpu_torch.solver.optimizers import build_optimizer, global_norm
@@ -74,11 +76,38 @@ def init_state(model_def: ModelDef, tx) -> TrainState:
                       ema=model_def.ema_init(module) if model_def.ema_init else None)
 
 
-def step_generator(seed: int, step: int, device) -> torch.Generator:
+_MASK64 = (1 << 64) - 1
+
+
+def _splitmix64(x: int) -> int:
+    """A bijective 64-bit mix whose every output bit depends on every input
+    bit (SplitMix64's finaliser)."""
+    x = (x + 0x9E3779B97F4A7C15) & _MASK64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return x ^ (x >> 31)
+
+
+def step_generator(seed: int, step: int, device, stream: int = 0) -> torch.Generator:
     """The torch.Generator of one training step on `device`, seeded from
     (seed, step): efg_tpu's `fold_in(key(seed), step)`, so a resumed run
-    draws the noise an uninterrupted one draws."""
-    return torch.Generator(device=device).manual_seed(((seed & 0x7FFFFFFF) << 32) | step)
+    draws the noise an uninterrupted one draws. `stream` 1 is the loss's
+    (efg_tpu's `fold_in(rng, 1)`), apart from the model's draws (stream
+    0: dropout, drop path, ConQueR's denoising noise). The three are mixed
+    into all 64 bits of the seed: the CPU generator (mt19937) reads only
+    its low 32, the card's (Philox) all 64."""
+    key = ((seed & 0x7FFFFFFF) << 33) | ((stream & 1) << 32) | (step & 0xFFFFFFFF)
+    return torch.Generator(device=device).manual_seed(_splitmix64(key))
+
+
+@functools.lru_cache(maxsize=None)
+def _declares(fn, name: str) -> bool:
+    """Whether callable `fn` has a parameter `name` (efg_tpu's
+    `loss_takes_rng` test), read once per callable."""
+    try:
+        return name in inspect.signature(fn).parameters
+    except (TypeError, ValueError):
+        return False
 
 
 def _train_mode(state: TrainState):
@@ -91,9 +120,16 @@ def _train_mode(state: TrainState):
     return module
 
 
-def train_forward(model_def: ModelDef, state: TrainState, batch: Dict[str, Any]):
-    """Forward in train mode, with the parameters' grads cleared first."""
-    return _train_mode(state)(**model_def.apply_args(batch))
+def train_forward(model_def: ModelDef, state: TrainState, batch: Dict[str, Any],
+                  generator: Optional[torch.Generator] = None):
+    """Forward in train mode, with the parameters' grads cleared first;
+    `generator`, when given, is passed on to the module (a forward that
+    declares it: Swin's drop path)."""
+    module = _train_mode(state)
+    kwargs = model_def.apply_args(batch)
+    if generator is not None:
+        kwargs["generator"] = generator
+    return module(**kwargs)
 
 
 def apply_grads(tx, state: TrainState) -> torch.Tensor:
@@ -110,7 +146,9 @@ def apply_grads(tx, state: TrainState) -> torch.Tensor:
 
 def train_step(model_def: ModelDef, tx, state: TrainState, batch: Dict[str, Any],
                seed: int = 0) -> Dict[str, torch.Tensor]:
-    """One training step: `train_forward` and `loss_fn`, or the ModelDef's
+    """One training step: `train_forward` and `loss_fn` (the forward given
+    the step's generator when its module declares one, the loss the
+    step's loss stream when it declares `rng`), or the ModelDef's
     `custom_loss` (module in train mode, grads cleared, the EMA state and
     the step's generator, `step_generator(seed, state.step)`), then the
     backward, the gradients summed over the ranks, `apply_grads` and
@@ -124,8 +162,15 @@ def train_step(model_def: ModelDef, tx, state: TrainState, batch: Dict[str, Any]
         _, losses = model_def.custom_loss(module, state.ema, batch,
                                           step_generator(seed, state.step, device))
     else:
-        preds = train_forward(model_def, state, batch)
-        losses = model_def.loss_fn(preds, batch)
+        device = next(state.module.parameters()).device
+        takes = _declares(type(state.module).forward, "generator")
+        preds = train_forward(model_def, state, batch,
+                              step_generator(seed, state.step, device) if takes else None)
+        if _declares(model_def.loss_fn, "rng"):  # the loss draws (Mask2Former's points)
+            losses = model_def.loss_fn(preds, batch,
+                                       rng=step_generator(seed, state.step, device, stream=1))
+        else:
+            losses = model_def.loss_fn(preds, batch)
     losses["loss"].backward()
     ddp.reduce_gradients(state.module)
     grad_norm = apply_grads(tx, state)
@@ -145,11 +190,6 @@ def eval_step(model_def: ModelDef, batch: Dict[str, Any]):
     if model_def.predict_fn is None:
         return preds
     return model_def.predict_fn(preds, batch)
-
-
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to efg_tpu_torch yet (ROADMAP queue 1 item {item})")
 
 
 def check_machine_batch(batch_size: int, local_ranks: int) -> None:
@@ -200,10 +240,9 @@ class DefaultTrainer:
         self._ckpt_write: Optional[_CheckpointWrite] = None
 
     def _refuse_unported(self):
-        """Raise on a request this port cannot serve, before any set-up:
-        an evaluator not ported, or a mesh that does not fit the ranks
-        (`ddp.mesh_shape`, which also refuses a `model` axis)."""
-        check_ported(evaluator_names(self.config))
+        """Raise on a request this port cannot serve, before any set-up: a
+        mesh that does not fit the ranks (`ddp.mesh_shape`, which also
+        refuses a `model` axis)."""
         ddp.mesh_shape(dict(self.config.get("mesh") or {}), comm.get_world_size())
 
     # ------------------------------------------------------------------ data
@@ -394,18 +433,17 @@ class DefaultTrainer:
         """Initialise the model from the reference checkpoint at `path`
         (efg_tpu's `.pth`/`.pkl` branch of `resume_or_load`), by
         `model.weights_format`: `centerpoint` (a whole CenterPoint
-        VoxelNet), `swin` (not ported: ROADMAP queue 1 item 11) or, for
-        any other value as in efg_tpu, `resnet`: a torchvision ResNet
-        under `model.weights_prefix`."""
+        VoxelNet), `swin` (an mmdet / official Swin under
+        `model.weights_prefix`) or, for any other value as in efg_tpu,
+        `resnet`: a torchvision ResNet under `model.weights_prefix`."""
         from efg_tpu_torch.utils import torch_import as TI
 
         prefix = self.config.model.get("weights_prefix", "backbone")
         fmt = self.config.model.get("weights_format", "resnet")
-        if fmt == "swin":
-            raise _not_ported(f"model.weights_format={fmt!r} (weight import into a Swin "
-                              "backbone)", 11)
         sd = TI.load_state_dict(path)
-        if fmt == "centerpoint":
+        if fmt == "swin":
+            n, skipped = TI.import_swin(sd, self.state.module, prefix)
+        elif fmt == "centerpoint":
             n, skipped = TI.import_centerpoint_voxelnet(sd, self.state.module)
         else:
             n, skipped = TI.import_torchvision_resnet(sd, self.state.module, prefix)

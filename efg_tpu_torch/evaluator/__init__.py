@@ -1,5 +1,5 @@
 """Evaluators (port of `efg_tpu/evaluator`): the base classes, the
-builder, and the evaluators ported so far. Importing the package
+builder, and every evaluator efg_tpu registers. Importing the package
 registers them."""
 
 from efg_tpu_torch.evaluator.build import build_evaluators
@@ -11,5 +11,6 @@ from efg_tpu_torch.evaluator import waymo_evaluator as _waymo  # noqa: F401
 from efg_tpu_torch.evaluator import nuscenes_evaluator as _nuscenes  # noqa: F401
 from efg_tpu_torch.evaluator import tracking_evaluator as _tracking  # noqa: F401
 from efg_tpu_torch.evaluator import coco_evaluator as _coco  # noqa: F401
+from efg_tpu_torch.evaluator import panoptic_evaluator as _panoptic  # noqa: F401
 
 __all__ = ["EVALUATORS", "build_evaluators", "DatasetEvaluator", "DatasetEvaluators"]

@@ -28,7 +28,7 @@ from torch import nn
 
 from efg_tpu_torch.engine.train_state import ModelDef
 from efg_tpu_torch.geometry import box_ops_torch as G3
-from efg_tpu_torch.models.voxel_detr import FLAX_NORM_EPS, MultiHeadDotProductAttention, dense
+from efg_tpu_torch.modeling.common.layers import FLAX_NORM_EPS, MultiHeadDotProductAttention, dense
 from efg_tpu_torch.ops.iou_rotated import iou_bev
 
 NEG = -1e9  # masked entries of a max-pool (efg_tpu's)

@@ -29,15 +29,13 @@ from efg_tpu_torch.geometry.box_ops_torch import aligned_giou_3d_pairs, limit_pe
 from efg_tpu_torch.modeling.backbones.fpn import FPN, position_embedding_sine
 from efg_tpu_torch.modeling.backbones.rpn import Conv2d
 from efg_tpu_torch.modeling.backbones.sparse_resnet import SparseResNet
+from efg_tpu_torch.modeling.common.layers import FLAX_NORM_EPS, MultiHeadDotProductAttention, dense
 from efg_tpu_torch.modeling.readers.voxel_reader import dynamic_mean_vfe
 from efg_tpu_torch.models.centerpoint import resolve_device
 from efg_tpu_torch.ops import box_attention as BA
 from efg_tpu_torch.ops.matcher import hungarian_match
 from efg_tpu_torch.ops.voxelize import grid_size
 from efg_tpu_torch.parallel import ddp
-
-# flax's LayerNorm and GroupNorm epsilon (torch's default is 1e-5)
-FLAX_NORM_EPS = 1e-6
 
 
 def inverse_sigmoid(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -81,27 +79,6 @@ class VoxelBoxCoder3D:
         ], dim=-1)
 
 
-def dense(cin: int, cout: int, *, kernel: str = "lecun", bias: Any = 0.0,
-          generator: Optional[torch.Generator] = None) -> nn.Linear:
-    """nn.Linear initialised as flax's Dense with the named kernel init
-    ("lecun": truncated normal, variance 1/fan_in; "xavier"; "zeros") and a
-    constant bias, or bias "uniform": U(0, 1)."""
-    lin = nn.Linear(cin, cout)
-    with torch.no_grad():
-        if kernel == "lecun":
-            std = math.sqrt(1.0 / cin) / 0.87962566103423978  # flax's truncation correction
-            nn.init.trunc_normal_(lin.weight, std=std, a=-2 * std, b=2 * std, generator=generator)
-        elif kernel == "xavier":
-            nn.init.xavier_uniform_(lin.weight, generator=generator)
-        else:
-            lin.weight.zero_()
-        if bias == "uniform":
-            lin.bias.uniform_(0.0, 1.0, generator=generator)
-        else:
-            lin.bias.fill_(float(bias))
-    return lin
-
-
 class MLP(nn.Module):
     def __init__(self, cin: int, hidden_dim: int, out_dim: int, num_layers: int,
                  final_bias_init: float = 0.0, zero_final: bool = False,
@@ -119,36 +96,6 @@ class MLP(nn.Module):
         for i in range(self.num_layers - 1):
             x = torch.relu(getattr(self, f"fc{i}")(x))
         return getattr(self, f"fc{self.num_layers - 1}")(x)
-
-
-class MultiHeadDotProductAttention(nn.Module):
-    """flax's `MultiHeadDotProductAttention` (qkv_features = out_features =
-    d_model): query / key / value projections split into NH heads, the
-    query scaled by 1/√hd, softmax over keys where `mask` is True (masked
-    logits set to the dtype's minimum, as flax), then the `out`
-    projection. Each projection is a Linear [NH·hd, C] here; the weight
-    mapper reshapes flax's [C, NH, hd] and [NH, hd, C] kernels."""
-
-    def __init__(self, d_model: int, num_heads: int, generator: Optional[torch.Generator] = None):
-        super().__init__()
-        self.num_heads = num_heads
-        for name in ("query", "key", "value", "out"):
-            setattr(self, name, dense(d_model, d_model, generator=generator))
-
-    def forward(self, q, k, v, mask: Optional[torch.Tensor] = None):
-        b, lq, c = q.shape
-        nh, hd = self.num_heads, c // self.num_heads
-
-        def heads(x, proj):
-            return proj(x).reshape(b, x.shape[1], nh, hd).transpose(1, 2)  # [B, NH, L, hd]
-
-        qh = heads(q, self.query) / math.sqrt(hd)
-        kh, vh = heads(k, self.key), heads(v, self.value)
-        logits = qh @ kh.transpose(-1, -2)  # [B, NH, Lq, Lk]
-        if mask is not None:
-            logits = logits.masked_fill(~mask, torch.finfo(logits.dtype).min)
-        out = torch.softmax(logits, dim=-1) @ vh
-        return self.out(out.transpose(1, 2).reshape(b, lq, c))
 
 
 class Box3dAttention(nn.Module):

@@ -87,6 +87,18 @@ def make_box_grids(ref_boxes: torch.Tensor, ref_angles: torch.Tensor,
     return center[..., None, :] + torch.stack([gx, gy], dim=-1)
 
 
+def bilinear_taps(gx: torch.Tensor, gy: torch.Tensor, h: int, w: int):
+    """The four bilinear taps of pixel coordinates gx / gy on an H×W map:
+    (flat index, weight) pairs of gx's shape, a tap outside the map
+    weighted 0 and its index clamped into the map."""
+    x0, y0 = torch.floor(gx), torch.floor(gy)
+    for dx, dy in ((0, 0), (1, 0), (0, 1), (1, 1)):
+        xi, yi = x0 + dx, y0 + dy
+        wgt = (1 - torch.abs(gx - xi)) * (1 - torch.abs(gy - yi))
+        ok = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+        yield (torch.clamp(yi, 0, h - 1) * w + torch.clamp(xi, 0, w - 1)).long(), wgt * ok
+
+
 def _bilinear_gather(flat: torch.Tensor, gx: torch.Tensor, gy: torch.Tensor,
                      h: int, w: int) -> torch.Tensor:
     """flat [B, H·W, C] (head-major channels), gx / gy [B, L, NH] pixel
@@ -95,17 +107,11 @@ def _bilinear_gather(flat: torch.Tensor, gx: torch.Tensor, gy: torch.Tensor,
     b, _, c = flat.shape
     nh = gx.shape[-1]
     vv = flat.reshape(b, h * w, nh, c // nh)
-    x0, y0 = torch.floor(gx), torch.floor(gy)
+    bidx = torch.arange(b, device=flat.device)[:, None, None]
+    hidx = torch.arange(nh, device=flat.device)[None, None, :]
     out = None
-    for dx, dy in ((0, 0), (1, 0), (0, 1), (1, 1)):
-        xi, yi = x0 + dx, y0 + dy
-        wgt = (1 - torch.abs(gx - xi)) * (1 - torch.abs(gy - yi))
-        ok = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
-        idx = (torch.clamp(yi, 0, h - 1) * w + torch.clamp(xi, 0, w - 1)).long()  # [B, L, NH]
-        bidx = torch.arange(b, device=flat.device)[:, None, None]
-        hidx = torch.arange(nh, device=flat.device)[None, None, :]
-        g = vv[bidx, idx, hidx]  # [B, L, NH, hd]
-        contrib = g * (wgt * ok)[..., None].to(flat.dtype)
+    for idx, wgt in bilinear_taps(gx, gy, h, w):  # idx [B, L, NH]
+        contrib = vv[bidx, idx, hidx] * wgt[..., None].to(flat.dtype)  # [B, L, NH, hd]
         out = contrib if out is None else out + contrib
     return out
 

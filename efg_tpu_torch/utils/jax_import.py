@@ -42,7 +42,7 @@ from efg_tpu_torch.modeling.backbones.resnet import FrozenBatchNorm
 from efg_tpu_torch.modeling.backbones.rpn import Conv2d, ConvTranspose2d
 from efg_tpu_torch.modeling.backbones.sparse_net import SparseConvDown, SubMConv
 from efg_tpu_torch.modeling.common.norms import BatchNorm, MaskedBatchNorm
-from efg_tpu_torch.models.voxel_detr import MultiHeadDotProductAttention
+from efg_tpu_torch.modeling.common.layers import MultiHeadDotProductAttention
 
 
 def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()):

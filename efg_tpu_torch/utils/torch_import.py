@@ -24,8 +24,17 @@ default) writes a torchvision-style ResNet state dict into the port's
 stem_conv1 / stem_norm, layer{i}.{b} → res{i+1}_block{b}, conv{j} /
 bn{j} → conv{j} / norm{j}, downsample.0 / .1 → shortcut /
 shortcut_norm. Conv weights are OIHW on both sides and are taken as
-they are. efg_tpu's mmdet Swin format maps into a model the port does not
-have yet (ROADMAP queue 1 item 11).
+they are.
+
+The Swin format (`import_swin`) writes an mmdet / official Swin state dict
+into the port's `SwinTransformer` under a prefix (Mask2Former's
+`backbone`), by efg_tpu's `import_swin` names: patch_embed.proj / .norm →
+patch_embed / patch_norm, layers.{i}.blocks.{j} → stage{i}_block{j}
+(norm1, attn.qkv, attn.proj, attn.relative_position_bias_table, norm2,
+mlp.fc1 / fc2 → fc1 / fc2), layers.{i}.downsample → merge{i}, norm{i} →
+out_norm{i}, absolute_pos_embed in either layout. Linear weights are
+[out, in] on both sides; the merge's norm and reduction take efg_tpu's
+permutation of their 4C input channels.
 """
 
 from __future__ import annotations
@@ -268,5 +277,96 @@ def import_torchvision_resnet(sd: Dict[str, np.ndarray], module: nn.Module,
             continue
         with torch.no_grad():
             t.copy_(torch.from_numpy(np.ascontiguousarray(val)).to(t.dtype))
+        n += 1
+    return n, skipped
+
+
+# ---------------------------------------------------------------------------
+# Swin Transformer (mmdet / official layout)
+# ---------------------------------------------------------------------------
+
+
+def _merge_perm(c4: int) -> np.ndarray:
+    """The reference's 2×2 sub-grid order (00, 10, 01, 11) → the port's
+    (00, 01, 10, 11), over 4C channels (efg_tpu's `_merge_perm`)."""
+    c = c4 // 4
+    g = np.arange(c)
+    return np.concatenate([g, g + 2 * c, g + c, g + 3 * c])
+
+
+def _swin_rename(key: str, val: np.ndarray):
+    """A reference Swin key → (the port's tensor path, value), "drop" (the
+    buffers efg_tpu drops and counts: relative_position_index,
+    num_batches_tracked, attn_mask) or None (no counterpart)."""
+    parts = key.split(".")
+    leaf = parts[-1]
+    if leaf in ("relative_position_index", "num_batches_tracked", "attn_mask"):
+        return "drop"
+    if key == "absolute_pos_embed":
+        if val.ndim == 4:  # mmdet [1, C, H, W] → NHWC
+            return "absolute_pos_embed", val.transpose(0, 2, 3, 1)
+        if val.ndim == 3:  # official classification [1, N, C]
+            side = int(round(val.shape[1] ** 0.5))
+            return "absolute_pos_embed", val.reshape(1, side, side, -1)
+        return None
+    if parts[0] == "patch_embed":
+        if parts[1] == "proj":
+            return f"patch_embed.{leaf}", val
+        if parts[1] == "norm":
+            return f"patch_norm.{leaf}", val
+        return None
+    if parts[0].startswith("norm") and len(parts) == 2:
+        return f"out_norm{int(parts[0][4:])}.{leaf}", val
+    if parts[0] != "layers":
+        return None
+    i = int(parts[1])
+    if parts[2] == "downsample":
+        perm = _merge_perm(val.shape[-1] if leaf == "weight" and val.ndim == 2 else val.shape[0])
+        if parts[3] == "norm":
+            return f"merge{i}.norm.{leaf}", val[perm]
+        if parts[3] == "reduction":
+            return f"merge{i}.reduction.{leaf}", val[:, perm]
+        return None
+    if parts[2] == "blocks":
+        base = f"stage{i}_block{int(parts[3])}"
+        rest = parts[4:]
+        if rest[0] in ("norm1", "norm2"):
+            return f"{base}.{rest[0]}.{leaf}", val
+        if rest[0] == "attn":
+            if rest[1] == "relative_position_bias_table":
+                return f"{base}.attn.relative_position_bias_table", val
+            if rest[1] in ("qkv", "proj"):
+                return f"{base}.attn.{rest[1]}.{leaf}", val
+            return None
+        if rest[0] == "mlp" and rest[1] in ("fc1", "fc2"):
+            return f"{base}.{rest[1]}.{leaf}", val
+    return None
+
+
+def import_swin(sd: Dict[str, np.ndarray], module: nn.Module,
+                prefix: str = "backbone") -> Tuple[int, list]:
+    """Write a reference / mmdet-format Swin state dict into the port's
+    `SwinTransformer` found at `prefix` in `module` ("" for the module
+    itself), in place. As efg_tpu's `import_swin`: a dropped buffer counts
+    as imported; a key with no counterpart, or one of another shape, is
+    skipped. Returns (n, skipped_keys)."""
+    target = module.state_dict()
+    n, skipped = 0, []
+    for key, val in strip_prefix(sd).items():
+        r = _swin_rename(key, val)
+        if r == "drop":
+            n += 1
+            continue
+        if r is None:
+            skipped.append(key)
+            continue
+        path, arr = r
+        name = f"{prefix}.{path}" if prefix else path
+        t = target.get(name)
+        if t is None or tuple(t.shape) != tuple(arr.shape):
+            skipped.append(key)
+            continue
+        with torch.no_grad():
+            t.copy_(torch.from_numpy(np.ascontiguousarray(arr)).to(t.dtype))
         n += 1
     return n, skipped

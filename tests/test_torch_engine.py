@@ -344,8 +344,10 @@ def test_sigterm_preemption_checkpoint_and_resume(tmp_path):
 # ------------------------------------------------------ not ported: raises
 
 @pytest.mark.parametrize("opts, exc, match", [
-    pytest.param(["trainer.evaluators=[PanopticEvaluator]"], NotImplementedError,
-                 "trainer.evaluators.*item 11", id="opts0-trainer.evaluators"),
+    # every evaluator efg_tpu registers is ported: PanopticEvaluator builds
+    # (its host code would see 3D batches only at evaluate)
+    pytest.param(["trainer.evaluators=[PanopticEvaluator]"], None, "PanopticEvaluator",
+                 id="opts0-trainer.evaluators"),
     # a data axis of 2 in a world of one rank: the mesh does not fit the
     # ranks, which raises as efg_tpu's build_mesh does
     pytest.param(["mesh.shape=[2,1]"], AssertionError, r"mesh shape \[2, 1\] != 1 devices",
@@ -354,12 +356,20 @@ def test_sigterm_preemption_checkpoint_and_resume(tmp_path):
     # it is opened, as in efg_tpu
     pytest.param(["model.weights=/some/backbone.pth"], FileNotFoundError,
                  "/some/backbone.pth", id="opts2-weight import"),
+    # the swin format too (ported): the missing file raises when it is opened
     pytest.param(["model.weights=/some/backbone.pth", "model.weights_format=swin"],
-                 NotImplementedError, "weight import.*item 11", id="opts2-weight import swin"),
+                 FileNotFoundError, "/some/backbone.pth", id="opts2-weight import swin"),
     pytest.param(["mesh.shape=[1,2]"], NotImplementedError, "tensor parallelism.*item 5",
                  id="opts3-tensor parallelism"),
 ])
 def test_unported_requests_raise(tmp_path, opts, exc, match):
+    if exc is None:
+        from efg_tpu_torch.evaluator.build import build_evaluators
+
+        t = _trainer(tmp_path, opts)
+        t.resume_or_load(resume=False)
+        assert [type(e).__name__ for e in build_evaluators(t.config, t.dataset)] == [match]
+        return
     with pytest.raises(exc, match=match):
         _trainer(tmp_path, opts).resume_or_load(resume=False)
 
@@ -367,15 +377,19 @@ def test_unported_requests_raise(tmp_path, opts, exc, match):
 def test_cli_refusals(tmp_path, monkeypatch):
     monkeypatch.setenv("EFG_CACHE_DIR", str(tmp_path))
     base = ["--config", CONFIG, "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="PanopticEvaluator is not ported.*item 11"):
-        cli.main(base + ["task=val", "trainer.evaluators=[PanopticEvaluator]"])
+    # a name efg_tpu does not register either raises its registry's KeyError
+    with pytest.raises(KeyError, match="COCOPanopticEvaluator"):
+        cli.main(base + ["task=val", "trainer.evaluators=[COCOPanopticEvaluator]"])
     with pytest.raises(ValueError, match="Unknown task"):
         cli.main(base + ["task=predict"])
     with pytest.raises(ValueError, match="--num-machines 2 needs --dist-url"):
         cli.main(base + ["--num-machines", "2", "task=train"])
-    other = ROOT / "playground/panoptic_seg/synthetic/mask2former.synth.res50/config.yaml"  # item 11
+    # every playground experiment has a port net.py: an experiment made here has none
+    other = tmp_path / "playground" / "detection.3d" / "synthetic" / "no_such.experiment"
+    other.mkdir(parents=True)
+    (other / "config.yaml").write_text(Path(CONFIG).read_text())
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        cli.load_experiment_module(str(other))
+        cli.load_experiment_module(str(other / "config.yaml"))
     t = _trainer(tmp_path, ["model.weights=/some/backbone.pth"])
     with pytest.raises(FileNotFoundError, match="/some/backbone.pth"):
         t.resume_or_load(resume=False)

@@ -542,16 +542,18 @@ def test_dataset_evaluators_merge_and_registry():
     assert DatasetEvaluators([A(), DatasetEvaluator()]).evaluate() == {"a": 1.0}
     with pytest.raises(AssertionError, match="Duplicate eval key a"):
         DatasetEvaluators([A(), AlsoA()]).evaluate()
-    assert sorted(k for k, _ in B.EVALUATORS) == ["COCOEvaluator", "TrackingEvaluator",
-                                                  "WaymoDetEvaluator", "nuScenesDetEvaluator"]
-    assert sorted(B.NOT_PORTED.values()) == [11]
+    # every evaluator efg_tpu registers, PanopticEvaluator included
+    from efg_tpu.evaluator.registry import EVALUATORS as J_EVALUATORS
+
+    assert sorted(k for k, _ in B.EVALUATORS) == sorted(k for k, _ in J_EVALUATORS) == [
+        "COCOEvaluator", "PanopticEvaluator", "TrackingEvaluator", "WaymoDetEvaluator",
+        "nuScenesDetEvaluator"]
     cfg = _Cfg(dataset=_Cfg(classes=CLASSES), trainer=_Cfg(evaluators=["WaymoDetEvaluator"]))
     evs = B.build_evaluators(cfg, None)
     assert [type(e) for e in evs] == [WE.WaymoDetEvaluator]
-    for name, item in B.NOT_PORTED.items():
-        cfg = _Cfg(dataset=_Cfg(classes=CLASSES), trainer=_Cfg(evaluators=[name]))
-        with pytest.raises(NotImplementedError, match=f"{name} is not ported.*item {item}"):
-            B.build_evaluators(cfg, None)
+    cfg = _Cfg(dataset=_Cfg(classes=CLASSES), trainer=_Cfg(evaluators=["PanopticEvaluator"]))
+    (ev,) = B.build_evaluators(cfg, type("DS", (), {"thing_contiguous_ids": {0, 2}})())
+    assert type(ev).__name__ == "PanopticEvaluator" and ev.thing_ids == {0, 2}
     with pytest.raises(KeyError, match="NoSuchEvaluator"):
         B.build_evaluators(_Cfg(dataset=_Cfg(classes=CLASSES),
                                 trainer=_Cfg(evaluators=["NoSuchEvaluator"])), None)

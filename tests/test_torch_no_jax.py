@@ -86,6 +86,14 @@ print(json.dumps({"modules": names, "nets": nets, "loaded": sorted(sys.modules)}
     for exp in ("synthetic/fcos.synth.res50", "synthetic/retinanet.synth.res50",
                 "synthetic/autoassign.synth.res50", "coco/fcos/fcos.res50.fpn.coco.800size.1x"):
         assert f"playground/detection.2d/{exp}/net.py" in res["nets"], exp
+    for name in ("ops.resize", "ops.ms_deform_attn", "modeling.backbones.swin",
+                 "modeling.common.layers", "modeling.post_processing", "models.mask2former",
+                 "evaluator.panoptic_evaluator", "utils.torch_import", "utils.jax_import"):
+        assert f"efg_tpu_torch.{name}" in res["modules"], name
+    # every playground experiment has the port's net.py at its path
+    experiments = sorted(str(p.parent.relative_to(ROOT)) + "/net.py"
+                         for p in (ROOT / "playground").rglob("config.yaml"))
+    assert len(experiments) == 22 and sorted(res["nets"]) == experiments
     assert [m for m in res["loaded"] if _forbidden(m)] == []
     # image decoders are imported where an image is read or resized, not
     # with the modules

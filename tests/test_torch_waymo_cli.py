@@ -117,45 +117,76 @@ def test_cli_train_then_val_with_database_sampling(experiment, tmp_path, monkeyp
     assert set(res) == want_keys and np.isfinite(list(res.values())).all()
 
 
+def _flax_skeleton(module):
+    """A flax-style variable tree with the module's flax paths
+    (`utils/jax_import.py` `flax_names`) and its tensors' shapes: the tree
+    efg_tpu's name maps walk."""
+    from efg_tpu_torch.utils.jax_import import flax_names
+
+    tree = {"params": {}, "batch_stats": {}}
+    state = module.state_dict()
+    for key, (coll, path) in flax_names(module).items():
+        node = tree[coll]
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = np.zeros(tuple(state[key].shape), np.float32)
+    return tree
+
+
 @pytest.mark.parametrize("fmt,item", [("resnet", 10), ("swin", 11)])
 def test_other_weight_formats_refused(experiment, tmp_path, monkeypatch, fmt, item):
-    """efg_tpu's Swin format maps into a model the port has not got yet
-    (item 11): refused before the file is read, naming the ROADMAP item.
-    Its ResNet format (item 10, ported) reads a seeded torchvision file:
-    into the CenterPoint model, which holds no ResNet under `backbone`, it
-    imports 0 tensors and skips every key but `fc.`'s, as efg_tpu's
-    `import_torchvision_resnet` does, and leaves the weights as they were."""
+    """efg_tpu's other two formats (ResNet, item 10; Swin, item 11; both
+    ported) read a seeded file of their layout. Into the CenterPoint model,
+    which holds neither trunk under `backbone`, each lands nowhere, as
+    efg_tpu's: the ResNet import takes 0 tensors and skips every key but
+    `fc.`'s; the Swin import counts its dropped buffers
+    (relative_position_index, attn_mask) as imported and skips every other
+    key, the counts and skipped keys of efg_tpu's `import_swin` on the same
+    tree; the weights stay as they were."""
+    from efg_tpu.utils import torch_import as JTI
+
     _, config = experiment
     path = tmp_path / "backbone.pth"
+    g = torch.Generator().manual_seed(item)
     if fmt == "resnet":
-        g = torch.Generator().manual_seed(item)
         torch.save({"conv1.weight": torch.randn(64, 3, 7, 7, generator=g),
                     "bn1.weight": torch.rand(64, generator=g), "bn1.bias": torch.zeros(64),
                     "bn1.running_mean": torch.zeros(64), "bn1.running_var": torch.ones(64),
                     "layer1.0.conv1.weight": torch.randn(64, 64, 1, 1, generator=g),
                     "fc.weight": torch.randn(10, 512, generator=g)}, path)
+    else:
+        torch.save({"patch_embed.proj.weight": torch.randn(96, 3, 4, 4, generator=g),
+                    "patch_embed.norm.weight": torch.ones(96),
+                    "layers.0.blocks.0.attn.qkv.weight": torch.randn(288, 96, generator=g),
+                    "layers.0.blocks.0.attn.relative_position_index": torch.zeros(49, 49).long(),
+                    "layers.0.blocks.1.attn_mask": torch.zeros(64, 49, 49),
+                    "layers.0.downsample.reduction.weight": torch.randn(192, 384, generator=g),
+                    "norm0.weight": torch.ones(96)}, path)
     cfg = Configuration(config_file=config, opts=[
         "task=train", f"model.weights={path}", f"model.weights_format={fmt}"]).get_config()
     cfg["trainer"]["output_dir"] = str(tmp_path / "out")
     trainer = T.DefaultTrainer(cfg, cli.load_experiment_module(config).build_model, device="cpu")
-    if fmt == "swin":
-        with pytest.raises(NotImplementedError, match=f"weight import.*item {item}"):
-            trainer.resume_or_load(resume=False)
-        return
     before = {k: v.clone() for k, v in trainer.state.module.state_dict().items()}
     calls = []
-    imp = TTI.import_torchvision_resnet
+    name = "import_torchvision_resnet" if fmt == "resnet" else "import_swin"
+    imp = getattr(TTI, name)
 
     def spy(sd, module, prefix):
         calls.append(imp(sd, module, prefix))
         return calls[-1]
 
-    monkeypatch.setattr(TTI, "import_torchvision_resnet", spy)
+    monkeypatch.setattr(TTI, name, spy)
     trainer.resume_or_load(resume=False)
     ((n, skipped),) = calls
-    assert n == 0 and sorted(skipped) == sorted(
-        ["conv1.weight", "bn1.weight", "bn1.bias", "bn1.running_mean", "bn1.running_var",
-         "layer1.0.conv1.weight"])
+    if fmt == "resnet":
+        assert n == 0 and sorted(skipped) == sorted(
+            ["conv1.weight", "bn1.weight", "bn1.bias", "bn1.running_mean", "bn1.running_var",
+             "layer1.0.conv1.weight"])
+    else:
+        sd = TTI.load_state_dict(str(path))
+        _, jn, jskipped = JTI.import_swin(sd, _flax_skeleton(trainer.state.module), "backbone")
+        assert (n, sorted(skipped)) == (jn, sorted(jskipped)) == (2, sorted(
+            k for k in sd if not k.endswith(("relative_position_index", "attn_mask"))))
     for k, v in trainer.state.module.state_dict().items():
         assert torch.equal(v, before[k]), k
     assert trainer.start_iter == 0
