@@ -129,11 +129,11 @@ either. Phases (each prints JSON lines; any failure exits 1):
              task=val of the synthetic ConQueR experiment through the CLI
              (finite waymo/* results, launches = batches × per forward).
 14. detr_train — ConQueR trains at bench.py's widths with its loss and
-             solver (CDN dn_number 3, the Hungarian matcher on the host, the
+             solver (CDN dn_number 3, the Hungarian matcher on the card, the
              momentum GT decoder, query contrast; clip 10 + AdamW 1e-3), bs 2
              of 160k-point clouds with 161 GT boxes a frame: a warm-up and 3
              timed steps (CUDA events; frames/s, peak memory, the matcher's
-             host ms, launches a step: rank 18, gather-GEMM 13 + 5 at 256,
+             ms and route, device_match.cu once a step, launches a step: rank 18, gather-GEMM 13 + 5 at 256,
              stacked 12 + 5 at 256, dW 0); every stacked gather of one step
              against its plain version on the card (taps bit for bit, out
              within 1e-3·max|ref|; the 5 at 256 channels are the kernels
@@ -263,12 +263,30 @@ either. Phases (each prints JSON lines; any failure exits 1):
              the fixture), Swin-T from a seeded mmdet-format .pth
              (`weights_format: swin`): task=train 4 iterations (train_step
              by CUDA events, IterTimer's time, the prefetcher's next, the
-             matcher's host ms, peak memory), task=val (eval step ms, the
+             matcher's ms by route, peak memory), task=val (eval step ms, the
              val loader's and the evaluator's ms, val frames/s); the R-50
              eval step at bs 1 split into backbone, pixel decoder,
              transformer decoder and predict; the val images' GT segments
              as predictions read PQ = SQ = RQ = 1 exactly. (d) A
              Mask2Former forward card against CPU within 1e-4.
+22. matcher — the exact assignment kernel `csrc/device_match.cu`, which
+             phases detr_train and panoptic already ran (on the card the
+             matcher's `auto` is the device route: one launch a training
+             step, counted, with nothing copied to the host under
+             torch.cuda.set_sync_debug_mode("error")): the kernel against
+             its plain version bit for bit on both steps' captured costs
+             (and equal to the step's own assignment) and on the hazards
+             MATCH_HAZARDS (more GTs than queries, empty masks, ties, nan
+             and ±inf, Q of 1-3000, the workspace route), each total cost
+             within 1e-3 of scipy's optimum; its ms, device ms, plain ms,
+             the host route's ms and the bound (one read of the costs; the
+             serial floor of Dijkstra steps × a measured block argmin);
+             ConQueR's step with the host and the device route in turns.
+             Then one CLI run of each new solver option (Adam, AdamWMulti
+             with a backbone multiplier and the cosine schedule,
+             Adafactor, LARS_SGD; value clipping) on the synthetic
+             ConQueR, and an FCOS on a deformable v2 ResNet-50 card
+             against CPU within 1e-4 and one train step at 800×1344, bs 2.
 
 The second-to-last line lists every kernel as JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", ...}}.
@@ -584,14 +602,14 @@ def timed(fn, runs: int = TIMED_RUNS) -> float:
 def phase_device():
     import torch
 
-    from efg_tpu_torch.ops.cuda import sparse_kernels as K
+    from efg_tpu_torch.ops.cuda import build
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = nvidia_smi_line()
     print(card, flush=True)
     t0 = time.perf_counter()
-    logs = K.build_kernels()
+    logs = build.build_all()
     build_s = time.perf_counter() - t0
     emit({"phase": "device", "card": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "device_name": torch.cuda.get_device_name(0),
@@ -2941,27 +2959,53 @@ def detr_solver():
 
 class MatcherProbe:
     """Wraps a model module's matcher (voxel_detr's unless `module` names
-    another): the host milliseconds of every solve (the costs' copy to the
-    host, scipy, the copy back; with `sync`, timed from when the card has
-    finished the costs) and, with `record`, its inputs and assignment."""
+    another). Per solve: its route (`resolve_backend`: on the card under
+    `auto`, "device", the kernel device_match.cu; on the CPU "host",
+    scipy), the host milliseconds of the call (on the host route the
+    costs' copy to the host, scipy, the copy back; with `sync`, timed from
+    when the card has finished the costs), and for a CUDA cost the device
+    milliseconds by CUDA events (`device_ms`, read at exit). A device-route
+    call runs under torch.cuda.set_sync_debug_mode("error"): it may copy
+    nothing to the host and wait for nothing. `record` keeps the inputs and
+    assignment of the first `record` solves (True: of every solve)."""
 
-    def __init__(self, record: bool = False, module: str = "voxel_detr", sync: bool = False):
-        self.record, self.sync = record, sync
+    def __init__(self, record=False, module: str = "voxel_detr", sync: bool = False):
+        self.record = None if record is True else int(record)
+        self.sync = sync
         self.module = importlib.import_module(f"efg_tpu_torch.models.{module}")
-        self.ms, self.calls = [], []
+        self.ms, self.device_ms, self.routes, self.calls, self._events = [], [], [], [], []
 
     def __enter__(self):
         import torch
 
+        from efg_tpu_torch.ops.matcher import resolve_backend
+
         self._orig = self.module.hungarian_match
 
         def match(cost, gt_mask):
-            if self.sync and cost.is_cuda:
+            route = resolve_backend(None, cost.device)
+            if self.sync and cost.is_cuda and route == "host":
                 torch.cuda.synchronize()
+            ev = None
+            if cost.is_cuda:
+                ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                ev[0].record()
             t0 = time.perf_counter()
-            out = self._orig(cost, gt_mask)
+            if cost.is_cuda and route == "device":
+                mode = torch.cuda.get_sync_debug_mode()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    out = self._orig(cost, gt_mask)
+                finally:
+                    torch.cuda.set_sync_debug_mode(mode)
+            else:
+                out = self._orig(cost, gt_mask)
             self.ms.append((time.perf_counter() - t0) * 1e3)
-            if self.record:
+            if ev is not None:
+                ev[1].record()
+                self._events.append(ev)
+            self.routes.append(route)
+            if self.record is None or len(self.calls) < self.record:
                 self.calls.append((cost.detach().float().cpu(), gt_mask.cpu(), out.cpu()))
             return out
 
@@ -2969,7 +3013,12 @@ class MatcherProbe:
         return self
 
     def __exit__(self, *exc):
+        import torch
+
         self.module.hungarian_match = self._orig
+        if self._events:
+            torch.cuda.synchronize()
+            self.device_ms = [a.elapsed_time(b) for a, b in self._events]
         return False
 
 
@@ -3005,7 +3054,9 @@ def phase_detr_train(card: str, device="cuda", kw=DETR, n_points=N_POINTS):
     DETR_TRAIN_CFG: its loss and solver):
     (a) a warm-up step and DETR_TRAIN_STEPS timed steps at bs 2 through
         `train_step` (CUDA events): frames/s, peak memory, the matcher's
-        host ms a step, launches a step held to DETR_TRAIN_LAUNCHES; then
+        host and device ms a step (the warm-up step's solve recorded for
+        phase matcher), launches a step held to DETR_TRAIN_LAUNCHES and
+        device_match.cu launched once a step on the card; then
         one step timed part by part (forward with the matcher, losses and
         momentum decoder; backward; optimizer; EMA update);
     (b) one more step with its stacked gathers captured, each rerun through
@@ -3023,6 +3074,7 @@ def phase_detr_train(card: str, device="cuda", kw=DETR, n_points=N_POINTS):
     import torch
 
     from efg_tpu_torch.engine.trainer import apply_grads, init_state, step_generator, train_step
+    from efg_tpu_torch.ops.cuda import match_kernels as MK
     from efg_tpu_torch.ops.cuda import sparse_kernels as K
 
     on_card = device == "cuda"
@@ -3033,17 +3085,21 @@ def phase_detr_train(card: str, device="cuda", kw=DETR, n_points=N_POINTS):
     if on_card:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    timed_ms, counts = [], None
+    timed_ms, counts, match_launches = [], None, []
     for i in range(DETR_TRAIN_STEPS + 1):
         K.reset_launches()
+        MK.reset_launches()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        with MatcherProbe() as matcher:
+        with MatcherProbe(record=int(i == 0 and on_card)) as matcher:
             start.record()
             metrics = train_step(md, tx, state, batch, seed=SEED)
             end.record()
             if on_card:
                 torch.cuda.synchronize()
         counts = dict(K.launches)
+        match_launches.append(MK.launches["device_match"])
+        if matcher.calls:  # phase matcher's captured ConQueR set
+            MATCH_CAPTURE["conquer"] = matcher.calls
         ms = start.elapsed_time(end)
         if i > 0:
             timed_ms.append(ms)
@@ -3055,6 +3111,8 @@ def phase_detr_train(card: str, device="cuda", kw=DETR, n_points=N_POINTS):
               "step_ms_cuda_events": ms,
               "train_frames_per_s": DETR_TRAIN_BATCH[0] / ms * 1e3,
               "matcher_host_ms": sum(matcher.ms), "matcher_solves": len(matcher.ms),
+              "matcher_routes": matcher.routes, "matcher_device_ms": matcher.device_ms,
+              "device_match_launches": match_launches[-1],
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30 if on_card else None,
               "losses": vals, "launches": counts, "card": card})
         if not all(np.isfinite(v) for v in vals.values()):
@@ -3062,6 +3120,10 @@ def phase_detr_train(card: str, device="cuda", kw=DETR, n_points=N_POINTS):
         if counts != DETR_TRAIN_LAUNCHES:
             raise AssertionError(f"detr_train step {i}: launches {counts}, "
                                  f"expected {DETR_TRAIN_LAUNCHES}")
+        if match_launches[-1] != (1 if on_card else 0):  # one solve a step, on the card
+            raise AssertionError(f"detr_train step {i}: device_match launched "
+                                 f"{match_launches[-1]} times")
+    MATCH_STEP_LAUNCHES["conquer"] = (sum(match_launches), len(match_launches))
     emit({"phase": "detr_train", "part": "summary", "batch_size": DETR_TRAIN_BATCH[0],
           "timed_step_ms": timed_ms, "median_step_ms": float(np.median(timed_ms)),
           "train_frames_per_s": DETR_TRAIN_BATCH[0] / float(np.median(timed_ms)) * 1e3,
@@ -3089,7 +3151,8 @@ def phase_detr_train(card: str, device="cuda", kw=DETR, n_points=N_POINTS):
     parts = ("forward_matcher_losses", "backward", "optimizer", "ema_update")
     emit({"phase": "detr_train", "part": "breakdown", "batch_size": DETR_TRAIN_BATCH[0],
           "part_ms_cuda_events": {n: ev[j].elapsed_time(ev[j + 1]) for j, n in enumerate(parts)},
-          "matcher_host_ms": sum(matcher.ms), "step_ms": ev[0].elapsed_time(ev[4]),
+          "matcher_host_ms": sum(matcher.ms), "matcher_device_ms": matcher.device_ms,
+          "step_ms": ev[0].elapsed_time(ev[4]),
           "loss": float(losses["loss"].detach()), "card": card})
 
     rows = []
@@ -5925,8 +5988,9 @@ def phase_panoptic(card: str, device="cuda", synth=(), golden_iters=None, small_
         torchvision .pth (BN statistics measured on the fixture), Swin-T
         from a seeded mmdet-format .pth (`weights_format: swin`);
         task=train PANOPTIC_ITERS iterations (train_step by CUDA events,
-        IterTimer's time, the prefetcher's next, the matcher's host ms,
-        peak memory), then task=val (eval step ms, the val loader's and
+        IterTimer's time, the prefetcher's next, the matcher's host and
+        device ms (R-50's first solve recorded for phase matcher; one
+        launch of device_match.cu a step), peak memory), then task=val (eval step ms, the val loader's and
         the evaluator's ms a batch, val frames/s); the R-50 eval step at
         bs 1 split into backbone, pixel decoder, transformer decoder and
         predict; the val images' GT segments as predictions read PQ = SQ
@@ -5941,6 +6005,7 @@ def phase_panoptic(card: str, device="cuda", synth=(), golden_iters=None, small_
     from efg_tpu_torch.cli.main import experiment_relpath, load_experiment_module
     from efg_tpu_torch.config import Configuration
     from efg_tpu_torch.evaluator.panoptic_evaluator import PanopticEvaluator
+    from efg_tpu_torch.ops.cuda import match_kernels as MK
     from efg_tpu_torch.ops.cuda import sparse_kernels as K
 
     base = tempfile.mkdtemp(prefix="chip_smoke_panoptic_")
@@ -6028,9 +6093,15 @@ def phase_panoptic(card: str, device="cuda", synth=(), golden_iters=None, small_
             if device == "cuda":
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
-            with MatcherProbe(module="mask2former", sync=True) as matcher:
+            MK.reset_launches()
+            with MatcherProbe(module="mask2former", sync=True,
+                              record=int(name == "res50" and device == "cuda")) as matcher:
                 records, counts, probe = _engine_run(argv + ["trainer.evaluators="], out_dir,
                                                      device, config=config)
+            match_launches = MK.launches["device_match"]
+            if matcher.calls:  # phase matcher's captured Mask2Former set
+                MATCH_CAPTURE["mask2former_r50"] = matcher.calls
+                MATCH_STEP_LAUNCHES["mask2former_r50"] = (match_launches, PANOPTIC_ITERS)
             peak = torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else None
             count(counts)
             run = _losses(records, f"panoptic coco {name}")
@@ -6059,9 +6130,14 @@ def phase_panoptic(card: str, device="cuda", synth=(), golden_iters=None, small_
                   "iteration_time_ms": [1e3 * r["time"] for r in records if "time" in r],
                   "data_time_ms": [1e3 * t for t in probe.data_s],
                   "matcher_host_ms_a_step": matcher.ms,
+                  "matcher_device_ms_a_step": matcher.device_ms,
+                  "matcher_routes": matcher.routes, "device_match_launches": match_launches,
                   "matcher_calls": n_match, "peak_mem_gb": peak})
-            if n_match != PANOPTIC_ITERS:  # one host solve a step, every layer's costs in it
+            if n_match != PANOPTIC_ITERS:  # one solve a step, every layer's costs in it
                 raise AssertionError(f"panoptic coco {name}: {n_match} matcher calls")
+            if match_launches != (PANOPTIC_ITERS if device == "cuda" else 0):
+                raise AssertionError(f"panoptic coco {name}: device_match launched "
+                                     f"{match_launches} times in {PANOPTIC_ITERS} steps")
 
             counts_val, vprobe = _cli_eval_run(["task=val", *common], device, config=config)
             count(counts_val)
@@ -6136,6 +6212,441 @@ def phase_panoptic(card: str, device="cuda", synth=(), golden_iters=None, small_
         shutil.rmtree(base, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase matcher: device_match.cu, the exact assignment solver on the card
+# ---------------------------------------------------------------------------
+
+# The first solve of phase detr_train's warm-up step (ConQueR at bench.py's
+# widths: (1 + 3 decoder layers) × bs 2 problems of Q 1000 × G 256) and of
+# phase panoptic's R-50 COCO run (10 layers × bs 2 of Q 100 × G 100): name →
+# [(cost, mask, assignment)] on the CPU
+MATCH_CAPTURE: dict = {}
+# the kernel's launches over the training steps of those phases, and the
+# steps: name → (launches, steps)
+MATCH_STEP_LAUNCHES: dict = {}
+MATCH_OPT_RTOL = 1e-3  # total cost against scipy's optimum, relative
+ARGMIN_CHAIN_ITERS = 20000  # block argmins in the chain that times one
+MATCH_AB_STEPS = 2  # steps a turn of the host / device route comparison
+# (d): one CLI step of each new solver option, on the synthetic ConQueR
+# experiment (its trunk is `backbone`)
+OPTION_ITERS = 2
+SOLVER_OPTIONS = {
+    "adam_value_clip": ["solver.optimizer.type=Adam"],
+    "adamw_multi_cosine": ["solver.optimizer.type=AdamWMulti",
+                           "solver.optimizer.lr_multipliers={backbone: 0.1}",
+                           "solver.lr_scheduler.type=LinearWarmupCosineAnnealing",
+                           "solver.lr_scheduler.warmup_iters=1"],
+    "adafactor_value_clip": ["solver.optimizer.type=Adafactor",
+                             "solver.optimizer.weight_decay=0.0001"],
+    "lars_sgd_value_clip": ["solver.optimizer.type=LARS_SGD", "solver.optimizer.lr=0.1",
+                            "solver.optimizer.weight_decay=0.0001"],
+}
+VALUE_CLIP = ["solver.grad_clipper.enabled=True", "solver.grad_clipper.clip_type=value",
+              "solver.grad_clipper.params={clip_value: 1.0}"]
+DEFORM_STAGES = (False, True, True, True)
+DEFORM_CHECK = (1, 256, 384)  # card vs CPU: batch, height, width
+DEFORM_CHECK_TOL = 1e-4  # of each output's max: f32 with TF32 off, summation order
+DEFORM_TRAIN = (2, 800, 1344)  # the COCO FCOS config's canvas and batch
+DEFORM_SEED = 23
+
+
+def _match_randn(seed, b, q, g, p_valid=0.7, scale=5.0):
+    rs = np.random.RandomState(seed)
+    cost = (rs.randn(b, q, g) * scale).astype(np.float32)
+    return cost, rs.rand(b, g) < p_valid
+
+
+def _match_one_valid():
+    cost, mask = _match_randn(3, 2, 33, 16)
+    mask[:] = False
+    mask[0, 7] = mask[1, 0] = True
+    return cost, mask
+
+
+def _match_int_ties():
+    rs = np.random.RandomState(4)
+    return rs.randint(0, 3, size=(3, 31, 12)).astype(np.float32), np.ones((3, 12), bool)
+
+
+def _match_nonfinite():
+    cost, mask = _match_randn(5, 2, 20, 6, p_valid=1.0)
+    cost[0, 3, 2], cost[0, 5, 1], cost[1, 2, 3] = np.nan, np.inf, np.inf
+    cost[1, :, 0] = -np.inf
+    return cost, mask
+
+
+# device_match.cu's hazards (this script's own copy of the makers in
+# tests/test_torch_matcher.py, which holds the plain version against
+# efg_tpu's device_match on the small ones): more GTs than queries, every
+# mask empty, one valid GT, integer costs full of ties, nan and ±inf, Q of
+# 1, 31, 33, 1000 and 3000 (shared memory above 48 KB), G of 1 and 256, and
+# a Q whose state takes the workspace route
+MATCH_HAZARDS = {
+    "g_over_q": lambda: _match_randn(1, 2, 3, 5, p_valid=0.9),
+    "masks_empty": lambda: _match_randn(2, 2, 8, 4, p_valid=0.0),
+    "one_valid": _match_one_valid,
+    "int_ties": _match_int_ties,
+    "nonfinite": _match_nonfinite,
+    "q1": lambda: _match_randn(6, 2, 1, 4, p_valid=1.0),
+    "q31_g1": lambda: _match_randn(7, 3, 31, 1, p_valid=1.0),
+    "q33": lambda: _match_randn(8, 2, 33, 40),
+    "q1000_g256": lambda: _match_randn(9, 2, 1000, 256, p_valid=0.63),
+    "q3000_g256": lambda: _match_randn(10, 1, 3000, 256, p_valid=0.63),
+    "workspace": lambda: _match_randn(11, 1, 14000, 8, p_valid=1.0),
+}
+
+
+def _assignment_totals(cost, mask, assign):
+    """(total cost of `assign`, scipy's optimum) over the samples whose
+    valid GTs all find a query (elsewhere efg_tpu's solver assigns the
+    first Q rows it reaches, not scipy's best subset), on the costs as the
+    solvers read them (nan → 0, ±inf → ±1e8), in f64."""
+    from scipy.optimize import linear_sum_assignment
+
+    c = np.nan_to_num(np.asarray(cost, np.float64), posinf=1e8, neginf=-1e8)
+    m, a = np.asarray(mask, bool), np.asarray(assign)
+    got = opt = 0.0
+    for b in np.flatnonzero(m.sum(1) <= c.shape[1]):
+        cols = np.flatnonzero(m[b])
+        if cols.size:
+            r, k = linear_sum_assignment(c[b][:, cols])
+            opt += c[b][r, cols[k]].sum()
+            got += c[b][a[b, cols], cols].sum()
+    return got, opt
+
+
+def _match_check(label, cost, mask, recorded=None):
+    """device_match.cu against its plain version (run on the CPU copy of
+    the same costs: f32 additions and subtractions round alike there) bit
+    for bit, against the step's own assignment where recorded, and its
+    total cost against scipy's optimum within MATCH_OPT_RTOL. Returns the
+    check's record, with the plain version's Dijkstra steps per problem."""
+    import torch
+
+    from efg_tpu_torch.ops.cuda import match_kernels as MK
+
+    cost, mask = torch.as_tensor(cost).float(), torch.as_tensor(mask).bool()
+    got = MK.device_match(cost.cuda(), mask.cuda()).cpu()
+    steps = []
+    t0 = time.perf_counter()
+    ref = MK.device_match_plain(cost, mask, steps)
+    plain_s = time.perf_counter() - t0
+    tot, opt = _assignment_totals(cost.numpy(), mask.numpy(), got.numpy())
+    rec = {"label": label, "B": cost.shape[0], "Q": cost.shape[1], "G": cost.shape[2],
+           "valid": int(mask.sum()), "plain_device": "cpu", "plain_s": plain_s,
+           "bit_exact": bool(torch.equal(got, ref)),
+           "equals_step": None if recorded is None else bool(torch.equal(got, recorded)),
+           "max_abs_err": int((got - ref).abs().max()) if got.numel() else 0,
+           "total": tot, "optimum": opt,
+           "total_rel_gap": abs(tot - opt) / max(abs(opt), 1e-6),
+           "dijkstra_steps": sum(sum(s) for s in steps),
+           "max_steps_a_problem": max((sum(s) for s in steps), default=0)}
+    if not rec["bit_exact"] or rec["equals_step"] is False \
+            or not rec["total_rel_gap"] <= MATCH_OPT_RTOL:
+        raise AssertionError(f"matcher {label}: {rec}")
+    return rec
+
+
+def _match_timed(rec, cost, mask, step_ms):
+    """(c) the row of one captured set: the kernel's ms (median of
+    TIMED_RUNS CUDA-event runs) and device ms (CUDA graph of the call), the
+    plain version's ms, the host route's ms (the copy to the host, scipy,
+    the copy back: backend="host" around the same call), and the two-part
+    bound: one read of the costs (and mask, and write of the result) at the
+    card's memory rate, and the serial floor, the largest problem's
+    Dijkstra steps × one block argmin (`step_ms`, measured)."""
+    import torch
+
+    from efg_tpu_torch.ops import matcher as TM
+    from efg_tpu_torch.ops.cuda import match_kernels as MK
+
+    cost, mask = torch.as_tensor(cost).float().cuda(), torch.as_tensor(mask).bool().cuda()
+    run = functools.partial(MK.device_match, cost, mask)
+    ms = timed(run)
+    dev = graph_device(run)
+    host_ms = timed(functools.partial(TM.hungarian_match, cost, mask, backend="host"))
+    b, q, g = cost.shape
+    bytes_ = 4 * b * q * g + b * g + 8 * b * g
+    ops = 4 * q * rec["dijkstra_steps"]  # r's three adds and one compare a column a step
+    row = dict(rec, ms=ms, device_ms=dev["device_ms"], device_kernels=dev["kernels"],
+               plain_ms=1e3 * rec["plain_s"], library_ms=host_ms,
+               bytes_ms=1e3 * bytes_ / H100_BYTES_PER_S, ops_ms=1e3 * ops / H100_F32_OPS,
+               argmin_ms=step_ms, serial_floor_ms=rec["max_steps_a_problem"] * step_ms)
+    row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
+    row["bound_with_serial_floor_ms"] = max(row["bound_ms"], row["serial_floor_ms"])
+    if dev["kernels"] != 1:
+        raise AssertionError(f"matcher {rec['label']}: one call is {dev['kernels']} kernels")
+    return row
+
+
+def phase_matcher(card: str):
+    """The exact assignment solver on the card (after phase panoptic, which
+    with phase detr_train ran the training steps through it: on the card
+    the matcher's `auto` is the device route, one launch of
+    `device_match.cu` a step, checked there by the counter and under
+    torch.cuda.set_sync_debug_mode("error"), so nothing of it copies to the
+    host):
+    (b) the kernel against its plain version, bit for bit, on the captured
+        costs of both steps (also equal to the step's own assignment) and
+        on MATCH_HAZARDS; the total cost of every problem whose GTs all
+        find a query within MATCH_OPT_RTOL of scipy's optimum;
+    (c) per captured set the kernel's ms and device ms, the plain
+        version's ms, the host route's ms and the two-part bound (bytes;
+        the serial floor from the argmin chain's measured step); ConQueR's
+        training step with the host and the device route in turns
+        (`_matcher_step_ab`);
+    (d) one CLI training run of OPTION_ITERS steps of each new solver
+        option (SOLVER_OPTIONS, with a value clip but where the schedule
+        changes) on the synthetic ConQueR experiment; an FCOS with the
+        deformable v2 ResNet-50 (DEFORM_STAGES; offset convs drawn, not
+        zero, so the taps move) card against CPU within DEFORM_CHECK_TOL,
+        and one train step at DEFORM_TRAIN (step ms, peak memory).
+    Returns the kernels-line row of device_match."""
+    import torch
+
+    from efg_tpu_torch.ops.cuda import match_kernels as MK
+
+    t_phase = time.perf_counter()
+    MK.reset_launches()
+    step_ms = {}
+    for q in (1000, 100):
+        threads = MK.block_threads(q)
+        step_ms[threads] = timed(functools.partial(MK.argmin_chain, threads, ARGMIN_CHAIN_ITERS,
+                                                   "cuda"), runs=5) / ARGMIN_CHAIN_ITERS
+    emit({"phase": "matcher", "part": "argmin_step", "card": card,
+          "ms_per_block_argmin": {str(k): v for k, v in step_ms.items()},
+          "chain": ARGMIN_CHAIN_ITERS})
+    rows = []
+    for name, calls in MATCH_CAPTURE.items():
+        (cost, mask, assign), = calls[:1]
+        rec = _match_check(name, cost, mask, recorded=assign)
+        row = _match_timed(rec, cost, mask, step_ms[MK.block_threads(cost.shape[1])])
+        launches, steps = MATCH_STEP_LAUNCHES[name]
+        row["launches_a_step"] = launches / steps
+        emit({"phase": "matcher", "part": "captured", "card": card, **row})
+        rows.append(row)
+    if sorted(MATCH_CAPTURE) != ["conquer", "mask2former_r50"]:
+        raise AssertionError(f"matcher: captured sets {sorted(MATCH_CAPTURE)}")
+    hazards = [_match_check(name, *make()) for name, make in MATCH_HAZARDS.items()]
+    emit({"phase": "matcher", "part": "hazards", "card": card, "cases": hazards})
+    checks = dict(MK.launches)
+    MK.reset_launches()
+    ab = _matcher_step_ab(card)
+    options = phase_solver_options(card)
+    deform = phase_deform(card)
+    emit({"phase": "matcher", "part": "summary", "card": card, "check_launches": checks,
+          "step_ab_median_ms": ab, "options": options, "deform": deform,
+          "phase_s": time.perf_counter() - t_phase})
+
+    def total(key):
+        return sum(r[key] for r in rows)
+
+    launches = sum(n for n, _ in MATCH_STEP_LAUNCHES.values())
+    return {"name": "device_match", "route": "cuda", "source": "efg_tpu_torch/csrc/device_match.cu",
+            "replaces": "efg_tpu/ops/matcher.py:55", "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in rows), "ms": total("ms"),
+            "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
+            "bound_by": "bytes" if total("bytes_ms") >= total("ops_ms") else "operations",
+            "library_ms": total("library_ms"), "device_ms": total("device_ms"),
+            "serial_floor_ms": total("serial_floor_ms"),
+            "library_call": "hungarian_match(backend=\"host\"): the costs to the host, "
+                            "scipy's linear_sum_assignment, the assignment back",
+            "per": "sum over ConQueR's (8 × 1000 × 256) and Mask2Former R-50's (20 × 100 × 100) "
+                   "captured training-step solves; launches over the training steps of phases "
+                   "detr_train and panoptic (COCO)",
+            "launches_a_step": {k: n / steps for k, (n, steps) in MATCH_STEP_LAUNCHES.items()},
+            "tolerance": "assignment bit for bit vs plain; total within 1e-3 of scipy's optimum",
+            "card": card, "calls": len(rows)}
+
+
+def _matcher_step_ab(card: str, device="cuda", kw=DETR, n_points=N_POINTS):
+    """(c) of phase matcher: phase detr_train's ConQueR step (bench.py's
+    widths, bs 2) with the matcher's two routes in turns, host, device,
+    device, host (MATCH_AB_STEPS timed steps a turn after one warm-up step
+    of each), in one process on one card: the host route is what the port
+    ran before device_match.cu (`set_matcher_backend("host")`). Returns the
+    median step ms of each route. A rehearsal on the CPU (`device="cpu"`,
+    DETR_SMALL, fewer points, torch.cuda.Event swapped for a host-clock
+    stand-in) runs the plain version on the device route, no kernel."""
+    import torch
+
+    from efg_tpu_torch.engine.trainer import init_state, train_step
+    from efg_tpu_torch.ops import matcher as TM
+    from efg_tpu_torch.ops.cuda import match_kernels as MK
+
+    on_card = device == "cuda"
+    md, _ = make_detr_train(kw, device)
+    tx = detr_solver()
+    state = init_state(md, tx)
+    batch = detr_train_batch(*DETR_TRAIN_BATCH, device, n_points)
+    steps = {"host": [], "device": []}
+    solve_ms = {"host": [], "device": []}  # the solve's host ms (host: after a sync) and device ms
+    launches = {"host": 0, "device": 0}
+    try:
+        for i, route in enumerate(("host", "device", "host", "device", "device", "host")):
+            TM.set_matcher_backend(route)
+            MK.reset_launches()
+            for _ in range(1 if i < 2 else MATCH_AB_STEPS):
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                with MatcherProbe(sync=True) as probe:
+                    a.record()
+                    train_step(md, tx, state, batch, seed=SEED)
+                    b.record()
+                    if on_card:
+                        torch.cuda.synchronize()
+                if i >= 2:  # the first two turns warm each route up
+                    steps[route].append(a.elapsed_time(b))
+                    solve_ms[route].append({"host_ms": sum(probe.ms),
+                                            "device_ms": sum(probe.device_ms)})
+            launches[route] += MK.launches["device_match"]
+    finally:
+        TM.set_matcher_backend(None)
+    med = {k: float(np.median(v)) for k, v in steps.items()}
+    emit({"phase": "matcher", "part": "step_ab", "card": card, "order": "host, device (warm-up), "
+          "then host, device, device, host", "step_ms_cuda_events": steps,
+          "median_step_ms": med, "solve_ms": solve_ms, "device_match_launches": launches,
+          "batch_size": DETR_TRAIN_BATCH[0]})
+    if launches["host"] != 0 or launches["device"] != (1 + 2 * MATCH_AB_STEPS) * on_card:
+        raise AssertionError(f"matcher step_ab: device_match launches {launches}")
+    del md, state, tx, batch
+    if on_card:
+        torch.cuda.empty_cache()
+    return med
+
+
+def phase_solver_options(card: str, device="cuda", small=()):
+    """(d) of phase matcher: SOLVER_OPTIONS through the CLI on the synthetic
+    ConQueR experiment, OPTION_ITERS iterations each: finite losses, the
+    lr as the trainer logs it. Rehearse on the CPU with `device="cpu"`
+    (about 40 s) and torch.cuda.Event swapped for a host-clock stand-in."""
+    cache = tempfile.mkdtemp(prefix="chip_smoke_options_")
+    old_cache = os.environ.get("EFG_CACHE_DIR")
+    out = {}
+    try:
+        for name, opts in SOLVER_OPTIONS.items():
+            clip = [] if "cosine" in name else VALUE_CLIP
+            os.environ["EFG_CACHE_DIR"] = os.path.join(cache, name)  # a fresh output each
+            out_dir = os.path.join(cache, name, "EFG_torch",
+                                   os.path.dirname(DETR_CONFIG).split("playground/", 1)[1])
+            argv = ["task=train", "trainer.evaluators=", "trainer.log_interval=1",
+                    f"solver.lr_scheduler.max_iters={OPTION_ITERS}", *opts, *clip, *small]
+            t0 = time.perf_counter()
+            records, _, probe = _engine_run(argv, out_dir, device, config=DETR_CONFIG)
+            run = _losses(records, f"matcher option {name}")
+            out[name] = {"dotlist": opts + clip, "iterations": sorted(run),
+                         "losses": {i: r["loss"] for i, r in run.items()},
+                         "lr": {i: r.get("lr") for i, r in run.items()},
+                         "step_ms_cuda_events": probe.step_ms() if device == "cuda" else None,
+                         "wall_s": time.perf_counter() - t0}
+            if sorted(run) != list(range(1, OPTION_ITERS + 1)):
+                raise AssertionError(f"matcher option {name}: records {sorted(run)}")
+    finally:
+        if old_cache is None:
+            os.environ.pop("EFG_CACHE_DIR", None)
+        else:
+            os.environ["EFG_CACHE_DIR"] = old_cache
+        shutil.rmtree(cache, ignore_errors=True)
+    emit({"phase": "matcher", "part": "solver_options", "card": card, "runs": out})
+    return {k: v["wall_s"] for k, v in out.items()}
+
+
+def _deform_fcos(device, seed=DEFORM_SEED):
+    """FCOS (80 classes) on a deformable v2 ResNet-50 (DEFORM_STAGES), its
+    weights drawn on the CPU from `seed`, the offset convs too (std 1e-3,
+    so that the taps move by fractions of a pixel). efg_tpu's FCOS builds
+    its trunk without the deformable keys; the port's takes the deformable
+    ResNet as its `backbone`."""
+    import torch
+
+    from efg_tpu_torch.models import fcos as F
+    from efg_tpu_torch.modeling.backbones.resnet import ResNet
+    from efg_tpu_torch.ops.deform_conv import DeformConv
+
+    gen = torch.Generator().manual_seed(seed)
+    m = F.FCOS(num_classes=80, depth=50, device="cpu", generator=gen)
+    m.backbone = ResNet(depth=50, out_features=("res3", "res4", "res5"), freeze_at=2,
+                        deform_on_per_stage=DEFORM_STAGES, deform_modulated=True, generator=gen)
+    with torch.no_grad():
+        for mod in m.modules():
+            if isinstance(mod, DeformConv):
+                mod.offset_conv.weight.normal_(0.0, 1e-3, generator=gen)
+    return m.to(device)
+
+
+def phase_deform(card: str, device="cuda", check=DEFORM_CHECK, train=DEFORM_TRAIN):
+    """(d) of phase matcher: the deformable FCOS on `device` against the
+    CPU (every output within DEFORM_CHECK_TOL of its max), then one
+    warm-up and one timed train step at `train` (batch, height, width; the
+    COCO config's D2 SGD; 8 GT boxes an image). A rehearsal on the CPU
+    (`device="cpu"`, small shapes, torch.cuda.Event swapped for a
+    host-clock stand-in) compares the CPU with itself."""
+    import copy
+
+    import torch
+
+    from efg_tpu_torch.engine.train_state import ModelDef
+    from efg_tpu_torch.engine.trainer import init_state, train_step
+    from efg_tpu_torch.models import fcos as F
+    from efg_tpu_torch.solver.optimizers import build_optimizer
+
+    on_card = device == "cuda"
+    cpu = _deform_fcos("cpu")
+    model = copy.deepcopy(cpu).to(device)
+    bsz, h, w = check
+    rs = np.random.RandomState(DEFORM_SEED)
+    images = torch.from_numpy(rs.uniform(-2, 2, (bsz, h, w, 3)).astype(np.float32))
+    cpu.eval()
+    model.eval()
+    with torch.inference_mode():
+        want = cpu(images)
+        got = model(images.to(device))
+    errs = {}
+    for k in ("logits", "deltas", "centerness"):
+        ref = want[k].double()
+        errs[k] = float((got[k].cpu().double() - ref).abs().max()) / max(float(ref.abs().max()),
+                                                                         1e-6)
+    del cpu, want, got
+    bsz, h, w = train
+    g = 8
+    xy = rs.uniform(0, [w * 0.7, h * 0.7], (bsz, g, 2))
+    wh = rs.uniform(0.05, 0.3, (bsz, g, 2)) * [w, h]
+    batch = {"images": torch.from_numpy(rs.uniform(-2, 2, (bsz, h, w, 3)).astype(np.float32)),
+             "gt_boxes2d": torch.from_numpy(np.concatenate([xy, xy + wh], -1).astype(np.float32)),
+             "gt_classes2d": torch.from_numpy(rs.randint(0, 80, (bsz, g))),
+             "gt_mask2d": torch.ones(bsz, g, dtype=torch.bool)}
+    batch = {k: v.to(device) for k, v in batch.items()}
+    cfg = dict(num_classes=80, fpn_strides=[8, 16, 32, 64, 128], center_sampling_radius=1.5)
+    md = ModelDef(model, lambda b: dict(images=b["images"]),
+                  lambda preds, b: F.compute_loss(preds, b, model_cfg=cfg), None)
+    tx = build_optimizer({"type": "D2_SGD", "momentum": 0.9, "weight_decay": 1e-4},
+                         lambda k: 0.01, module=model)
+    state = init_state(md, tx)
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    ms, losses = [], None
+    for _ in range(2):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        metrics = train_step(md, tx, state, batch, seed=SEED)
+        b.record()
+        if on_card:
+            torch.cuda.synchronize()
+        ms.append(a.elapsed_time(b))
+        losses = {k: float(v) for k, v in metrics.items()}
+    rec = {"check_shape": list(check), "rel_err": errs, "tol": DEFORM_CHECK_TOL,
+           "train_shape": list(train), "step_ms_cuda_events": ms,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30 if on_card else None,
+           "losses": losses}
+    emit({"phase": "matcher", "part": "deform_fcos", "card": card, **rec})
+    if max(errs.values()) > DEFORM_CHECK_TOL or not all(np.isfinite(list(losses.values()))):
+        raise AssertionError(f"matcher deform: rel errs {errs}, losses {losses}")
+    del md, state, model, batch
+    if on_card:
+        torch.cuda.empty_cache()
+    return {"step_ms": ms[-1], "rel_err": max(errs.values())}
+
+
 def main() -> int:
     try:
         import torch
@@ -6187,6 +6698,7 @@ def main() -> int:
         nusc = phase_nusc(card)
         phase_det2d(card)
         phase_panoptic(card)
+        matcher = phase_matcher(card)
         # a rank kernel's row is the training step's (its forward rulebooks
         # and the inverse ones); the serving forward's is in the kernels line
         train["rank_flags"]["launches_serve"] = serve["rank_flags"]["launches"]
@@ -6198,7 +6710,7 @@ def main() -> int:
             variants[name]["launches_serve"] = serve_counts[name]
         kernels = [train["rank_flags"], serve["gather_gemm"], detr, train["gather_gemm_stacked"],
                    *detr_train, train["gather_dw"], *variants.values(), *waymo, *waymo_detr,
-                   *nusc, *track]
+                   *nusc, *track, matcher]
     except Exception:  # report every phase failure and exit non-zero
         traceback.print_exc()
         return 1

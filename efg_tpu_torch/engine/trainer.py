@@ -50,6 +50,7 @@ from efg_tpu_torch.engine.hooks import (
     ProfilerHook,
     attach,
 )
+from efg_tpu_torch.engine.registry import TRAINERS
 from efg_tpu_torch.engine.train_state import ModelDef, TrainState
 from efg_tpu_torch.evaluator.build import build_evaluators
 from efg_tpu_torch.models.centerpoint import resolve_device
@@ -64,10 +65,8 @@ from efg_tpu_torch.utils.events import (
     TensorboardWriter,
 )
 from efg_tpu_torch.utils.logger import LOGGER_NAME
-from efg_tpu_torch.utils.registry import Registry
 
 logger = logging.getLogger(LOGGER_NAME)
-TRAINERS = Registry("trainers")
 
 
 def init_state(model_def: ModelDef, tx) -> TrainState:

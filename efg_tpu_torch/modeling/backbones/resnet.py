@@ -14,8 +14,10 @@ buffers, named like torch's BatchNorm for the weight mappers. This
 differs from detectron2's `FrozenBatchNorm2d`, whose affine tensors are
 buffers.
 
-Deformable conv2 (`deform_on_per_stage`) is not ported (ROADMAP queue 1
-item 13).
+`deform_on_per_stage` makes conv2 of every bottleneck block of a stage a
+deformable conv (`ops/deform_conv.py` `DeformConv`, v2 with
+`deform_modulated`), as efg_tpu's DeformBottleneckBlock; neither
+BasicBlock nor a dilated stage takes one, as there.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from torch import nn
 
 from efg_tpu_torch.modeling.backbones.rpn import Conv2d
 from efg_tpu_torch.modeling.common.norms import BatchNorm
+from efg_tpu_torch.ops.deform_conv import DeformConv
 
 GN_EPS = 1e-6  # flax nn.GroupNorm's epsilon (torch's default is 1e-5)
 BLOCKS_PER_STAGE = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3), 50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}
@@ -93,9 +96,12 @@ class _Block(nn.Module):
 
 
 class BottleneckBlock(_Block):
+    """1×1, 3×3 (strided; deformable with `deform`, modulated with
+    `deform_modulated`) and 1×1 convs with their norms, and the shortcut."""
+
     def __init__(self, cin: int, out_channels: int, bottleneck_channels: int, stride: int = 1,
-                 dilation: int = 1, norm: str = "FrozenBN",
-                 generator: Optional[torch.Generator] = None):
+                 dilation: int = 1, norm: str = "FrozenBN", deform: bool = False,
+                 deform_modulated: bool = False, generator: Optional[torch.Generator] = None):
         super().__init__()
         g = generator
         self.shortcut = None
@@ -104,8 +110,14 @@ class BottleneckBlock(_Block):
             self.shortcut_norm = make_norm(norm, out_channels)
         self.conv1 = msra_conv(cin, bottleneck_channels, 1, generator=g)
         self.norm1 = make_norm(norm, bottleneck_channels)
-        self.conv2 = msra_conv(bottleneck_channels, bottleneck_channels, 3, stride=stride,
-                               padding=dilation, dilation=dilation, generator=g)
+        if deform:
+            if dilation != 1:
+                raise ValueError("deform conv2 does not support dilation")
+            self.conv2 = DeformConv(bottleneck_channels, bottleneck_channels, 3, stride=stride,
+                                    modulated=deform_modulated, generator=g)
+        else:
+            self.conv2 = msra_conv(bottleneck_channels, bottleneck_channels, 3, stride=stride,
+                                   padding=dilation, dilation=dilation, generator=g)
         self.norm2 = make_norm(norm, bottleneck_channels)
         self.conv3 = msra_conv(bottleneck_channels, out_channels, 1, generator=g)
         self.norm3 = make_norm(norm, out_channels)
@@ -148,12 +160,8 @@ class ResNet(nn.Module):
                  out_features: Sequence[str] = ("res3", "res4", "res5"), freeze_at: int = 2,
                  res5_dilation: int = 1,
                  deform_on_per_stage: Sequence[bool] = (False, False, False, False),
-                 generator: Optional[torch.Generator] = None):
+                 deform_modulated: bool = False, generator: Optional[torch.Generator] = None):
         super().__init__()
-        if any(deform_on_per_stage):
-            raise NotImplementedError(
-                "ResNet.deform_on_per_stage (deformable conv2) is not ported to efg_tpu_torch "
-                "yet (ROADMAP queue 1 item 13)")
         self.out_features = tuple(out_features)
         self.freeze_at = freeze_at
         self.basic = depth in (18, 34)
@@ -168,15 +176,17 @@ class ResNet(nn.Module):
             dilation = res5_dilation if name == "res5" else 1
             if dilation > 1:
                 first_stride = 1
-            if self.basic and dilation != 1:
-                raise ValueError("BasicBlock (depth 18/34) supports no dilation")
+            deform = bool(deform_on_per_stage[stage_i])
+            if self.basic and (deform or dilation != 1):
+                raise ValueError("BasicBlock (depth 18/34) supports neither deform nor dilation")
             blocks = []
             for b in range(n_blocks):
                 stride = first_stride if b == 0 else 1
                 if self.basic:
                     block = BasicBlock(cin, out_ch, stride, norm, generator)
                 else:
-                    block = BottleneckBlock(cin, out_ch, bott, stride, dilation, norm, generator)
+                    block = BottleneckBlock(cin, out_ch, bott, stride, dilation, norm, deform,
+                                            deform_modulated, generator)
                 setattr(self, f"{name}_block{b}", block)
                 blocks.append(f"{name}_block{b}")
                 cin = out_ch

@@ -121,3 +121,11 @@ class RPN(nn.Module):
                 ups.append(torch.relu(getattr(self, f"deblock{ui}_bn")(up(x))))
         out = torch.cat(ups, dim=1) if ups else x
         return out.permute(0, 2, 3, 1)
+
+
+class RPNFixBNMom(RPN):
+    """efg_tpu's `RPNFixBNMom`: the RPN with BN eps 1e-3 and momentum 0.99
+    (torch momentum 0.01) unless given."""
+
+    def __init__(self, in_channels: int, bn_momentum: float = 0.99, bn_eps: float = 1e-3, **kw):
+        super().__init__(in_channels, bn_momentum=bn_momentum, bn_eps=bn_eps, **kw)

@@ -22,8 +22,8 @@ on class probability + point-sampled BCE + dice over one shared uniform
 point set, then the class CE (no-object weight) and the point-sampled
 mask BCE and dice over PointRend importance-sampled points per matched
 pair. Each layer's cost depends only on its own predictions and the
-shared points, so all D+1 layers' costs are solved together: one host
-copy through `ops/matcher.py`. The randomness (the shared points, each
+shared points, so all D+1 layers' costs are solved together, in one call
+of `ops/matcher.py` (the kernel on the card, scipy on the CPU). The randomness (the shared points, each
 layer's candidate and top-up points) is drawn from the generator the
 loss is given, the training step's; a test can pass efg_tpu's draws in.
 efg_tpu's `top_k` keeps the lower index first on ties; the port takes a
@@ -429,7 +429,7 @@ def match_layers(cls_all, masks_all, gt_cls, gt_pts, gt_ok, pts, *, w_ce, w_bce,
     """Every layer's Hungarian assignment [D, B, G] (query per GT, −1 at
     padding) of the stacked predictions cls_all [D, B, Q, C+1], masks_all
     [D, B, Q, h, w] against the GT's points gt_pts [B, G, K] at the shared
-    points pts [K, 2]: the D·B cost matrices solved in one host call."""
+    points pts [K, 2]: the D·B cost matrices solved in one matcher call."""
     d, b = cls_all.shape[:2]
     cost = matcher_cost(torch.softmax(cls_all, dim=-1), sample_points(masks_all, pts), gt_cls,
                         gt_pts, gt_ok, w_ce=w_ce, w_bce=w_bce, w_dice=w_dice,

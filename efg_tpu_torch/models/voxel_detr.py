@@ -9,8 +9,8 @@ around each query's box) → per-layer detection heads. Parameter names are
 the flax modules'; the flax `MultiHeadDotProductAttention` is written out
 as its query / key / value / out projections. Training: the focal + L1 +
 axis-aligned GIoU3D + rad set losses under Hungarian matching
-(`compute_loss`: one host solve for the encoder layer and every decoder
-layer together, `ops/matcher.py`). `detr_kwargs` and `model_cfg` read an
+(`compute_loss`: one solve for the encoder layer and every decoder layer
+together, `ops/matcher.py`: the kernel on the card, scipy on the CPU). `detr_kwargs` and `model_cfg` read an
 experiment's config for every DETR experiment (Voxel-DETR's and
 ConQueR's), and `build_model` is the plain Voxel-DETR experiment's.
 """
@@ -484,7 +484,7 @@ def compute_loss(preds: Dict[str, Any], batch: Dict[str, Any], *, model_cfg: Dic
                  return_assign: bool = False):
     """The set losses of the encoder's proposals (binary objectness over
     the full map) and of every decoder layer, their sum under "loss". One
-    host solve matches all 1 + D layers ([(1 + D)·B, Q, G] costs). With
+    solve matches all 1 + D layers ([(1 + D)·B, Q, G] costs). With
     `return_assign`, also the last decoder layer's assignment [B, G]."""
     mw = model_cfg["loss_weights"]  # {"class": 1, "bbox": 4, "giou": 2, "rad": 4}
     tgt_boxes, tgt_labels, tgt_mask, num_boxes = targets(batch, model_cfg)

@@ -27,6 +27,11 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
+# every kernel source of the port, csrc/<stem>.cu (bound in
+# sparse_kernels.py and match_kernels.py)
+SOURCES = ("rank_flags", "rank_flags_seq4", "rank_flags_hostwin", "gather_gemm",
+           "gather_gemm_g3", "gather_dw", "device_match")
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
@@ -74,6 +79,11 @@ def build(stems: Iterable[str]) -> Dict[str, dict]:
     if failed:
         raise RuntimeError("\n".join(failed))
     return done
+
+
+def build_all() -> Dict[str, dict]:
+    """`build` of every source in SOURCES (one nvcc each, in parallel)."""
+    return build(SOURCES)
 
 
 def load(stem: str, signatures: Dict[str, list]) -> ctypes.CDLL:

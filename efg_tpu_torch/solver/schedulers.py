@@ -1,6 +1,6 @@
-"""Learning-rate and momentum schedules (port of the OneCycle and
-WarmupMultiStep schedules and `warmup_factor_at` of
-`efg_tpu/solver/schedulers.py`).
+"""Learning-rate and momentum schedules (port of the OneCycle,
+WarmupMultiStep and LinearWarmupCosineAnnealing schedules and
+`warmup_factor_at` of `efg_tpu/solver/schedulers.py`).
 
 A schedule maps the update count (0 for the first update, as
 `optax.inject_hyperparams` counts) to a value, computed in f32 as efg_tpu
@@ -99,15 +99,39 @@ def warmup_multi_step(
     return lr_fn, None
 
 
-SCHEDULERS = {"OneCycle": one_cycle, "WarmupMultiStep": warmup_multi_step}
+def linear_warmup_cosine(
+    *,
+    lr: float,
+    max_iters: int,
+    warmup_iters: int = 1000,
+    warmup_start_lr: float = 0.0,
+    eta_min: float = 0.0,
+    **_,
+) -> Tuple[Schedule, Optional[Schedule]]:
+    """A linear warm-up from `warmup_start_lr` to `lr` over `warmup_iters`,
+    then a cosine from `lr` to `eta_min` at `max_iters`; no momentum
+    schedule."""
+
+    def lr_fn(step: int) -> torch.Tensor:
+        s = torch.tensor(step, dtype=torch.float32)
+        warm = warmup_start_lr + (lr - warmup_start_lr) * torch.clamp(
+            s / max(warmup_iters, 1), 0, 1)
+        pct = torch.clamp((s - warmup_iters) / max(max_iters - warmup_iters, 1), 0, 1)
+        cos = eta_min + (lr - eta_min) * (1 + torch.cos(math.pi * pct)) / 2
+        return torch.where(s < warmup_iters, warm, cos)
+
+    return lr_fn, None
+
+
+SCHEDULERS = {"OneCycle": one_cycle, "WarmupMultiStep": warmup_multi_step,
+              "LinearWarmupCosineAnnealing": linear_warmup_cosine}
 
 
 def build_scheduler(cfg) -> Tuple[Schedule, Optional[Schedule]]:
     """cfg = solver.lr_scheduler with the optimizer's `lr` merged in (the
-    caller's job, as in efg_tpu). OneCycle and WarmupMultiStep are ported;
-    efg_tpu's LinearWarmupCosineAnnealing is not (ROADMAP queue 1 item
-    13)."""
+    caller's job, as in efg_tpu): every schedule of efg_tpu's registry."""
     kwargs = {k: v for k, v in dict(cfg).items() if k != "type"}
     if cfg["type"] not in SCHEDULERS:
-        raise KeyError(f"lr scheduler {cfg['type']!r} is not ported")
+        raise KeyError(f"lr scheduler {cfg['type']!r} is not one of efg_tpu's "
+                       f"{sorted(SCHEDULERS)}")
     return SCHEDULERS[cfg["type"]](**kwargs)

@@ -19,6 +19,8 @@ flax path is its torch module path:
 - LayerNorm and GroupNorm scale / bias → weight / bias;
 - FrozenBatchNorm like BatchNorm (its scale / bias are flax params,
   mean / var batch_stats);
+- a deformable conv's kernel (efg_tpu's `DeformConv` param `kernel`)
+  HWIO → OIHW, its `offset_conv` as any conv;
 - a parameter a module holds itself (its `flax_params`: FCOS's head
   `scales`, AutoAssign's `mu` / `sigma`) is taken as it is.
 
@@ -43,6 +45,7 @@ from efg_tpu_torch.modeling.backbones.rpn import Conv2d, ConvTranspose2d
 from efg_tpu_torch.modeling.backbones.sparse_net import SparseConvDown, SubMConv
 from efg_tpu_torch.modeling.common.norms import BatchNorm, MaskedBatchNorm
 from efg_tpu_torch.modeling.common.layers import MultiHeadDotProductAttention
+from efg_tpu_torch.ops.deform_conv import DeformConv
 
 
 def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()):
@@ -100,6 +103,8 @@ def _entries(module: nn.Module):
             yield pre + "weight", "params", path + ("kernel",), lambda v: v.transpose(3, 2, 0, 1)
             if mod.bias is not None:
                 yield pre + "bias", "params", path + ("bias",), same
+        elif isinstance(mod, DeformConv):
+            yield pre + "weight", "params", path + ("kernel",), lambda v: v.transpose(3, 2, 0, 1)
         elif isinstance(mod, ConvTranspose2d):
             yield (pre + "weight", "params", path + ("kernel",),
                    lambda v: v[::-1, ::-1].transpose(2, 3, 0, 1))

@@ -31,6 +31,10 @@ from efg_tpu_torch.engine.train_state import ModelDef
 from efg_tpu_torch.utils.events import EventStorage, TensorboardWriter
 from efg_tpu_torch.utils.seed import seed_all_rng
 
+# one intra-op thread: the workers of the parallel test run share the cores,
+# which torch's thread pool in each of them would oversubscribe
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 CONFIG = str(ROOT / "playground/detection.3d/synthetic/centerpoint.synth.voxelnet/config.yaml")
 SMALL = ["trainer.evaluators=", "dataset.points_per_frame=2048",

@@ -21,6 +21,10 @@ from efg_tpu_torch.utils.jax_import import flax_to_state_dict
 
 from test_torch_sparse_net import fill_variables
 
+# one intra-op thread: the workers of the parallel test run share the cores,
+# which torch's thread pool in each of them would oversubscribe
+torch.set_num_threads(1)
+
 TASKS = ({"num_classes": 3, "class_names": ["VEHICLE", "PEDESTRIAN", "CYCLIST"]},)
 COMMON_HEADS = (("reg", (2, 2)), ("height", (1, 2)), ("dim", (3, 2)), ("rot", (2, 2)))
 KW = dict(

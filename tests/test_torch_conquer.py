@@ -33,6 +33,10 @@ from efg_tpu_torch.utils.jax_import import flax_to_state_dict
 
 from test_torch_conquer_ops import _close, fill_variables
 
+# one intra-op thread: the workers of the parallel test run share the cores,
+# which torch's thread pool in each of them would oversubscribe
+torch.set_num_threads(1)
+
 PC = (-8.0, -8.0, -2.0, 8.0, 8.0, 4.0)
 VOX = (0.1, 0.1, 0.15)
 KW = dict(pc_range=PC, voxel_size=VOX, max_voxels=2048, resnet_caps=(1536, 1024, 512, 256),

@@ -18,6 +18,10 @@ torch = pytest.importorskip("torch")
 from efg_tpu_torch.cli import main as cli
 from efg_tpu_torch.engine import trainer as T
 
+# one intra-op thread: the workers of the parallel test run share the cores,
+# which torch's thread pool in each of them would oversubscribe
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 CONFIG = str(ROOT / "playground/detection.3d/synthetic/conquer.synth.res18/config.yaml")
 # 4 val frames (2 batches of 2) of 2048 points; the model as the config

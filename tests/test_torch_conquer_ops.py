@@ -25,6 +25,10 @@ from efg_tpu_torch.models import voxel_detr as TVD
 from efg_tpu_torch.ops import box_attention as TBA
 from efg_tpu_torch.utils.jax_import import flax_to_state_dict
 
+# one intra-op thread: the workers of the parallel test run share the cores,
+# which torch's thread pool in each of them would oversubscribe
+torch.set_num_threads(1)
+
 F32_TOL = 1e-5
 
 

@@ -25,6 +25,10 @@ from efg_tpu_torch.ops.cuda import sparse_kernels as K
 
 from test_torch_conquer import KW, _cloud
 
+# one intra-op thread: the workers of the parallel test run share the cores,
+# which torch's thread pool in each of them would oversubscribe
+torch.set_num_threads(1)
+
 
 
 def _rank_contract(keys, queries, **_):

@@ -42,6 +42,10 @@ from efg_tpu_torch.models import centerpoint as TCP
 from efg_tpu_torch.parallel import ddp
 from efg_tpu_torch.utils import distributed as comm
 
+# one intra-op thread: the workers of the parallel test run share the cores,
+# which torch's thread pool in each of them would oversubscribe
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 CONFIG = str(ROOT / "playground/detection.3d/synthetic/centerpoint.synth.voxelnet/config.yaml")
 DATA = ["trainer.evaluators=", "dataset.points_per_frame=2048",

@@ -56,6 +56,10 @@ from efg_tpu_torch.utils import distributed as comm
 from efg_tpu_torch.utils.jax_import import flax_to_state_dict
 from efg_tpu_torch.utils.seed import seed_all_rng
 
+# one intra-op thread: the workers of the parallel test run share the cores,
+# which torch's thread pool in each of them would oversubscribe
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 CONFIG = str(ROOT / "playground/detection.3d/synthetic/centerpoint.synth.voxelnet/config.yaml")
 WORLD = 2

@@ -36,6 +36,10 @@ from efg_tpu_torch.models import retinanet as TR
 from efg_tpu_torch.parallel import ddp
 from efg_tpu_torch.utils import distributed as comm
 
+# one intra-op thread: the workers of the parallel test run share the cores,
+# which torch's thread pool in each of them would oversubscribe
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 SYNTH = "detection.2d/synthetic/{}.synth.res50"
 COCO = {"fcos": "detection.2d/coco/fcos/fcos.res50.fpn.coco.800size.1x",

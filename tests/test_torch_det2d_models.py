@@ -54,6 +54,10 @@ from efg_tpu_torch.utils.jax_import import flax_names, flax_to_state_dict
 from test_torch_conquer_ops import fill_variables
 from test_torch_det2d_ops import gt_2d
 
+# one intra-op thread: the workers of the parallel test run share the cores,
+# which torch's thread pool in each of them would oversubscribe
+torch.set_num_threads(1)
+
 C = 5
 STRIDES = (8, 16, 32, 64, 128)
 CFG = dict(num_classes=C, fpn_strides=list(STRIDES), center_sampling_radius=1.5)

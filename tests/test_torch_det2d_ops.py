@@ -35,6 +35,10 @@ from efg_tpu_torch.models import retinanet as TR
 from efg_tpu_torch.ops import nms2d as TN
 from efg_tpu_torch.solver import schedulers as TSCHED
 
+# one intra-op thread: the workers of the parallel test run share the cores,
+# which torch's thread pool in each of them would oversubscribe
+torch.set_num_threads(1)
+
 SHAPES = [(8, 8), (4, 4), (2, 2), (1, 1), (1, 1)]
 STRIDES = [8, 16, 32, 64, 128]
 R = sum(h * w for h, w in SHAPES)  # 86 positions

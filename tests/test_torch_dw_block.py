@@ -42,6 +42,10 @@ from test_torch_sparse_gemm_cases import (GEMM_CASES, WIDE_CASES, _c_eval, _gemm
                                           _pair_no_flag)
 from test_torch_sparse_kernels import NO_LAUNCHES, both_tensors, sites
 
+# one intra-op thread: the workers of the parallel test run share the cores,
+# which torch's thread pool in each of them would oversubscribe
+torch.set_num_threads(1)
+
 PK.set_interpret(True)
 
 ROOT = Path(__file__).resolve().parents[1]

@@ -41,6 +41,10 @@ from efg_tpu_torch.utils.events import EventStorage, JSONWriter
 from efg_tpu_torch.utils.history_buffer import HistoryBuffer
 from efg_tpu_torch.utils.seed import seed_all_rng
 
+# one intra-op thread: the workers of the parallel test run share the cores,
+# which torch's thread pool in each of them would oversubscribe
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 EXP = "playground/detection.3d/synthetic/centerpoint.synth.voxelnet"
 CONFIG = str(ROOT / EXP / "config.yaml")

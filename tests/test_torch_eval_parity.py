@@ -49,6 +49,10 @@ from efg_tpu_torch.utils.jax_import import flax_to_state_dict
 from test_torch_evaluator import assert_results_equal
 from test_torch_train import _record_occupancy
 
+# one intra-op thread: the workers of the parallel test run share the cores,
+# which torch's thread pool in each of them would oversubscribe
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 CONFIG = str(ROOT / "playground/detection.3d/synthetic/centerpoint.synth.voxelnet/config.yaml")
 # tests/test_torch_trainer_parity.py's small size (12.8 m square, 2048

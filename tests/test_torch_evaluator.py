@@ -32,6 +32,10 @@ from efg_tpu_torch.evaluator import waymo_official as WO
 from efg_tpu_torch.evaluator.evaluator import DatasetEvaluator, DatasetEvaluators
 from efg_tpu_torch.ops.iou_rotated import iou_3d
 
+# one intra-op thread: the workers of the parallel test run share the cores,
+# which torch's thread pool in each of them would oversubscribe
+torch.set_num_threads(1)
+
 CLASSES = ["VEHICLE", "PEDESTRIAN", "CYCLIST"]
 THR = {"VEHICLE": 0.7, "PEDESTRIAN": 0.5, "CYCLIST": 0.5}
 _JIT_IOU = jax.jit(jax_iou_3d)

@@ -30,6 +30,10 @@ from efg_tpu_torch.ops.cuda import sparse_kernels as K
 from test_torch_sparse_gemm_cases import GEMM_CASES
 from test_torch_sparse_kernels import both_tensors, sites
 
+# one intra-op thread: the workers of the parallel test run share the cores,
+# which torch's thread pool in each of them would oversubscribe
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 SMEM_LIMIT = 232448  # dynamic shared memory a block may take on the H100
 SM_SMEM = 233472  # shared memory of an SM; each resident block also holds 1 KB

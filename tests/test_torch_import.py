@@ -18,6 +18,10 @@ from torch import nn as tnn
 from efg_tpu.modeling.backbones.resnet import ResNet
 from efg_tpu.utils.torch_import import import_torchvision_resnet
 
+# one intra-op thread: the workers of the parallel test run share the cores,
+# which torch's thread pool in each of them would oversubscribe
+torch.set_num_threads(1)
+
 
 class _Bottleneck(tnn.Module):
     def __init__(self, cin, mid, cout, stride):

@@ -35,6 +35,10 @@ from efg_tpu_torch.modeling import post_processing as TPP
 from efg_tpu_torch.ops.ms_deform_attn import ms_deform_attn_sample as t_msda
 from efg_tpu_torch.ops.resize import resize
 
+# one intra-op thread: the workers of the parallel test run share the cores,
+# which torch's thread pool in each of them would oversubscribe
+torch.set_num_threads(1)
+
 RESIZE_TOL = 1e-6  # of each output's max
 MSDA_TOL = 1e-5
 LOSS_TOL = 1e-5

@@ -40,6 +40,10 @@ from efg_tpu_torch.utils.jax_import import flax_to_state_dict
 
 from test_torch_conquer_ops import fill_variables
 
+# one intra-op thread: the workers of the parallel test run share the cores,
+# which torch's thread pool in each of them would oversubscribe
+torch.set_num_threads(1)
+
 CFG = dict(num_classes=4, num_points=256, class_weight=2.0, mask_weight=5.0, dice_weight=5.0,
            no_object_weight=0.1, oversample_ratio=3.0, importance_sample_ratio=0.75)
 MODEL = dict(num_classes=4, num_queries=8, d_model=32, dec_layers=3, depth=18, freeze_at=0)

@@ -26,6 +26,10 @@ from efg_tpu_torch.utils.jax_import import flax_to_state_dict
 
 from test_torch_mask2former import CFG, SEED, _port_run, jax_draws, jax_setup, lower_smooth
 
+# one intra-op thread: the workers of the parallel test run share the cores,
+# which torch's thread pool in each of them would oversubscribe
+torch.set_num_threads(1)
+
 GRAD_TOL = 1e-4
 # gradients that are 0 in exact arithmetic: an attention key's bias shifts
 # every logit of a query alike, a conv bias ahead of a GroupNorm is removed

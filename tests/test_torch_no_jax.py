@@ -86,6 +86,10 @@ print(json.dumps({"modules": names, "nets": nets, "loaded": sorted(sys.modules)}
     for exp in ("synthetic/fcos.synth.res50", "synthetic/retinanet.synth.res50",
                 "synthetic/autoassign.synth.res50", "coco/fcos/fcos.res50.fpn.coco.800size.1x"):
         assert f"playground/detection.2d/{exp}/net.py" in res["nets"], exp
+    for name in ("ops.deform_conv", "ops.cuda.match_kernels", "modeling.registry",
+                 "modeling.losses", "modeling.losses.common", "modeling.heads.multigroup_head",
+                 "engine.registry"):
+        assert f"efg_tpu_torch.{name}" in res["modules"], name
     for name in ("ops.resize", "ops.ms_deform_attn", "modeling.backbones.swin",
                  "modeling.common.layers", "modeling.post_processing", "models.mask2former",
                  "evaluator.panoptic_evaluator", "utils.torch_import", "utils.jax_import"):
@@ -101,18 +105,22 @@ print(json.dumps({"modules": names, "nets": nets, "loaded": sorted(sys.modules)}
 
 
 def test_every_kernel_source_is_bound_and_built():
-    """Each csrc/*.cu has C entries bound in sparse_kernels and is among the
-    sources the build compiles; no source is left out."""
+    """Each csrc/*.cu has C entries bound in sparse_kernels or match_kernels
+    and is among the sources the build compiles; no source is left out."""
+    from efg_tpu_torch.ops.cuda import build
+    from efg_tpu_torch.ops.cuda import match_kernels as MK
     from efg_tpu_torch.ops.cuda import sparse_kernels as K
 
     sources = sorted(p.stem for p in (ROOT / "efg_tpu_torch" / "csrc").glob("*.cu"))
-    assert sources == sorted(K.KERNEL_SOURCES) == [
-        "gather_dw", "gather_gemm", "gather_gemm_g3", "rank_flags", "rank_flags_hostwin",
-        "rank_flags_seq4"]
+    signatures = {**K._SIGNATURES, **MK._SIGNATURES}
+    assert sources == sorted(K.KERNEL_SOURCES + MK.KERNEL_SOURCES) == sorted(build.SOURCES) == [
+        "device_match", "gather_dw", "gather_gemm", "gather_gemm_g3", "rank_flags",
+        "rank_flags_hostwin", "rank_flags_seq4"]
     for stem in sources:
         text = (ROOT / "efg_tpu_torch" / "csrc" / f"{stem}.cu").read_text()
-        for entry in K._SIGNATURES[stem]:
+        for entry in signatures[stem]:
             assert f'extern "C" int {entry}(' in text, entry
+    assert set(MK.launches) == {"device_match"}
     assert set(K.launches) == {
         "rank_flags", "gather_gemm", "gather_gemm_stacked", "gather_dw", "rank_flags_seq4",
         "rank_flags_hostwin", "gather_gemm_g3", "gather_gemm_g3_stacked", "gather_gemm_256",

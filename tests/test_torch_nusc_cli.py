@@ -26,6 +26,10 @@ from efg_tpu_torch.models import centerpoint as TCP
 
 from test_torch_nuscenes_data import PILLAR_EXP, VOXEL_EXP, nusc_config_file, prepare_nuscenes
 
+# one intra-op thread: the workers of the parallel test run share the cores,
+# which torch's thread pool in each of them would oversubscribe
+torch.set_num_threads(1)
+
 PC = "[-12.0,-12.0,-5.0,12.0,12.0,3.0]"
 SMALL = {
     PILLAR_EXP: [f"dataset.pc_range={PC}", "dataset.processors.train[5].PadPoints.num_points=2048",

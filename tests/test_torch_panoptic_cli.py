@@ -36,6 +36,10 @@ from efg_tpu_torch.engine.train_state import ModelDef
 from test_torch_panoptic_data import VAL_SIZES, small_opts, write_coco_panoptic
 from test_torch_swin import mmdet_swin
 
+# one intra-op thread: the workers of the parallel test run share the cores,
+# which torch's thread pool in each of them would oversubscribe
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 SYNTH = "panoptic_seg/synthetic/mask2former.synth.res50"
 COCO = "panoptic_seg/coco/mask2former/mask2former.pano_coco.{}.bs16.50e"

@@ -32,6 +32,10 @@ from efg_tpu_torch.utils.jax_import import flax_to_state_dict
 from test_torch_sparse_net import fill_variables
 from test_torch_train import _F32Jnp
 
+# one intra-op thread: the workers of the parallel test run share the cores,
+# which torch's thread pool in each of them would oversubscribe
+torch.set_num_threads(1)
+
 CLASSES = ["car", "truck", "construction_vehicle", "bus", "trailer", "barrier", "motorcycle",
            "bicycle", "pedestrian", "traffic_cone"]
 TASKS = ({"num_classes": 1, "class_names": ["car"]},

@@ -31,6 +31,10 @@ from efg_tpu_torch.ops.cuda import sparse_kernels as K
 from test_torch_sparse_kernels import both_tensors, sites
 from test_torch_sparse_variants import LANES, RANK_CASES, _max_rounds
 
+# one intra-op thread: the workers of the parallel test run share the cores,
+# which torch's thread pool in each of them would oversubscribe
+torch.set_num_threads(1)
+
 PK.set_interpret(True)
 
 ROOT = Path(__file__).resolve().parents[1]

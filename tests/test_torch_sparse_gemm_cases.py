@@ -43,6 +43,10 @@ from efg_tpu_torch.ops.cuda import sparse_kernels as K
 
 from test_torch_sparse_kernels import NO_LAUNCHES, both_tensors, sites
 
+# one intra-op thread: the workers of the parallel test run share the cores,
+# which torch's thread pool in each of them would oversubscribe
+torch.set_num_threads(1)
+
 PK.set_interpret(True)
 
 ROOT = Path(__file__).resolve().parents[1]

@@ -17,6 +17,10 @@ from efg_tpu.ops.pallas import sparse_kernels as PK
 from efg_tpu_torch.ops import sparse as TS
 from efg_tpu_torch.ops.cuda import sparse_kernels as K
 
+# one intra-op thread: the workers of the parallel test run share the cores,
+# which torch's thread pool in each of them would oversubscribe
+torch.set_num_threads(1)
+
 PK.set_interpret(True)
 
 SHAPE = (6, 10, 12)  # (D, H, W)

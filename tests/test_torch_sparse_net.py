@@ -17,6 +17,10 @@ from efg_tpu_torch.utils.jax_import import flax_to_state_dict
 
 from test_torch_sparse_kernels import both_tensors, sites
 
+# one intra-op thread: the workers of the parallel test run share the cores,
+# which torch's thread pool in each of them would oversubscribe
+torch.set_num_threads(1)
+
 
 def fill_variables(shapes, seed):
     """Numpy values for a flax variable tree from `jax.eval_shape(init)`:

@@ -33,6 +33,10 @@ from efg_tpu_torch.utils.jax_import import flax_to_state_dict
 
 from test_torch_conquer_ops import fill_variables
 
+# one intra-op thread: the workers of the parallel test run share the cores,
+# which torch's thread pool in each of them would oversubscribe
+torch.set_num_threads(1)
+
 KW = dict(embed_dim=32, depths=(2, 2, 2, 2), num_heads=(2, 2, 4, 4), window_size=7, ape=True,
           pretrain_img_size=112)
 OUT_TOL = 1e-4  # of each output's max

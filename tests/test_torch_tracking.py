@@ -41,6 +41,10 @@ from efg_tpu_torch.tracking import tf_tracker as TTFT
 from efg_tpu_torch.tracking import tracker as TT
 from efg_tpu_torch.utils.jax_import import flax_to_state_dict
 
+# one intra-op thread: the workers of the parallel test run share the cores,
+# which torch's thread pool in each of them would oversubscribe
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 SYNTH = str(ROOT / "playground/tracking.3d/synthetic/trajectoryformer.synth/config.yaml")
 CLASSES = ("VEHICLE", "PEDESTRIAN", "CYCLIST")

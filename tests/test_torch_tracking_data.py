@@ -50,6 +50,10 @@ from efg_tpu_torch.utils import distributed as comm
 from test_torch_data import _equal
 from test_torch_waymo_data import PC_RANGE, prepare_waymo
 
+# one intra-op thread: the workers of the parallel test run share the cores,
+# which torch's thread pool in each of them would oversubscribe
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 SYNTH_DIR = "playground/tracking.3d/synthetic"
 SYNTH = str(ROOT / SYNTH_DIR / "trajectoryformer.synth/config.yaml")

@@ -33,6 +33,10 @@ from efg_tpu_torch.utils.jax_import import flax_to_state_dict
 from test_torch_centerpoint import KW, _cloud
 from test_torch_sparse_net import fill_variables
 
+# one intra-op thread: the workers of the parallel test run share the cores,
+# which torch's thread pool in each of them would oversubscribe
+torch.set_num_threads(1)
+
 LOSS_CFG = dict(out_size_factor=8, gaussian_overlap=0.1, min_radius=2, max_objs=500,
                 code_weights=[1.0] * 8, weight=2)  # the flagship's model.loss
 MODEL_CFG = dict(pc_range=KW["pc_range"], voxel_size=KW["voxel_size"],

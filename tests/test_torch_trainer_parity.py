@@ -41,6 +41,10 @@ from efg_tpu_torch.utils.seed import seed_all_rng
 
 from test_torch_train import STEP_TOL, _record_occupancy
 
+# one intra-op thread: the workers of the parallel test run share the cores,
+# which torch's thread pool in each of them would oversubscribe
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 CONFIG = str(ROOT / "playground/detection.3d/synthetic/centerpoint.synth.voxelnet/config.yaml")
 # the golden's small overrides, with a 12.8 m square, a narrower RPN, and

@@ -27,6 +27,10 @@ from efg_tpu_torch.geometry import box_ops_torch as TG
 from efg_tpu_torch.models import trajectoryformer as TTF
 from efg_tpu_torch.utils.jax_import import flax_to_state_dict
 
+# one intra-op thread: the workers of the parallel test run share the cores,
+# which torch's thread pool in each of them would oversubscribe
+torch.set_num_threads(1)
+
 D_MODEL, LAYERS, POINTS, HISTORY, N_HYP, N_PTS = 32, 2, 16, 3, 8, 512
 FWD_TOL = 1e-5  # forward outputs and losses, absolute at O(1) values
 GRAD_TOL = 1e-4  # each leaf's step-1 gradient, relative to the leaf's max

@@ -13,6 +13,10 @@ from efg_tpu.ops import voxelize as JV
 from efg_tpu_torch.modeling.readers import voxel_reader as TR
 from efg_tpu_torch.ops import voxelize as TV
 
+# one intra-op thread: the workers of the parallel test run share the cores,
+# which torch's thread pool in each of them would oversubscribe
+torch.set_num_threads(1)
+
 PC_RANGE = (-6.4, -6.4, -2.0, 6.4, 6.4, 4.0)
 VOXEL = (0.1, 0.1, 0.15)
 

@@ -25,6 +25,10 @@ from efg_tpu_torch.utils.catalog import Detectron2Handler, PathManager
 from test_torch_waymo_data import prepare_waymo, waymo_config_file
 from test_torch_weight_import import reference_state_dict
 
+# one intra-op thread: the workers of the parallel test run share the cores,
+# which torch's thread pool in each of them would oversubscribe
+torch.set_num_threads(1)
+
 NECK = (("layer_nums", (1, 1)), ("ds_layer_strides", (1, 2)), ("ds_num_filters", (32, 64)),
         ("us_layer_strides", (1, 2)), ("us_num_filters", (32, 32)))  # the fixture config's
 

@@ -34,6 +34,10 @@ from test_torch_conquer_ops import fill_variables
 from test_torch_conquer_train import LOSS_TOL, WEIGHT_SEED, _gt, _rel
 from test_torch_waymo_data import prepare_waymo
 
+# one intra-op thread: the workers of the parallel test run share the cores,
+# which torch's thread pool in each of them would oversubscribe
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 DETR_DIR = "playground/detection.3d/waymo/conquer"
 VOXELDETR = "voxeldetr.waymo.res18.p3.bs6.epoch6"

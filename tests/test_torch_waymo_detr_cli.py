@@ -19,6 +19,10 @@ from efg_tpu_torch.engine import trainer as T
 from test_torch_waymo_data import prepare_waymo
 from test_torch_waymo_detr import CONQUER, SHRINK, VOXELDETR, detr_config_files
 
+# one intra-op thread: the workers of the parallel test run share the cores,
+# which torch's thread pool in each of them would oversubscribe
+torch.set_num_threads(1)
+
 CLI_SMALL = [*SHRINK, "dataset.processors.train[6].PadPoints.num_points=2048",
              "dataset.processors.val[1].PadPoints.num_points=2048", "dataloader.batch_size=2",
              "dataloader.num_workers=0", "trainer.log_interval=1", "trainer.window_size=1"]

@@ -39,6 +39,10 @@ from test_torch_centerpoint import KW, _cloud
 from test_torch_sparse_net import fill_variables
 from test_torch_train import TRAIN_KW, _F32Jnp
 
+# one intra-op thread: the workers of the parallel test run share the cores,
+# which torch's thread pool in each of them would oversubscribe
+torch.set_num_threads(1)
+
 # f32 activations, and voxel and stage capacities above the clouds'
 # occupancy (TRAIN_KW): efg_tpu's XLA rule9 misreads a tap of a full stage
 # (ROADMAP queue 3), which moved a head map by 3e-3 at KW's capacities
