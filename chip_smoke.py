@@ -277,10 +277,14 @@ either. Phases (each prints JSON lines; any failure exits 1):
              its plain version bit for bit on both steps' captured costs
              (and equal to the step's own assignment) and on the hazards
              MATCH_HAZARDS (more GTs than queries, empty masks, ties, nan
-             and ±inf, Q of 1-3000, the workspace route), each total cost
-             within 1e-3 of scipy's optimum; its ms, device ms, plain ms,
+             and ±inf, Q of 1-3000, the costs and the state in the
+             workspace, the route boundary at the block's shared memory,
+             padding rows), each total cost within 1e-3 of scipy's
+             optimum; the plan each solve took (threads; the costs in
+             shared memory or the workspace); its ms, device ms, plain ms,
              the host route's ms and the bound (one read of the costs; the
-             serial floor of Dijkstra steps × a measured block argmin);
+             serial floor of Dijkstra steps × the measured one-barrier
+             block argmin);
              ConQueR's step with the host and the device route in turns.
              Then one CLI run of each new solver option (Adam, AdamWMulti
              with a backbone multiplier and the cosine schedule,
@@ -6275,12 +6279,22 @@ def _match_nonfinite():
     return cost, mask
 
 
+def _match_pad_but_last():
+    cost, mask = _match_randn(12, 2, 40, 24)
+    mask[:] = False
+    mask[:, -1] = True
+    return cost, mask
+
+
 # device_match.cu's hazards (this script's own copy of the makers in
 # tests/test_torch_matcher.py, which holds the plain version against
 # efg_tpu's device_match on the small ones): more GTs than queries, every
 # mask empty, one valid GT, integer costs full of ties, nan and ±inf, Q of
-# 1, 31, 33, 1000 and 3000 (shared memory above 48 KB), G of 1 and 256, and
-# a Q whose state takes the workspace route
+# 1, 31, 33, 1000 and 3000 (the costs in the workspace), G of 1 and 256, a
+# Q whose state takes the workspace too, the route boundary (staged costs
+# and state exactly at the block's shared memory, and 16 bytes above),
+# every row padding but the last, Q of 20 (below a warp) and 300 (not a
+# multiple of the threads)
 MATCH_HAZARDS = {
     "g_over_q": lambda: _match_randn(1, 2, 3, 5, p_valid=0.9),
     "masks_empty": lambda: _match_randn(2, 2, 8, 4, p_valid=0.0),
@@ -6293,6 +6307,11 @@ MATCH_HAZARDS = {
     "q1000_g256": lambda: _match_randn(9, 2, 1000, 256, p_valid=0.63),
     "q3000_g256": lambda: _match_randn(10, 1, 3000, 256, p_valid=0.63),
     "workspace": lambda: _match_randn(11, 1, 14000, 8, p_valid=1.0),
+    "smem_limit": lambda: _match_randn(13, 1, 1124, 47, p_valid=0.8),
+    "smem_limit_over": lambda: _match_randn(14, 1, 1125, 47, p_valid=0.8),
+    "pad_but_last": _match_pad_but_last,
+    "q20_g12": lambda: _match_randn(15, 2, 20, 12, p_valid=0.9),
+    "q300_g48": lambda: _match_randn(16, 2, 300, 48),
 }
 
 
@@ -6320,7 +6339,10 @@ def _match_check(label, cost, mask, recorded=None):
     the same costs: f32 additions and subtractions round alike there) bit
     for bit, against the step's own assignment where recorded, and its
     total cost against scipy's optimum within MATCH_OPT_RTOL. Returns the
-    check's record, with the plain version's Dijkstra steps per problem."""
+    check's record, with the plan the call took (threads, route: the
+    costs in shared memory or in the workspace; the library's, which must
+    equal the wrapper's) and the plain version's Dijkstra steps per
+    problem."""
     import torch
 
     from efg_tpu_torch.ops.cuda import match_kernels as MK
@@ -6332,7 +6354,12 @@ def _match_check(label, cost, mask, recorded=None):
     ref = MK.device_match_plain(cost, mask, steps)
     plain_s = time.perf_counter() - t0
     tot, opt = _assignment_totals(cost.numpy(), mask.numpy(), got.numpy())
-    rec = {"label": label, "B": cost.shape[0], "Q": cost.shape[1], "G": cost.shape[2],
+    b, q, g = cost.shape
+    plan = MK.kernel_plan(b, q, g) if q else None
+    if q and plan != MK.plan(b, q, g):
+        raise AssertionError(f"matcher {label}: the library's plan {plan}, the wrapper's "
+                             f"{MK.plan(b, q, g)}")
+    rec = {"label": label, "B": b, "Q": q, "G": g, "plan": plan,
            "valid": int(mask.sum()), "plain_device": "cpu", "plain_s": plain_s,
            "bit_exact": bool(torch.equal(got, ref)),
            "equals_step": None if recorded is None else bool(torch.equal(got, recorded)),
@@ -6354,7 +6381,8 @@ def _match_timed(rec, cost, mask, step_ms):
     the copy back: backend="host" around the same call), and the two-part
     bound: one read of the costs (and mask, and write of the result) at the
     card's memory rate, and the serial floor, the largest problem's
-    Dijkstra steps × one block argmin (`step_ms`, measured)."""
+    Dijkstra steps × one block argmin (`step_ms`: the one-barrier
+    reduction at the plan's threads, measured)."""
     import torch
 
     from efg_tpu_torch.ops import matcher as TM
@@ -6415,12 +6443,13 @@ def phase_matcher(card: str):
                                                    "cuda"), runs=5) / ARGMIN_CHAIN_ITERS
     emit({"phase": "matcher", "part": "argmin_step", "card": card,
           "ms_per_block_argmin": {str(k): v for k, v in step_ms.items()},
+          "reduction": "one barrier: two redux.sync minimums a warp, parity slots, two more",
           "chain": ARGMIN_CHAIN_ITERS})
     rows = []
     for name, calls in MATCH_CAPTURE.items():
         (cost, mask, assign), = calls[:1]
         rec = _match_check(name, cost, mask, recorded=assign)
-        row = _match_timed(rec, cost, mask, step_ms[MK.block_threads(cost.shape[1])])
+        row = _match_timed(rec, cost, mask, step_ms[rec["plan"]["threads"]])
         launches, steps = MATCH_STEP_LAUNCHES[name]
         row["launches_a_step"] = launches / steps
         emit({"phase": "matcher", "part": "captured", "card": card, **row})
@@ -6455,6 +6484,8 @@ def phase_matcher(card: str):
                    "captured training-step solves; launches over the training steps of phases "
                    "detr_train and panoptic (COCO)",
             "launches_a_step": {k: n / steps for k, (n, steps) in MATCH_STEP_LAUNCHES.items()},
+            "plans": {r["label"]: r["plan"] for r in rows},
+            "argmin_step_ms": {str(k): v for k, v in step_ms.items()},
             "tolerance": "assignment bit for bit vs plain; total within 1e-3 of scipy's optimum",
             "card": card, "calls": len(rows)}
 

@@ -11,11 +11,18 @@ subtractions in efg_tpu's order with jnp.argmin's tie rule, so the kernel,
 the plain version and efg_tpu give the same assignment bit for bit.
 `launches["device_match"]` counts the kernel's launches (CPU calls never
 count).
+
+The kernel's plan (`plan`) is computed here from the source's `constexpr`
+lines, as the kernel computes it: where the staged costs and the state fit
+the block's shared memory the call allocates no workspace and makes one C
+call; otherwise it allocates the workspace the plan names first.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import re
 from typing import Dict, List, Optional
 
 import torch
@@ -24,12 +31,12 @@ from efg_tpu_torch.ops.cuda import build as _build
 
 launches: Dict[str, int] = {"device_match": 0}
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "device_match": {
-        "efg_device_match_workspace": [_I, _I, _I, ctypes.POINTER(ctypes.c_longlong)],
-        "efg_device_match": [_I, _P, _P, _P, _P, _I, _I, _I, _P],
-        "efg_device_match_threads": [_I, ctypes.POINTER(_I)],
+        "efg_device_match_plan": [_I, _I, _I, *[ctypes.POINTER(_I)] * 3, ctypes.POINTER(_LL),
+                                  *[ctypes.POINTER(_I)] * 2, ctypes.POINTER(_LL)],
+        "efg_device_match": [_I, _P, _P, _P, _P, _LL, _I, _I, _I, _P],
         "efg_argmin_chain": [_I, _I, _I, _P, _P],
     },
 }
@@ -43,9 +50,11 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
-def _solve_one(c: torch.Tensor, valid: torch.Tensor, steps: List[int]) -> torch.Tensor:
+def _solve_one(c: torch.Tensor, valid: torch.Tensor, steps: List[int],
+               rows: Optional[List[int]] = None) -> torch.Tensor:
     """One problem: c [Q, G] f32, valid [G] bool → col4row [G] int64; the
-    Dijkstra steps of each row solved are appended to `steps`."""
+    Dijkstra steps of each row solved are appended to `steps`, and the
+    row each step reads to `rows` when given."""
     q, g = c.shape
     cst = torch.nan_to_num(c.t(), nan=0.0, posinf=POSINF, neginf=NEGINF).contiguous()  # [G, Q]
     inf = torch.tensor(float("inf"))
@@ -62,6 +71,8 @@ def _solve_one(c: torch.Tensor, valid: torch.Tensor, steps: List[int]) -> torch.
         path = torch.zeros(q, dtype=torch.int64)
         in_tree = torch.zeros(g, dtype=torch.bool)
         while sink < 0 and bool(remaining.any()) and n <= g:
+            if rows is not None:
+                rows.append(i)
             in_tree[i] = True
             r = min_val + cst[i] - u[i] - v
             upd = remaining & (r < spc)
@@ -120,6 +131,74 @@ def device_match_plain(cost: torch.Tensor, gt_mask: torch.Tensor,
     return torch.stack(out).to(cost.device)
 
 
+@functools.lru_cache(maxsize=None)
+def source_constants(path: Optional[str] = None) -> Dict[str, int]:
+    """The integer `constexpr` constants of csrc/device_match.cu (or of the
+    source at `path`) that are arithmetic, each evaluated from the earlier
+    ones (a conditional one is C's alone)."""
+    text = open(path or _build.CSRC / "device_match.cu").read()
+    env: Dict[str, int] = {}
+    for name, expr in re.findall(r"constexpr (?:int|long long) (k\w+) = ([^;]+);", text):
+        if "?" not in expr:
+            env[name] = int(eval(expr, {}, dict(env)))  # integer arithmetic of earlier ones
+    return env
+
+
+def _round_up(x: int, a: int) -> int:
+    return -(-x // a) * a
+
+
+@functools.lru_cache(maxsize=256)
+def plan(b: int, q: int, g: int, path: Optional[str] = None) -> Dict[str, object]:
+    """The kernel's plan for B problems of Q × G (Q ≥ 1), as the source
+    computes it: the threads that solve (the smallest power of two ≥
+    ⌈Q / kCols⌉, at least 32, at most kMaxThreads) and the block's (at
+    least kStageThreads, which stage the costs), the columns a solving
+    thread takes at a time in a step's pass (the smallest power of two ≥
+    ⌈Q / threads⌉, at most kBatch), the route ("shared": the costs,
+    transposed with row stride Q | 1, and the state in shared memory;
+    else "workspace"), whether the state sits in shared memory, the
+    dynamic shared memory and the workspace bytes."""
+    k = source_constants(path)
+    limit = k["kSmemLimit"] - k["kStaticSmem"]
+    cost = _round_up(4 * g * (q | 1), 16)
+    state = _round_up(k["kBytesPerCol"] * q + k["kBytesPerRow"] * g, 16)
+    threads = 32
+    while threads * k["kCols"] < q and threads < k["kMaxThreads"]:
+        threads *= 2
+    block = max(threads, k["kStageThreads"])
+    batch = 1
+    while batch < -(-q // threads) and batch < k["kBatch"]:
+        batch *= 2
+    shared, state_smem = cost + state <= limit, state <= limit
+    tiles = 4 * (block // 32) * k["kTile"] * (k["kTile"] + 1)
+    out = {"threads": threads, "block": block, "batch": batch}
+    if shared:
+        return {**out, "route": "shared", "state_smem": True, "smem_bytes": cost + state,
+                "workspace_bytes": 0}
+    ws = _round_up(b * cost, k["kAlign"])
+    if not state_smem:
+        ws += b * _round_up(state, k["kAlign"])
+    return {**out, "route": "workspace", "state_smem": state_smem,
+            "smem_bytes": max(state if state_smem else 0, tiles), "workspace_bytes": ws}
+
+
+def kernel_plan(b: int, q: int, g: int) -> Dict[str, object]:
+    """The built library's own plan (`efg_device_match_plan`), in `plan`'s
+    form."""
+    lib = _lib()
+    threads, block, batch, costs, state = (ctypes.c_int(0) for _ in range(5))
+    smem, ws = ctypes.c_longlong(0), ctypes.c_longlong(0)
+    err = lib.efg_device_match_plan(b, q, g, ctypes.byref(threads), ctypes.byref(block),
+                                    ctypes.byref(batch), ctypes.byref(smem), ctypes.byref(costs),
+                                    ctypes.byref(state), ctypes.byref(ws))
+    if err:
+        _build.check(lib, err, "device_match plan")
+    return {"threads": threads.value, "block": block.value, "batch": batch.value,
+            "route": "shared" if costs.value else "workspace", "state_smem": bool(state.value),
+            "smem_bytes": smem.value, "workspace_bytes": ws.value}
+
+
 def _device_match_cuda(cost: torch.Tensor, gt_mask: torch.Tensor) -> torch.Tensor:
     dev = cost.device
     if gt_mask.device != dev:
@@ -139,15 +218,12 @@ def _device_match_cuda(cost: torch.Tensor, gt_mask: torch.Tensor) -> torch.Tenso
     if q == 0:  # no column is ever free: every row is skipped
         return torch.full((b, g), -1, dtype=torch.int64, device=dev)
     out = torch.empty((b, g), dtype=torch.int64, device=dev)
+    ws_bytes = plan(b, q, g)["workspace_bytes"]
+    ws = torch.empty(ws_bytes, dtype=torch.uint8, device=dev) if ws_bytes else None
     lib = _lib()
-    nbytes = ctypes.c_longlong(0)
-    err = lib.efg_device_match_workspace(b, q, g, ctypes.byref(nbytes))
-    if err:
-        _build.check(lib, err, "device_match workspace")
-    ws = torch.empty(max(nbytes.value, 1), dtype=torch.uint8, device=dev)
-    stream = ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(dev.index))
     err = lib.efg_device_match(dev.index or 0, cost.data_ptr(), mask.data_ptr(), out.data_ptr(),
-                               ws.data_ptr(), b, q, g, stream)
+                               None if ws is None else ws.data_ptr(), ws_bytes, b, q, g,
+                               ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(dev.index)))
     if err:
         _build.check(lib, err, "device_match launch")
     launches["device_match"] += 1
@@ -159,10 +235,8 @@ def _lib():
 
 
 def block_threads(q: int) -> int:
-    """The kernel's threads a block for Q columns (from the source)."""
-    n = ctypes.c_int(0)
-    _lib().efg_device_match_threads(q, ctypes.byref(n))
-    return n.value
+    """The built kernel's threads that solve Q columns."""
+    return kernel_plan(1, q, 1)["threads"]
 
 
 def argmin_chain(threads: int, iters: int, device) -> torch.Tensor:

@@ -27,7 +27,11 @@ the rules that differ from torch's own optimizers and clipping:
   factored over the two largest dims where the second largest is ≥ 128,
   the update clipped to block RMS 1, scaled by lr and by the parameter's
   RMS (at least 1e-3), ε 1e-30 added to the squared gradient, no momentum;
-  the decayed weights are added after the lr scaling, as optax does;
+  the decayed weights are added after the lr scaling, as optax does. It
+  decides and keeps each leaf's moments on the flax leaf's shape
+  (`utils/jax_import.py` `flax_shapes`), not the torch tensor's: an MHA's
+  flax kernels [C, NH, hd] are one Linear [C, C] in torch, which would
+  factor where efg_tpu keeps a full moment;
 - LARS_SGD is optax.lars: decayed weights added, the trust ratio
   tc·‖p‖/‖u‖ (1 where either norm is 0) on every leaf, −lr, then the
   momentum trace;
@@ -161,6 +165,20 @@ def _flax_paths(module: nn.Module) -> List[tuple]:
     return paths
 
 
+def leaf_layouts(module: nn.Module) -> list:
+    """The flax layout (`utils/jax_import.py` `FlaxLayout`) of every
+    parameter of `module`, in `parameters()` order."""
+    from efg_tpu_torch.utils.jax_import import flax_shapes
+
+    shapes = flax_shapes(module)
+    out = []
+    for key, _ in module.named_parameters():
+        if key not in shapes:
+            raise KeyError(f"parameter {key} has no flax leaf: its layout cannot be read")
+        out.append(shapes[key])
+    return out
+
+
 def decay_mask(module: nn.Module) -> List[bool]:
     """efg_tpu's `_norm_bias_mask` for `module.parameters()`, in order:
     True = decayed. Decided on each parameter's flax path and leaf rank."""
@@ -258,6 +276,8 @@ class LARS(_Clipped):
 
 @dataclasses.dataclass
 class AdafactorState:
+    """The moments in each leaf's flax layout, as optax keeps them."""
+
     count: int  # updates applied so far
     v_row: List[torch.Tensor]  # factored leaves: the row statistics ([1] elsewhere)
     v_col: List[torch.Tensor]  # factored leaves: the column statistics ([1] elsewhere)
@@ -278,31 +298,40 @@ def factored_dims(shape: Sequence[int], min_dim_size_to_factor: int = 128):
 
 class Adafactor(_Clipped):
     """efg_tpu's `Adafactor`, optax.adafactor(lr, weight_decay_rate=wd or
-    None) with optax's defaults (see the module docstring)."""
+    None) with optax's defaults (see the module docstring). `layouts`, one
+    a parameter in `parameters()` order, give each leaf's flax layout: the
+    gradient is viewed in it, the moments are decided and kept in it, and
+    the update is mapped back."""
 
     decay_rate, min_dim_size_to_factor, eps = 0.8, 128, 1e-30
     clipping_threshold, min_scale = 1.0, 1e-3
 
-    def __init__(self, *, lr_schedule: Callable, weight_decay: float = 0.0,
+    def __init__(self, *, lr_schedule: Callable, layouts: Sequence, weight_decay: float = 0.0,
                  max_norm: Optional[float] = None, clip_value: Optional[float] = None):
         self.lr_schedule = lr_schedule
+        self.layouts = list(layouts)
         self.weight_decay = weight_decay or None
         self.max_norm = max_norm
         self.clip_value = clip_value
 
     def init(self, params: Sequence[torch.Tensor]) -> AdafactorState:
+        if len(params) != len(self.layouts):
+            raise ValueError(f"{len(params)} parameters, {len(self.layouts)} leaf layouts")
         state = AdafactorState(0, [], [], [])
-        for p in params:
+        for p, layout in zip(params, self.layouts):
+            if tuple(p.shape) != layout.torch_shape:
+                raise ValueError(f"parameter {tuple(p.shape)}, layout of {layout.torch_shape}")
             one = p.new_zeros(1)
-            dims = factored_dims(p.shape, self.min_dim_size_to_factor)
+            shape = layout.shape
+            dims = factored_dims(shape, self.min_dim_size_to_factor)
             if dims is None:
                 state.v_row.append(one)
                 state.v_col.append(one.clone())
-                state.v.append(torch.zeros_like(p))
+                state.v.append(p.new_zeros(shape))
             else:
                 d1, d0 = dims
-                state.v_row.append(p.new_zeros([n for i, n in enumerate(p.shape) if i != d0]))
-                state.v_col.append(p.new_zeros([n for i, n in enumerate(p.shape) if i != d1]))
+                state.v_row.append(p.new_zeros([n for i, n in enumerate(shape) if i != d0]))
+                state.v_col.append(p.new_zeros([n for i, n in enumerate(shape) if i != d1]))
                 state.v.append(one)
         return state
 
@@ -314,9 +343,10 @@ class Adafactor(_Clipped):
         rho = 1.0 - _f32(k + 1) ** (-self.decay_rate)  # β2 of this step, in f32
         decay, keep = float(rho), float(1.0 - rho)
         lr = float(_f32(self.lr_schedule(k)))
-        for i, (p, g) in enumerate(zip(params, grads)):
+        for i, (p, g, layout) in enumerate(zip(params, grads, self.layouts)):
+            g = layout.to_flax(g)
             g2 = g * g + self.eps
-            dims = factored_dims(p.shape, self.min_dim_size_to_factor)
+            dims = factored_dims(layout.shape, self.min_dim_size_to_factor)
             if dims is None:
                 state.v[i].copy_(decay * state.v[i] + keep * g2)
                 u = g * state.v[i] ** -0.5
@@ -329,6 +359,7 @@ class Adafactor(_Clipped):
                 row_col_mean = torch.mean(v_row, dim=reduced_d1, keepdim=True)
                 row_factor = (v_row / row_col_mean) ** -0.5
                 u = g * row_factor.unsqueeze(d0) * (v_col ** -0.5).unsqueeze(d1)
+            u = layout.from_flax(u)
             # clip_by_block_rms, scale_by_learning_rate, scale_by_param_block_rms
             u = u / torch.clamp(torch.sqrt(torch.mean(u * u)) / self.clipping_threshold, min=1.0)
             u = lr * u
@@ -359,7 +390,7 @@ def build_optimizer(cfg, lr_schedule, momentum_schedule=None, *, grad_clip_cfg=N
     """cfg = solver.optimizer; grad_clip_cfg = solver.grad_clipper. Every
     optimizer of efg_tpu's registry, with optional norm or value clipping.
     SGD / D2_SGD (decay mask) and AdamWMulti (lr multipliers) read the
-    `module`'s flax paths."""
+    `module`'s flax paths, Adafactor its flax leaf shapes."""
     kind = cfg["type"]
     if kind not in OPTIMIZERS:
         raise KeyError(f"optimizer {kind!r} is not one of efg_tpu's {OPTIMIZERS}")
@@ -375,13 +406,14 @@ def build_optimizer(cfg, lr_schedule, momentum_schedule=None, *, grad_clip_cfg=N
     if kind == "Adam":  # optax.adam: no decay, β1 fixed
         return AdamW(lr_schedule=lr_schedule, weight_decay=None,
                      **{"betas": (0.9, 0.999), **pick("betas", "eps")}, **clip)
-    if kind == "Adafactor":
-        return Adafactor(lr_schedule=lr_schedule, **pick("weight_decay"), **clip)
     if kind == "LARS_SGD":
         return LARS(lr_schedule=lr_schedule,
                     **pick("momentum", "weight_decay", "trust_coefficient"), **clip)
     if module is None:
         raise ValueError(f"optimizer {kind!r} needs the module for its per-parameter rule")
+    if kind == "Adafactor":
+        return Adafactor(lr_schedule=lr_schedule, layouts=leaf_layouts(module),
+                         **pick("weight_decay"), **clip)
     if kind == "AdamWMulti":
         return AdamW(lr_schedule=lr_schedule, lr_mults=lr_multipliers(module, kw.get(
             "lr_multipliers")), **{"eps": 1e-9, **pick("weight_decay", "betas", "eps")}, **clip)

@@ -25,7 +25,8 @@ flax path is its torch module path:
   `scales`, AutoAssign's `mu` / `sigma`) is taken as it is.
 
 `flax_names` gives each torch tensor's flax path, which the optimizers'
-weight-decay mask reads (`solver/optimizers.py`).
+weight-decay mask reads (`solver/optimizers.py`), and `flax_shapes` the
+layout of its flax leaf, on whose shape Adafactor factors its moments.
 
 The mapping is strict: every flax leaf is used once and every torch
 parameter and buffer is filled once, with its own shape; anything else
@@ -34,6 +35,7 @@ raises.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
@@ -56,10 +58,32 @@ def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()):
             yield prefix + (k,)
 
 
+@dataclasses.dataclass(frozen=True)
+class FlaxLayout:
+    """How a torch tensor lies in its flax leaf: the leaf is the tensor's
+    dims in the order `perm`, reshaped to `shape` (a Linear's `[out, in]`
+    as `[in, out]`, then an MHA's head split; OIHW as HWIO; a transposed
+    conv's `[I, O, kh, kw]` as `[kh, kw, I, O]`, whose spatial flip is not
+    undone: it only relabels positions)."""
+
+    perm: Tuple[int, ...]
+    shape: Tuple[int, ...]  # the flax leaf's
+    torch_shape: Tuple[int, ...]
+
+    def to_flax(self, t: torch.Tensor) -> torch.Tensor:
+        return t.permute(self.perm).reshape(self.shape)
+
+    def from_flax(self, x: torch.Tensor) -> torch.Tensor:
+        inverse = [self.perm.index(d) for d in range(len(self.perm))]
+        return x.reshape([self.torch_shape[d] for d in self.perm]).permute(inverse)
+
+
 def _entries(module: nn.Module):
-    """(torch state key, flax collection, flax path, convert) for every
-    tensor of `module` that has a flax leaf; `convert` maps the leaf (an
-    f32 numpy array) to the torch value."""
+    """(torch state key, flax collection, flax path, convert, perm, flax
+    shape) for every tensor of `module` that has a flax leaf; `convert`
+    maps the leaf (an f32 numpy array) to the torch value; `perm` orders
+    the torch tensor's dims as the leaf's (None: as they are) and the flax
+    shape, where given, reshapes them (an MHA's head split)."""
     heads = {}  # Linear module name → the head split of its MHA's kernels
     for name, mod in module.named_modules():
         if isinstance(mod, MultiHeadDotProductAttention):
@@ -71,6 +95,9 @@ def _entries(module: nn.Module):
 
     def same(v):
         return v
+
+    def plain(key, coll, leaf_path):  # a leaf taken as it is, in torch's layout
+        return key, coll, leaf_path, same, None, None
 
     def shaped(path, shape, then):
         def convert(v):
@@ -88,40 +115,52 @@ def _entries(module: nn.Module):
                                                 (mod.out_features,)))
             i, o = mod.in_features, mod.out_features
             yield (pre + "weight", "params", path + ("kernel",),
-                   shaped(path + ("kernel",), k_shape, lambda v, i=i, o=o: v.reshape(i, o).T))
+                   shaped(path + ("kernel",), k_shape, lambda v, i=i, o=o: v.reshape(i, o).T),
+                   (1, 0), k_shape)
             if mod.bias is not None:  # a flax Dense with use_bias=False has none
                 yield (pre + "bias", "params", path + ("bias",),
-                       shaped(path + ("bias",), b_shape, lambda v: v.reshape(-1)))
+                       shaped(path + ("bias",), b_shape, lambda v: v.reshape(-1)), None, b_shape)
         elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):
-            yield pre + "weight", "params", path + ("scale",), same
-            yield pre + "bias", "params", path + ("bias",), same
+            yield plain(pre + "weight", "params", path + ("scale",))
+            yield plain(pre + "bias", "params", path + ("bias",))
         elif isinstance(mod, (SubMConv, SparseConvDown)):
-            yield pre + "weight", "params", path + ("kernel",), same
+            yield plain(pre + "weight", "params", path + ("kernel",))
             if getattr(mod, "bias", None) is not None:
-                yield pre + "bias", "params", path + ("bias",), same
-        elif isinstance(mod, Conv2d):
-            yield pre + "weight", "params", path + ("kernel",), lambda v: v.transpose(3, 2, 0, 1)
-            if mod.bias is not None:
-                yield pre + "bias", "params", path + ("bias",), same
-        elif isinstance(mod, DeformConv):
-            yield pre + "weight", "params", path + ("kernel",), lambda v: v.transpose(3, 2, 0, 1)
+                yield plain(pre + "bias", "params", path + ("bias",))
+        elif isinstance(mod, (Conv2d, DeformConv)):
+            yield (pre + "weight", "params", path + ("kernel",), lambda v: v.transpose(3, 2, 0, 1),
+                   (2, 3, 1, 0), None)
+            if getattr(mod, "bias", None) is not None:
+                yield plain(pre + "bias", "params", path + ("bias",))
         elif isinstance(mod, ConvTranspose2d):
             yield (pre + "weight", "params", path + ("kernel",),
-                   lambda v: v[::-1, ::-1].transpose(2, 3, 0, 1))
+                   lambda v: v[::-1, ::-1].transpose(2, 3, 0, 1), (2, 3, 0, 1), None)
         elif isinstance(mod, (MaskedBatchNorm, BatchNorm, FrozenBatchNorm)):
-            yield pre + "weight", "params", path + ("scale",), same
-            yield pre + "bias", "params", path + ("bias",), same
-            yield pre + "running_mean", "batch_stats", path + ("mean",), same
-            yield pre + "running_var", "batch_stats", path + ("var",), same
+            yield plain(pre + "weight", "params", path + ("scale",))
+            yield plain(pre + "bias", "params", path + ("bias",))
+            yield plain(pre + "running_mean", "batch_stats", path + ("mean",))
+            yield plain(pre + "running_var", "batch_stats", path + ("var",))
         # parameters a module holds itself (flax `self.param` leaves),
         # taken as they are: FCOS's `scales`, AutoAssign's `mu` / `sigma`
         for leaf in getattr(mod, "flax_params", ()):
-            yield pre + leaf, "params", path + (leaf,), same
+            yield plain(pre + leaf, "params", path + (leaf,))
 
 
 def flax_names(module: nn.Module) -> Dict[str, Tuple[str, Tuple[str, ...]]]:
     """torch state key → (flax collection, flax path) of its leaf."""
-    return {key: (coll, path) for key, coll, path, _ in _entries(module)}
+    return {key: (coll, path) for key, coll, path, *_ in _entries(module)}
+
+
+def flax_shapes(module: nn.Module) -> Dict[str, FlaxLayout]:
+    """torch state key → the layout of its flax leaf (`FlaxLayout`)."""
+    shapes = {k: tuple(t.shape) for k, t in module.state_dict().items()}
+    out = {}
+    for key, _, _, _, perm, shape in _entries(module):
+        torch_shape = shapes[key]
+        perm = tuple(range(len(torch_shape))) if perm is None else perm
+        shape = tuple(torch_shape[d] for d in perm) if shape is None else tuple(shape)
+        out[key] = FlaxLayout(perm, shape, torch_shape)
+    return out
 
 
 def flax_to_state_dict(module: nn.Module, variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -143,7 +182,7 @@ def flax_to_state_dict(module: nn.Module, variables: Mapping[str, Any]) -> Dict[
         return np.asarray(node, dtype=np.float32)
 
     sd: Dict[str, np.ndarray] = {}
-    for key, coll, path, convert in _entries(module):
+    for key, coll, path, convert, *_ in _entries(module):
         if key in sd:
             raise KeyError(f"{key} filled twice")
         sd[key] = convert(take(coll, path))

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Time plans of the port's g3 gather-GEMM, default rank kernel and dW
-kernel, of gather_gemm.cu at 256 channels, and the rank kernel's wrapper,
-on one NVIDIA card.
+kernel, of gather_gemm.cu at 256 channels, of the assignment kernel, and
+the rank kernel's wrapper, on one NVIDIA card.
 
 Run from the root of a checkout: `python3 tools/port_kernel_sweep.py
-[--parent DIR] [--only rank|g3|dw|wide] [--out FILE]` (needs one CUDA device;
+[--parent DIR] [--only rank|g3|dw|wide|match] [--out FILE]` (needs one CUDA device;
 writes its JSON lines to stdout and to FILE, by default
 efg_tpu_torch/build/port_kernel_sweep.jsonl). It
 
@@ -32,7 +32,17 @@ efg_tpu_torch/build/port_kernel_sweep.jsonl). It
    calls at 256 channels of one bs=2 forward and the 5 stacked calls at
    256 of one bs=2 training step, and times gather_gemm.cu under each plan
    in GEMM_PLANS (and the parent's) in turns, each held against the plain
-   version (out within 1e-3·max|ref|, taps bit for bit).
+   version (out within 1e-3·max|ref|, taps bit for bit);
+7. with `--only match`, instead of 2-5: captures the first training solve
+   of ConQueR at bench.py's widths (bs 2, as chip_smoke.py's phase
+   detr_train does) and of Mask2Former R-50 as its COCO panoptic config is
+   written (LSJ 1024², bs 2, on chip_smoke.py's COCO panoptic fixture and
+   seeded R-50, as its phase panoptic does), and times device_match.cu
+   under each thread plan in MATCH_PLANS (and the parent's kernel through
+   the parent's wrapper) in turns: ms (CUDA events around the call) and
+   device ms (CUDA graph of the call), each held against the plain version
+   bit for bit; beside them each plan's block argmin step (a chain of
+   chip_smoke.py's ARGMIN_CHAIN_ITERS) and the serial floor it gives.
 """
 
 from __future__ import annotations
@@ -100,6 +110,17 @@ GEMM_PLANS = {
     "as_source": {},
     "lag0": {"LAG": "0"},
 }
+# Plan-line replacements of device_match.cu, by plan name: ConQueR's Q =
+# 1000 on 128, 256 and 1024 solving threads ("t128", "t256", "t1024")
+# against the source's 512; "c2" two columns a solving thread (Mask2Former's
+# Q = 100 on 64 threads, not 128)
+MATCH_PLANS = {
+    "as_source": {},
+    "t128": {"kMaxThreads": "128"},
+    "t256": {"kMaxThreads": "256"},
+    "t1024": {"kMaxThreads": "1024"},
+    "c2": {"kCols": "2"},
+}
 # the C entry of a dW kernel from before the workspace (dw zeroed by the
 # caller, no row chunks)
 DW_ENTRY_ZEROED = [ctypes.c_int, *[ctypes.c_void_p] * 4, *[ctypes.c_int] * 5, ctypes.c_void_p]
@@ -145,13 +166,17 @@ def library(stem, lib):
             del B._LIBS[stem]
 
 
-def build_variants(stem, plans, parent=None):
+def build_variants(stem, plans, parent=None, signatures=None, parent_signatures=None):
     """Compile csrc/<stem>.cu once per plan (its `constexpr` lines that the
     plan names replaced) and, given a parent checkout, the parent's source,
     one nvcc each, all at once, into efg_tpu_torch/build/sweep/; returns
-    ({name: ctypes.CDLL}, {name: ptxas lines})."""
+    ({name: ctypes.CDLL}, {name: ptxas lines}). The C entries take
+    `signatures` (the parent's `parent_signatures`; by default
+    sparse_kernels.py's)."""
     from efg_tpu_torch.ops.cuda import build as B
     from efg_tpu_torch.ops.cuda import sparse_kernels as K
+
+    signatures = signatures or K._SIGNATURES[stem]
 
     sources = {name: (plan_source(stem, name, lines), B.CSRC) for name, lines in plans.items()}
     if parent:
@@ -177,7 +202,8 @@ def build_variants(stem, plans, parent=None):
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {stem} plan {name}:\n{log}")
         cdll = ctypes.CDLL(str(lib))
-        for entry, argtypes in K._SIGNATURES[stem].items():
+        sigs = parent_signatures if name == "parent" and parent_signatures else signatures
+        for entry, argtypes in sigs.items():
             if hasattr(cdll, entry):  # a parent may have fewer entries
                 getattr(cdll, entry).argtypes = argtypes
                 getattr(cdll, entry).restype = ctypes.c_int
@@ -499,6 +525,144 @@ def sweep_dw(libs, convs):
     return rows
 
 
+def capture_match():
+    """[(label, cost, mask)] on the card: the first training solve of
+    ConQueR (chip_smoke.py's DETR at bench.py's widths, bs 2, weights from
+    its seed) and of Mask2Former R-50 (its COCO panoptic config as written,
+    one iteration through the CLI on the COCO panoptic fixture with the
+    seeded R-50), each captured by chip_smoke.py's MatcherProbe."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from efg_tpu_torch.cli.main import experiment_relpath
+    from efg_tpu_torch.engine.trainer import init_state, train_step
+
+    md, _ = CS.make_detr_train(CS.DETR, "cuda")
+    tx = CS.detr_solver()
+    state = init_state(md, tx)
+    with CS.MatcherProbe(record=1) as probe:
+        train_step(md, tx, state, CS.detr_train_batch(*CS.DETR_TRAIN_BATCH, "cuda"), seed=CS.SEED)
+    torch.cuda.synchronize()
+    calls = [("conquer", *probe.calls[0][:2])]
+    del md, state, tx, probe
+    torch.cuda.empty_cache()
+
+    base = tempfile.mkdtemp(prefix="port_kernel_sweep_m2f_")
+    old_env = {k: os.environ.get(k) for k in ("EFG_CACHE_DIR", "EFG_PATH")}
+    os.environ["EFG_CACHE_DIR"] = os.path.join(base, "cache")
+    os.environ["EFG_PATH"] = HERE
+    try:
+        root = os.path.join(base, "coco")
+        CS.write_coco_panoptic_fixture(root)
+        weights = os.path.join(base, "R-50.pth")
+        mean = np.asarray([123.675, 116.28, 103.53], np.float32)
+        std = np.asarray([58.395, 57.12, 57.375], np.float32)
+        CS.torchvision_resnet50(weights, CS.fixture_images(root, mean=mean, std=std))
+        config = os.path.join(CS.PANOPTIC_COCO["res50"], "config.yaml")
+        out_dir = os.path.join(base, "cache", "EFG_torch",
+                               experiment_relpath(os.path.join(HERE, config)))
+        os.makedirs(out_dir, exist_ok=True)
+        argv = ["task=train", "trainer.log_interval=1", "trainer.window_size=1",
+                "solver.lr_scheduler.max_iters=1", "solver.lr_scheduler.milestones=[1]",
+                f"detection.source.local.root={root}", f"model.weights={weights}",
+                "trainer.evaluators="]
+        with CS.MatcherProbe(module="mask2former", sync=True, record=1) as probe:
+            CS._engine_run(argv, out_dir, "cuda", config=config)
+        calls.append(("mask2former_r50", *probe.calls[0][:2]))
+    finally:
+        for k, v in old_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(base, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return calls
+
+
+def parent_match_module(parent):
+    """The parent checkout's ops/cuda/match_kernels.py, loaded under its
+    own name (its wrapper launches whatever library build.load's cache
+    holds for device_match)."""
+    import importlib.util
+
+    path = os.path.join(parent, "efg_tpu_torch", "ops", "cuda", "match_kernels.py")
+    spec = importlib.util.spec_from_file_location("parent_match_kernels", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def sweep_match(libs, calls, parent_mod=None):
+    """Each captured solve through every device_match.cu plan (and the
+    parent's kernel through its wrapper), in turns (two rounds, the order
+    reversed in the second): ms (median of chip_smoke.py's TIMED_RUNS
+    CUDA-event runs around the call) and device ms (the CUDA graph of the
+    call), each held against the plain version bit for bit; returns
+    per-solve rows."""
+    import torch
+
+    from efg_tpu_torch.ops.cuda import match_kernels as MK
+
+    rows = []
+    for label, cost, mask in calls:
+        steps = []
+        ref = MK.device_match_plain(cost, mask, steps)
+        cost, mask = cost.float().cuda().contiguous(), mask.bool().cuda().contiguous()
+        b, q, g = cost.shape
+
+        def run(name):
+            with library("device_match", libs[name]):
+                return (parent_mod if name == "parent" else MK).device_match(cost, mask)
+
+        plans = {}
+        for name in libs:
+            got = run(name).cpu()
+            if not torch.equal(got, ref):
+                raise AssertionError(f"device_match {name} {label}: differs from plain")
+            if name != "parent":
+                with library("device_match", libs[name]):
+                    plans[name] = MK.kernel_plan(b, q, g)
+        ms, dev = {n: [] for n in libs}, {n: [] for n in libs}
+        for order in (list(libs), list(libs)[::-1]):
+            for name in order:
+                ms[name].append(CS.timed(lambda: run(name)))
+                d = CS.graph_device(lambda: run(name))
+                if d["kernels"] != 1:
+                    raise AssertionError(f"device_match {name} {label}: {d}")
+                dev[name].append(d["device_ms"])
+        row = {"label": label, "B": b, "Q": q, "G": g, "valid": int(mask.sum()),
+               "dijkstra_steps": sum(sum(s) for s in steps),
+               "max_steps_a_problem": max((sum(s) for s in steps), default=0), "plans": plans,
+               "ms": {n: statistics.median(t) for n, t in ms.items()}, "ms_runs": ms,
+               "device_ms": {n: statistics.median(t) for n, t in dev.items()},
+               "device_ms_runs": dev}
+        emit({"sweep": "match", **row})
+        rows.append(row)
+    return rows
+
+
+def match_argmin_steps(libs, parent_mod=None):
+    """Each plan's block argmin step (ms) at the threads it gives Q = 1000
+    and Q = 100: a chain of chip_smoke.py's ARGMIN_CHAIN_ITERS in one
+    block, median of 5 CUDA-event runs; the parent's through its wrapper."""
+    from efg_tpu_torch.ops.cuda import match_kernels as MK
+
+    out = {}
+    for name in libs:
+        mod = parent_mod if name == "parent" else MK
+        with library("device_match", libs[name]):
+            out[name] = {}
+            for q in (1000, 100):
+                t = mod.block_threads(q)
+                out[name][str(t)] = CS.timed(
+                    lambda: mod.argmin_chain(t, CS.ARGMIN_CHAIN_ITERS, "cuda"),
+                    runs=5) / CS.ARGMIN_CHAIN_ITERS
+    return out
+
+
 def main() -> int:
     import argparse
 
@@ -506,7 +670,8 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="a checkout of the parent tree: its kernels join the sweep")
-    ap.add_argument("--only", choices=("rank", "g3", "dw", "wide"), help="sweep one kernel only")
+    ap.add_argument("--only", choices=("rank", "g3", "dw", "wide", "match"),
+                    help="sweep one kernel only")
     ap.add_argument("--out", help="the file the JSON lines go to")
     args = ap.parse_args()
     global OUT
@@ -523,6 +688,28 @@ def main() -> int:
     card = CS.nvidia_smi_line()
     t0 = time.perf_counter()
     built = K.build_kernels()
+    if args.only == "match":
+        from efg_tpu_torch.ops.cuda import match_kernels as MK
+
+        parent_mod = parent_match_module(args.parent) if args.parent else None
+        libs, logs = build_variants(
+            "device_match", MATCH_PLANS, args.parent, signatures=MK._SIGNATURES["device_match"],
+            parent_signatures=parent_mod._SIGNATURES["device_match"] if parent_mod else None)
+        emit({"card": card, "build_seconds": time.perf_counter() - t0,
+              "ptxas": {"device_match": logs}})
+        calls = capture_match()
+        steps = match_argmin_steps(libs, parent_mod)
+        emit({"sweep": "match_argmin_step_ms", **steps})
+        rows = sweep_match(libs, calls, parent_mod)
+        summary = {"card": card, "argmin_step_ms": steps}
+        for row in rows:
+            t = {n: str(p["threads"]) for n, p in row["plans"].items()}
+            summary[row["label"]] = {
+                "ms": row["ms"], "device_ms": row["device_ms"],
+                "serial_floor_ms": {n: row["max_steps_a_problem"] * steps[n][t[n]]
+                                    for n in t}}
+        emit({"sweep": "summary", **summary})
+        return 0
     if args.only == "wide":
         libs, logs = build_variants("gather_gemm", GEMM_PLANS, args.parent)
         emit({"card": card, "build_seconds": time.perf_counter() - t0,
